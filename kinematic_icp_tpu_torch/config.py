@@ -1,0 +1,92 @@
+"""Configuration of the PyTorch/CUDA Kinematic-ICP pipeline.
+
+Same fields and defaults as the JAX package's ``Config`` (the reference
+``kinematic_icp::pipeline::Config`` plus the static capacities that replace
+its dynamically sized containers), so one set of values drives both
+packages.  ``gn_backend`` names this package's Gauss-Newton lowerings:
+``cuda`` is the hand-written kernel (``csrc/gn_solve.cu``), ``torch`` its
+plain tensor version, and ``auto`` takes the kernel for CUDA tensors and the
+plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+#: JAX ``gn_backend`` names -> this package's
+_BACKEND_FROM_JAX = {"pallas": "cuda", "xla": "torch", "auto": "auto"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Algorithm parameters (defaults = reference KinematicICP.hpp:38-60)."""
+
+    # Preprocessing
+    max_range: float = 100.0
+    min_range: float = 0.0
+    # Mapping parameters
+    voxel_size: float = 1.0
+    max_points_per_voxel: int = 20
+    # Correspondence threshold parameters
+    use_adaptive_threshold: bool = True
+    fixed_threshold: float = 1.0
+    # Registration parameters
+    max_num_iterations: int = 10
+    convergence_criterion: float = 0.001
+    use_adaptive_odometry_regularization: bool = True
+    fixed_regularization: float = 0.0
+    # Motion compensation
+    deskew: bool = False
+
+    #: padded per-scan point capacity
+    max_points: int = 65536
+    #: capacity of the 0.5*voxel_size downsampled cloud (map-update cloud)
+    max_downsampled: int = 16384
+    #: capacity of the 1.5*voxel_size downsampled cloud (ICP source points)
+    max_source: int = 8192
+    #: voxel slots in the hash table (max_probes x a power-of-two buckets)
+    map_capacity: int = 1 << 18
+    #: slots per bucket
+    max_probes: int = 4
+    #: candidate voxels fetched per nearest-neighbour query (27 = all)
+    neighbor_candidates: int = 10
+    #: re-gather candidates on every GN iteration (not ported yet)
+    exact_gn_reassociation: bool = False
+    #: pruned exact re-gather (not ported yet)
+    exact_prune_candidates: int = 0
+    #: keep only the top-M candidates per voxel (not ported yet)
+    gn_candidates_per_voxel: int = 0
+    #: "cuda" | "torch" | "auto" (see the module docstring)
+    gn_backend: str = "auto"
+    #: wide-frame downsample representative: "first" or "min"
+    downsample_tiebreak: str = "first"
+
+    def __post_init__(self):
+        b = self.map_capacity // self.max_probes
+        if b * self.max_probes != self.map_capacity or b & (b - 1):
+            raise ValueError(
+                "map_capacity must be max_probes x a power-of-two bucket count")
+        if self.gn_backend not in ("auto", "cuda", "torch"):
+            raise ValueError(f"gn_backend {self.gn_backend!r}")
+        if self.downsample_tiebreak not in ("first", "min"):
+            raise ValueError(f"downsample_tiebreak {self.downsample_tiebreak!r}")
+
+    def map_resolution(self) -> float:
+        """Derived parameter (reference KinematicICP.hpp:46)."""
+        return self.voxel_size / math.sqrt(self.max_points_per_voxel)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """Build from a mapping such as ``dataclasses.asdict`` of the JAX
+        ``Config``; its backend names map ``pallas``->``cuda`` and
+        ``xla``->``torch``."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in names}
+        if "gn_backend" in kw:
+            kw["gn_backend"] = _BACKEND_FROM_JAX.get(kw["gn_backend"],
+                                                     kw["gn_backend"])
+        return cls(**kw)

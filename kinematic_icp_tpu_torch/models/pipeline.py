@@ -1,0 +1,164 @@
+"""The per-frame odometry pipeline (``KinematicICP`` in PyTorch).
+
+Functional equivalent of ``kinematic_icp::pipeline::KinematicICP``
+(KinematicICP.{hpp,cpp}): the C++ class's mutable members (pose, voxel map,
+threshold accumulators) become an explicit ``OdometryState``, and
+``RegisterFrame`` becomes ``register_frame(state, inputs) -> (state',
+outputs)``.  The step reads nothing back to the host, so a frame can later
+be captured as a CUDA graph.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import Config
+from ..ops import hashmap, preprocessing, registration, se3, threshold, voxel
+from ..ops.points import P3, transform
+from ..runtime import resolve_device
+
+
+class OdometryState(NamedTuple):
+    pose: torch.Tensor                   # (4, 4) — last_pose_
+    map: hashmap.MapState                # local_map_
+    threshold: threshold.ThresholdState  # correspondence_threshold_
+
+
+class FrameOutputs(NamedTuple):
+    """Per-frame outputs, mirroring the reference's return + debug topics."""
+    frame: P3                   # (N,) planes — deskewed frame in base coords
+    frame_mask: torch.Tensor    # (N,)
+    source: P3                  # (S,) planes — ICP keypoints (base frame)
+    source_mask: torch.Tensor   # (S,)
+    pose: torch.Tensor          # (4, 4) new pose
+    debug: registration.RegistrationDebug
+    #: (3,) int32 capacity-overflow counters [downsample voxels dropped,
+    #: source voxels dropped, map insert bucket-overflow voxels]; nonzero
+    #: means the static capacities are undersized
+    overflow: torch.Tensor
+
+
+def init_state(config: Config, dtype=torch.float32, initial_pose=None,
+               device=None) -> OdometryState:
+    """Fresh state on ``device`` (``None`` = CUDA; raises if absent)."""
+    dev = resolve_device(device)
+    pose = (torch.eye(4, dtype=dtype, device=dev) if initial_pose is None
+            else torch.as_tensor(initial_pose, dtype=dtype, device=dev))
+    return OdometryState(
+        pose=pose,
+        map=hashmap.empty(config.map_capacity, config.max_points_per_voxel,
+                          bucket_slots=config.max_probes, device=dev),
+        threshold=threshold.init_state(dtype, dev),
+    )
+
+
+def set_pose(state: OdometryState, pose, config: Config) -> OdometryState:
+    """SetPose: reset pose, clear map and threshold (KinematicICP.hpp:86-90)."""
+    del config
+    return OdometryState(
+        pose=torch.as_tensor(pose, dtype=state.pose.dtype,
+                             device=state.pose.device),
+        map=hashmap.clear(state.map),
+        threshold=threshold.init_state(state.pose.dtype, state.pose.device),
+    )
+
+
+def register_frame(state: OdometryState, points, timestamps, mask,
+                   has_timestamps, lidar_to_base, relative_odometry,
+                   config: Config, active=None, rel_twist_in_lidar=None
+                   ) -> tuple[OdometryState, FrameOutputs]:
+    """One odometry step (KinematicICP.cpp:48-85).
+
+    Args:
+      state: current odometry state.
+      points: (N, 3) raw scan in the lidar frame (padded).
+      timestamps: (N,) per-point times normalized to [0, 1].
+      mask: (N,) validity of the padded rows.
+      has_timestamps: scalar bool tensor; a missing timestamp field
+        disables deskew.
+      lidar_to_base: (4, 4) extrinsic.
+      relative_odometry: (4, 4) wheel-odometry delta in the base frame.
+      active: optional scalar bool, the stationary gate; when False the
+        returned state equals the input.
+      rel_twist_in_lidar: optional precomputed (6,)
+        ``se3_log(lidar_to_base^-1 @ relative_odometry @ lidar_to_base)``.
+    """
+    dtype = state.pose.dtype
+    p = P3.from_array(points).astype(dtype)
+
+    if config.deskew:
+        if rel_twist_in_lidar is None:
+            # Deskew in the lidar frame (KinematicICP.cpp:53-55).
+            ext_inv = se3.inverse(lidar_to_base)
+            rel_odom_in_lidar = se3.compose44(
+                se3.compose44(ext_inv, relative_odometry), lidar_to_base)
+            rel_twist_in_lidar = se3.se3_log(rel_odom_in_lidar)
+        frame, frame_mask = preprocessing.preprocess(
+            p, timestamps, mask, None,
+            min_range=config.min_range, max_range=config.max_range,
+            deskew_enabled=True, has_timestamps=has_timestamps,
+            twist=rel_twist_in_lidar)
+    else:
+        frame = p
+        frame_mask = preprocessing.range_filter_mask(
+            p, mask, config.min_range, config.max_range)
+
+    frame_in_base = transform(lidar_to_base, frame)
+
+    source, source_mask, frame_ds, frame_ds_mask, ds_dropped = \
+        voxel.double_downsample(
+            frame_in_base, frame_mask, config.voxel_size,
+            max_downsampled=config.max_downsampled,
+            max_source=config.max_source, max_extent=2.0 * config.max_range,
+            tiebreak=config.downsample_tiebreak)
+
+    tau = threshold.compute_threshold(
+        state.threshold,
+        map_discretization_error=config.map_resolution(),
+        use_adaptive=config.use_adaptive_threshold,
+        fixed_threshold=config.fixed_threshold)
+
+    new_pose, debug = registration.compute_robot_motion(
+        state.map, source, source_mask, state.pose, relative_odometry, tau,
+        voxel_size=config.voxel_size, max_probes=config.max_probes,
+        max_num_iterations=config.max_num_iterations,
+        convergence_criterion=config.convergence_criterion,
+        use_adaptive_odometry_regularization=(
+            config.use_adaptive_odometry_regularization),
+        fixed_regularization=config.fixed_regularization,
+        num_candidate_voxels=config.neighbor_candidates,
+        exact_gn_reassociation=config.exact_gn_reassociation,
+        exact_prune_candidates=config.exact_prune_candidates,
+        gn_candidates_per_voxel=config.gn_candidates_per_voxel,
+        gn_backend=config.gn_backend,
+        threshold_max_range=config.max_range)
+
+    # The solve returns the point-space error of guess^-1 @ new_pose
+    # (KinematicICP.cpp:75 + CorrespondenceThreshold.cpp:37-44).
+    new_threshold = threshold.update_odometry_error_scalar(
+        state.threshold, debug.odometry_error_pt,
+        use_adaptive=config.use_adaptive_threshold)
+
+    new_map, insert_failed = hashmap.update(
+        state.map, frame_ds, frame_ds_mask, new_pose,
+        config.voxel_size, config.max_range, config.max_probes,
+        enable=active, max_extent=2.0 * config.max_range,
+        return_failed=True)
+
+    if active is not None:
+        new_pose = torch.where(active, new_pose, state.pose)
+        new_threshold = threshold.ThresholdState(
+            *(torch.where(active, a, b)
+              for a, b in zip(new_threshold, state.threshold)))
+
+    new_state = OdometryState(pose=new_pose, map=new_map,
+                              threshold=new_threshold)
+    outputs = FrameOutputs(
+        frame=frame_in_base, frame_mask=frame_mask,
+        source=source, source_mask=source_mask,
+        pose=new_pose, debug=debug,
+        overflow=torch.cat([ds_dropped,
+                            insert_failed[None]]).to(torch.int32))
+    return new_state, outputs

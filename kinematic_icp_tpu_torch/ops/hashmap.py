@@ -1,0 +1,446 @@
+"""Device-resident sparse voxel hash map (the local map), bucket-table form.
+
+Equivalent of ``kiss_icp::VoxelHashMap`` (KISS-ICP v1.2.0) with the JAX
+package's layout, bit for bit:
+
+    table: (B, G*R) int32, R = K + 4 lanes per voxel slot, G slots a bucket
+      lanes [0..K-1] : packed points, 10/10/10-bit in-voxel offsets;
+                       0xFFFFFFFF (int32 -1) = unused entry
+      lane  [K]      : key fingerprint (0 = empty slot)
+      lanes [K+1..]  : exact voxel key (kx, ky, kz)
+
+The table holds the u32 words of the JAX version as int32 bits, so
+``table.view(uint32)`` in numpy compares bit for bit.  Hashes are computed
+in int64 masked to 32 bits (torch has no u32 shifts or adds); an int64
+product of two values below 2^32 wraps, but its low 32 bits are right.
+
+Writes are functional: ``insert`` and ``evict_far`` return a new table.
+JAX's dropped scatters become one ``index_put_`` on a copy with one spare
+trailing element, the sink every masked row writes to, so no index is ever
+out of range.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .points import P3, transform
+from .voxel import (PACKED_KEY_SENTINEL, SENTINEL, lexsort, pack_rebased_keys,
+                    packable_span, roll_heads)
+
+#: packed-point sentinel (u32 all-ones) as int32 bits
+PACKED_SENTINEL = -1
+#: offset quantization steps per voxel edge (10 bits)
+_QUANT = 1024
+#: extra lanes per slot: fingerprint + 3 exact key components
+_META_LANES = 4
+_U32 = 0xFFFFFFFF
+
+_F1, _F2, _F3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
+
+
+@dataclasses.dataclass(frozen=True)
+class MapState:
+    table: torch.Tensor  # (B, G * (K + 4)) int32
+    bucket_slots: int
+
+    @property
+    def num_buckets(self):
+        return self.table.shape[-2]
+
+    @property
+    def capacity(self):
+        return self.num_buckets * self.bucket_slots
+
+    @property
+    def block_size(self):
+        return self.table.shape[-1] // self.bucket_slots - _META_LANES
+
+
+class CandidateSet(NamedTuple):
+    """Candidate map points per query, packed, query axis last.
+
+    ``words`` (V, K, N) int32 bits of the stored offsets (-1 = none);
+    ``rel`` (V, N) int32 in [0, 27): which neighbour offset each row probes
+    relative to ``base_*``, the query's voxel coords at gather time.
+    """
+    words: torch.Tensor
+    rel: torch.Tensor
+    base_x: torch.Tensor
+    base_y: torch.Tensor
+    base_z: torch.Tensor
+
+
+def _u32(x):
+    """int tensor -> int64 holding its u32 bit pattern."""
+    return x.to(torch.int64) & _U32
+
+
+def _i32(h):
+    """int64 holding a u32 value -> int32 with the same bits."""
+    return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
+
+
+def fingerprint(bx, by, bz):
+    """Second hash with the high bit forced (0 never collides with empty);
+    int32 bits."""
+    h = (_u32(bx) * _F1 + _u32(by) * _F2 + _u32(bz) * _F3) & _U32
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _U32
+    h = h ^ (h >> 15)
+    h = (h * 0x846CA68B) & _U32
+    h = h ^ (h >> 16)
+    return _i32(h | 0x80000000)
+
+
+def bucket_of(bx, by, bz, num_buckets: int):
+    """Bucket row index of a voxel (additive combine + murmur finalizer)."""
+    h = (_u32(bx) * 0x85297A4D + _u32(by) * 0x68E31DA4
+         + _u32(bz) * 0xB5297A4D) & _U32
+    h = h ^ (h >> 16)
+    h = (h * 0x45D9F3B3) & _U32
+    h = h ^ (h >> 15)
+    return (h & (num_buckets - 1)).to(torch.int32)
+
+
+def empty(capacity: int, max_points_per_voxel: int, bucket_slots: int = 4,
+          device=None) -> MapState:
+    if capacity % bucket_slots:
+        raise ValueError("capacity must be a multiple of bucket_slots")
+    b = capacity // bucket_slots
+    if b & (b - 1):
+        raise ValueError("bucket count must be a power of two")
+    r = max_points_per_voxel + _META_LANES
+    row = torch.zeros((bucket_slots, r), dtype=torch.int32, device=device)
+    row[:, :max_points_per_voxel] = PACKED_SENTINEL
+    return MapState(table=row.reshape(1, -1).repeat(b, 1),
+                    bucket_slots=bucket_slots)
+
+
+def clear(m: MapState) -> MapState:
+    return empty(m.capacity, m.block_size, bucket_slots=m.bucket_slots,
+                 device=m.table.device)
+
+
+def _slots(m: MapState):
+    """(B, G, R) view of the table."""
+    return m.table.view(m.num_buckets, m.bucket_slots, -1)
+
+
+def num_voxels(m: MapState):
+    return (_slots(m)[..., m.block_size] != 0).sum()
+
+
+def is_empty(m: MapState):
+    return num_voxels(m) == 0
+
+
+def slot_counts(m: MapState):
+    """(B, G) stored-point count per voxel slot (blocks fill contiguously)."""
+    s = _slots(m)
+    k = m.block_size
+    stored = (s[..., :k] != PACKED_SENTINEL).sum(-1, dtype=torch.int32)
+    return torch.where(s[..., k] != 0, stored, 0)
+
+
+def pack_offsets(p: P3, bx, by, bz, voxel_size: float):
+    """World points -> packed 10/10/10-bit in-voxel offsets (int32)."""
+    inv = _QUANT / voxel_size
+
+    def q(c, b):
+        return torch.clamp((c - b * voxel_size) * inv, 0,
+                           _QUANT - 1).to(torch.int32)
+
+    return q(p.x, bx) | (q(p.y, by) << 10) | (q(p.z, bz) << 20)
+
+
+def unpack_offsets(words, bx, by, bz, voxel_size: float,
+                   dtype=torch.float32):
+    """Packed words + voxel coords -> world coordinates (quantization-cell
+    centres).  int32 ``>>`` is arithmetic, but every field is masked to its
+    10 bits, which come from the word alone."""
+    step = voxel_size / _QUANT
+    ox = (words & (_QUANT - 1)).to(dtype)
+    oy = ((words >> 10) & (_QUANT - 1)).to(dtype)
+    oz = ((words >> 20) & (_QUANT - 1)).to(dtype)
+    half = 0.5
+    return P3(bx.to(dtype) * voxel_size + (ox + half) * step,
+              by.to(dtype) * voxel_size + (oy + half) * step,
+              bz.to(dtype) * voxel_size + (oz + half) * step)
+
+
+def _box_lower_bound_d2(q: P3, bx, by, bz, voxel_size: float):
+    """Squared distance from each query (N,) to each voxel box (27, N)."""
+    def axis(b, c):
+        lo = b.to(c.dtype) * voxel_size
+        return torch.clamp(torch.maximum(lo - c[None], c[None] - (lo + voxel_size)),
+                           min=0.0)
+
+    dx, dy, dz = axis(bx, q.x), axis(by, q.y), axis(bz, q.z)
+    return dx * dx + dy * dy + dz * dz
+
+
+def _rel_to_offsets(rel):
+    """Neighbour-offset id in [0, 27) -> (ox, oy, oz) in {-1, 0, 1}."""
+    return rel // 9 - 1, (rel // 3) % 3 - 1, rel % 3 - 1
+
+
+def gather_candidates(m: MapState, q: P3, voxel_size: float, max_probes: int,
+                      num_candidate_voxels: int = 27) -> CandidateSet:
+    """One gather pass: candidate map points around each query.
+
+    Per query, the ``num_candidate_voxels`` (V) voxels with the smallest
+    point-to-box lower bound are fetched (V = 27 is the whole
+    neighbourhood).  The offset id rides in the low 5 bits of the bitcast
+    bound, so one sort over the 27-row axis ranks them.
+    """
+    del max_probes  # the bucket holds every probe slot
+    k, g = m.block_size, m.bucket_slots
+    r = k + _META_LANES
+    v = num_candidate_voxels
+    n = q.x.shape[0]
+    dev = q.x.device
+    inv = 1.0 / voxel_size
+    base_x = torch.floor(q.x * inv).to(torch.int32)
+    base_y = torch.floor(q.y * inv).to(torch.int32)
+    base_z = torch.floor(q.z * inv).to(torch.int32)
+
+    ids = torch.arange(27, dtype=torch.int32, device=dev)[:, None]
+    if v < 27:
+        ox, oy, oz = _rel_to_offsets(ids)
+        lb = _box_lower_bound_d2(q, base_x[None] + ox, base_y[None] + oy,
+                                 base_z[None] + oz, voxel_size)  # (27, N)
+        key = (_u32(lb.view(torch.int32)) & 0xFFFFFFE0) | ids
+        key = torch.sort(key, dim=0).values[:v]
+        rel = (key & 31).to(torch.int32)
+    else:
+        rel = ids.expand(27, n)
+    ox, oy, oz = _rel_to_offsets(rel)
+    bx = base_x[None] + ox
+    by = base_y[None] + oy
+    bz = base_z[None] + oz
+
+    bucket = bucket_of(bx, by, bz, m.num_buckets).reshape(-1)
+    fpq = fingerprint(bx, by, bz).reshape(-1, 1)
+    fat = m.table[bucket.long()].view(-1, g, r)                 # (V*N, G, R)
+    hit = ((fat[..., k] == fpq) & (fat[..., k + 1] == bx.reshape(-1, 1))
+           & (fat[..., k + 2] == by.reshape(-1, 1))
+           & (fat[..., k + 3] == bz.reshape(-1, 1)))           # (V*N, G)
+    # A voxel occupies at most one slot of its bucket.
+    words = torch.full((fat.shape[0], k), PACKED_SENTINEL, dtype=torch.int32,
+                       device=dev)
+    for gi in range(g):
+        words = torch.where(hit[:, gi, None], fat[:, gi, :k], words)
+    words = words.view(v, n, k).transpose(1, 2).contiguous()
+    return CandidateSet(words=words, rel=rel.contiguous(), base_x=base_x,
+                        base_y=base_y, base_z=base_z)
+
+
+def _candidate_points(cand: CandidateSet, voxel_size: float,
+                      dtype=torch.float32):
+    """Unpack candidate words -> ((V, K, N) coordinate planes, valid)."""
+    ox, oy, oz = _rel_to_offsets(cand.rel[:, None, :])
+    pts = unpack_offsets(cand.words,
+                         cand.base_x[None, None, :] + ox,
+                         cand.base_y[None, None, :] + oy,
+                         cand.base_z[None, None, :] + oz,
+                         voxel_size, dtype)
+    return pts, cand.words != PACKED_SENTINEL
+
+
+def nn_from_candidates(cand: CandidateSet, q: P3, query_mask,
+                       voxel_size: float):
+    """Closest candidate per query.
+
+    The min-reduced key is the bitcast squared distance with its low 10
+    mantissa bits replaced by (offset id, entry lane), so ties break to the
+    lowest (offset id, lane) and the key alone rebuilds the winner.
+    Returns (P3 neighbours (N,), dist (N,)); inf distance when none.
+    """
+    v, k, n = cand.words.shape
+    if k > 32:
+        raise ValueError("packed argmin key holds a 5-bit entry lane")
+    pts, valid = _candidate_points(cand, voxel_size, q.x.dtype)
+    dx = pts.x - q.x[None, None, :]
+    dy = pts.y - q.y[None, None, :]
+    dz = pts.z - q.z[None, None, :]
+    d2 = dx * dx + dy * dy + dz * dz
+
+    lane = torch.arange(k, dtype=torch.int64, device=q.x.device)[None, :, None]
+    tag = (cand.rel.to(torch.int64)[:, None, :] << 5) | lane
+    key = (_u32(d2.view(torch.int32)) & ~0x3FF) | tag
+    key = torch.where(valid & query_mask[None, None, :], key, _U32)
+    best = key.amin(dim=(0, 1))                                  # (N,)
+
+    # (rel, lane) is unique per query; a query with no candidate sums the
+    # sentinel words, wrapping like the u32 sum of the JAX version.
+    pick = key == best[None, None, :]
+    word = torch.where(pick, _u32(cand.words), 0).sum(dim=(0, 1)) & _U32
+    wx, wy, wz = _rel_to_offsets(((best >> 5) & 31).to(torch.int32))
+    nearest = unpack_offsets(_i32(word), cand.base_x + wx, cand.base_y + wy,
+                             cand.base_z + wz, voxel_size, q.x.dtype)
+    ex = nearest.x - q.x
+    ey = nearest.y - q.y
+    ez = nearest.z - q.z
+    has = best != _U32
+    dist = torch.where(query_mask & has, torch.sqrt(ex * ex + ey * ey + ez * ez),
+                       torch.inf)
+    return nearest, dist
+
+
+def insert(m: MapState, p: P3, mask, voxel_size: float, max_probes: int,
+           max_extent: float | None = None, return_failed: bool = False):
+    """AddPoints: insert world-frame points, first-come-kept per voxel block.
+
+    Points are grouped by (bucket, voxel) with one stable sort, so input
+    order inside a voxel is kept (``VoxelBlock::AddPoint``).  New voxel #j
+    of a bucket run takes the j-th currently empty slot of that bucket;
+    new voxels past the empty slots fail this frame and are counted
+    (``return_failed``) — they retry on later frames.
+    """
+    del max_probes
+    g = m.bucket_slots
+    kmax = m.block_size
+    r = kmax + _META_LANES
+    n = p.x.shape[0]
+    dev = p.x.device
+    inv = 1.0 / voxel_size
+    cx = torch.floor(p.x * inv).to(torch.int32)
+    cy = torch.floor(p.y * inv).to(torch.int32)
+    cz = torch.floor(p.z * inv).to(torch.int32)
+
+    if packable_span(voxel_size, max_extent):
+        big = 1 << 30
+        mnx = torch.where(mask, cx, big).amin()
+        mny = torch.where(mask, cy, big).amin()
+        mnz = torch.where(mask, cz, big).amin()
+        vkey = pack_rebased_keys(cx, cy, cz, mask)
+        bucket_key = bucket_of(cx, cy, cz, m.num_buckets)
+        order = torch.sort((bucket_key.to(torch.int64) << 32) | vkey,
+                           stable=True).indices
+        bucket_key, vkey = bucket_key[order], vkey[order]
+        svalid = vkey != PACKED_KEY_SENTINEL
+        cx = ((vkey >> 20) & 1023).to(torch.int32) + mnx
+        cy = ((vkey >> 10) & 1023).to(torch.int32) + mny
+        cz = (vkey & 1023).to(torch.int32) + mnz
+        cx = torch.where(svalid, cx, SENTINEL)
+        cy = torch.where(svalid, cy, SENTINEL)
+        cz = torch.where(svalid, cz, SENTINEL)
+        head = roll_heads(vkey) & svalid
+    else:
+        cx = torch.where(mask, cx, SENTINEL)
+        cy = torch.where(mask, cy, SENTINEL)
+        cz = torch.where(mask, cz, SENTINEL)
+        bucket_key = bucket_of(cx, cy, cz, m.num_buckets)
+        order = lexsort([bucket_key, cx, cy, cz])
+        bucket_key = bucket_key[order]
+        cx, cy, cz = cx[order], cy[order], cz[order]
+        svalid = cx != SENTINEL
+        head = (roll_heads(cx) | roll_heads(cy) | roll_heads(cz)) & svalid
+    sx, sy, sz = p.x[order], p.y[order], p.z[order]
+    run_start = roll_heads(bucket_key)
+
+    # --- probe: every point reads its bucket row --------------------------
+    fpq = fingerprint(cx, cy, cz)
+    fat = m.table[bucket_key.long()].view(n, g, r)
+    fills = (fat[..., :kmax] != PACKED_SENTINEL).sum(-1)         # (n, G)
+    hit_g = ((fat[..., kmax] == fpq[:, None])
+             & (fat[..., kmax + 1] == cx[:, None])
+             & (fat[..., kmax + 2] == cy[:, None])
+             & (fat[..., kmax + 3] == cz[:, None])
+             & svalid[:, None])
+    gsel = torch.arange(g, device=dev)
+    found = hit_g.any(1)
+    found_slot = torch.where(hit_g, gsel, 0).sum(1)
+    base = torch.where(hit_g, fills, 0).sum(1)
+    win_empty = fat[..., kmax] == 0                              # (n, G)
+
+    # --- segmented counters -------------------------------------------------
+    iota = torch.arange(n, device=dev)
+    pend_head = (head & ~found).to(torch.int64)
+    pend_cum = torch.cumsum(pend_head, 0)
+    run_base = torch.cummax(torch.where(run_start, pend_cum - pend_head, -1),
+                            0).values
+    # rank of this point's new voxel among the new voxels of its bucket run
+    pend_rank = pend_cum - run_base - 1
+    head_pos = torch.cummax(torch.where(head, iota, -1), 0).values
+    lane = iota - head_pos
+
+    # --- slot assignment: new voxel #j takes the j-th empty slot ----------
+    tgt = torch.full((n,), g, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for pp in range(g):
+        take = win_empty[:, pp] & (cnt == pend_rank) & (tgt == g)
+        tgt = torch.where(take, pp, tgt)
+        cnt = cnt + win_empty[:, pp]
+    sub = torch.where(found, found_slot, tgt)
+    has_slot = svalid & (found | (tgt < g))
+
+    # --- one scatter: a word per stored point + meta lanes per new voxel ---
+    row_lanes = g * r
+    size = m.num_buckets * row_lanes
+    dest_k = base + lane
+    ok = has_slot & (dest_k < kmax)
+    words = pack_offsets(P3(sx, sy, sz), cx, cy, cz, voxel_size)
+    slot_base = bucket_key.to(torch.int64) * row_lanes \
+        + torch.clamp(sub, max=g - 1) * r
+    word_idx = torch.where(ok, slot_base + torch.clamp(dest_k, max=kmax - 1),
+                           size)
+    fresh = head & ~found & (tgt < g)
+    meta_idx = torch.where(fresh[:, None],
+                           slot_base[:, None] + kmax
+                           + torch.arange(4, device=dev)[None, :], size)
+    meta = torch.stack((fpq, cx, cy, cz), dim=-1)
+    flat = torch.cat((m.table.reshape(-1),
+                      m.table.new_zeros(1)))                      # + sink
+    flat.index_put_((torch.cat((word_idx, meta_idx.reshape(-1))),),
+                    torch.cat((words, meta.reshape(-1))))
+    out = MapState(table=flat[:size].view(m.num_buckets, row_lanes),
+                   bucket_slots=g)
+    if return_failed:
+        failed = (head & ~found & (tgt >= g)).sum().to(torch.int32)
+        return out, failed
+    return out
+
+
+def evict_far(m: MapState, origin, max_distance: float, voxel_size: float,
+              enable=None) -> MapState:
+    """RemovePointsFarFromLocation: drop blocks whose FIRST point is
+    farther than ``max_distance`` (strict) from ``origin``; killed slots
+    reset to the empty pattern.  ``enable`` (scalar bool) gates the whole
+    eviction."""
+    k = m.block_size
+    s = _slots(m)                                                # (B, G, R)
+    fpt = unpack_offsets(s[..., 0], s[..., k + 1], s[..., k + 2],
+                         s[..., k + 3], voxel_size)
+    dx, dy, dz = fpt.x - origin[0], fpt.y - origin[1], fpt.z - origin[2]
+    d2 = dx * dx + dy * dy + dz * dz
+    kill = (s[..., k] != 0) & (d2 > max_distance * max_distance)
+    if enable is not None:
+        kill = kill & enable
+    lane = torch.arange(s.shape[-1], device=s.device)
+    reset = torch.where(lane < k, PACKED_SENTINEL, 0).to(torch.int32)
+    table = torch.where(kill[..., None], reset, s)
+    return MapState(table=table.view(m.table.shape), bucket_slots=m.bucket_slots)
+
+
+def update(m: MapState, p: P3, mask, pose, voxel_size: float,
+           max_distance: float, max_probes: int, enable=None,
+           max_extent: float | None = None, return_failed: bool = False):
+    """VoxelHashMap::Update: transform by pose, insert, evict far blocks.
+
+    ``enable`` False returns the map byte-identical (folded into the insert
+    mask and the eviction kill mask).
+    """
+    world = transform(pose, p)
+    if enable is not None:
+        mask = mask & enable
+    m, failed = insert(m, world, mask, voxel_size, max_probes,
+                       max_extent=max_extent, return_failed=True)
+    m = evict_far(m, pose[:3, 3], max_distance, voxel_size, enable=enable)
+    if return_failed:
+        return m, failed
+    return m

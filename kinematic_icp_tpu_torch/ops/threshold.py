@@ -1,0 +1,42 @@
+"""Adaptive correspondence threshold (reference CorrespondenceThreshold)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class ThresholdState(NamedTuple):
+    odom_sse: torch.Tensor     # scalar
+    num_samples: torch.Tensor  # scalar
+
+
+def init_state(dtype=torch.float32, device=None) -> ThresholdState:
+    """Reset state (reference CorrespondenceThreshold.hpp:40-43)."""
+    return ThresholdState(
+        odom_sse=torch.zeros((), dtype=dtype, device=device),
+        num_samples=torch.full((), 1e-8, dtype=dtype, device=device),
+    )
+
+
+def compute_threshold(state: ThresholdState, *, map_discretization_error: float,
+                      use_adaptive: bool, fixed_threshold: float):
+    """tau = 3 * (sigma_map + sigma_odom)  (CorrespondenceThreshold.cpp:27-35)."""
+    if not use_adaptive:
+        return torch.full((), fixed_threshold, dtype=state.odom_sse.dtype,
+                          device=state.odom_sse.device)
+    sigma_odom = torch.sqrt(state.odom_sse / state.num_samples)
+    return 3.0 * (map_discretization_error + sigma_odom)
+
+
+def update_odometry_error_scalar(state: ThresholdState, err, *,
+                                 use_adaptive: bool) -> ThresholdState:
+    """Accumulate a precomputed point-space error (CorrespondenceThreshold
+    .cpp:37-44); the GN solve returns it with the pose."""
+    if not use_adaptive:
+        return state
+    return ThresholdState(
+        odom_sse=state.odom_sse + err * err,
+        num_samples=state.num_samples + 1.0,
+    )

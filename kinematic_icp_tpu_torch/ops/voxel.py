@@ -1,0 +1,195 @@
+"""Voxel-grid utilities: point->voxel coords and first-point downsampling.
+
+Equivalent of ``kiss_icp::VoxelDownsample`` (KISS-ICP v1.2.0): "keep the
+first point per voxel" becomes a stable sort + run-head compaction under
+static shapes, bit-equal to the JAX package's.  torch has no unsigned
+32-bit shifts or minima, so every u32 word of the JAX version lives here as
+an int64 holding the same value (0 .. 2^32 - 1); JAX's multi-operand sorts
+become one composed int64 key (or successive stable sorts), which keeps
+"first point wins".
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .points import P3
+
+#: sentinel voxel coordinate for invalid/padded points (sorts last)
+SENTINEL = 2**31 - 1
+#: packed relative-coordinate sentinel (all-ones u32, sorts last)
+PACKED_KEY_SENTINEL = 0xFFFFFFFF
+#: width at which the packed-word (quantized-payload) downsample engages
+PACKED_WORD_MIN_N = 32768
+
+
+def voxel_coords_planar(p: P3, voxel_size: float):
+    """floor(p / voxel_size) planes as int32, per KISS-ICP PointToVoxel."""
+    inv = 1.0 / voxel_size
+    return (torch.floor(p.x * inv).to(torch.int32),
+            torch.floor(p.y * inv).to(torch.int32),
+            torch.floor(p.z * inv).to(torch.int32))
+
+
+def lexsort(keys):
+    """Stable lexicographic sort order; ``keys`` most significant first.
+
+    Successive stable sorts from the least significant key: equal keys keep
+    input order, as ``jax.lax.sort(..., is_stable=True)`` does.
+    """
+    order = torch.sort(keys[-1], stable=True).indices
+    for k in reversed(keys[:-1]):
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def roll_heads(key):
+    """``key != roll(key, 1)`` with the first row forced to a head."""
+    head = key != torch.roll(key, 1)
+    head[0] = True
+    return head
+
+
+def pack_rebased_keys(cx, cy, cz, mask):
+    """Voxel coord planes -> one u32 key (10 bits per axis, rebased to the
+    frame's per-axis minimum), as int64; invalid points get the sentinel."""
+    big = 1 << 30
+    mx = torch.where(mask, cx, big).amin()
+    my = torch.where(mask, cy, big).amin()
+    mz = torch.where(mask, cz, big).amin()
+    rx, ry, rz = cx - mx, cy - my, cz - mz
+    # A point past the static extent bound drops for this frame instead of
+    # corrupting the bit-packed grouping.
+    mask = mask & (rx < 1024) & (ry < 1024) & (rz < 1024)
+    key = (rx.to(torch.int64) << 20) | (ry.to(torch.int64) << 10) \
+        | rz.to(torch.int64)
+    return torch.where(mask, key, PACKED_KEY_SENTINEL)
+
+
+def packable_span(voxel_size: float, max_extent: float | None) -> bool:
+    """Static check: does a frame's coord span fit 10 bits per axis?"""
+    if max_extent is None:
+        return False
+    return max_extent / voxel_size + 8 < 1024
+
+
+def _packed_downsample_core(p: P3, mask, voxel_size: float,
+                            tiebreak: str = "first"):
+    """Grouping + compaction of the packed-word path.
+
+    Returns (fkey (N,), fword (N,), (mnx, mny, mnz), num_heads): the first
+    ``num_heads`` rows are the surviving voxels in voxel-lex order.
+    """
+    cx, cy, cz = voxel_coords_planar(p, voxel_size)
+    inv = 1.0 / voxel_size
+    key = pack_rebased_keys(cx, cy, cz, mask)
+    wx = torch.clamp((p.x * inv - cx) * 1024.0, 0, 1023).to(torch.int64)
+    wy = torch.clamp((p.y * inv - cy) * 1024.0, 0, 1023).to(torch.int64)
+    wz = torch.clamp((p.z * inv - cz) * 1024.0, 0, 1023).to(torch.int64)
+    word = torch.where(mask, (wx << 20) | (wy << 10) | wz, 0)
+    if tiebreak == "first":
+        # stable on the key alone = (key, input index)
+        order = torch.sort(key, stable=True).indices
+    elif tiebreak == "min":
+        # representative = smallest quantized offset; word < 2^30
+        order = torch.sort((key << 30) | word, stable=True).indices
+    else:
+        raise ValueError(f"tiebreak {tiebreak!r}")
+    key, word = key[order], word[order]
+    valid = key != PACKED_KEY_SENTINEL
+    head = roll_heads(key) & valid
+    key2 = torch.where(head, key, PACKED_KEY_SENTINEL)
+    order = torch.sort(key2, stable=True).indices
+    big = 1 << 30
+    mins = (torch.where(mask, cx, big).amin(),
+            torch.where(mask, cy, big).amin(),
+            torch.where(mask, cz, big).amin())
+    return key2[order], word[order], mins, head.sum()
+
+
+def _reconstruct_packed(fkey, fword, mins, voxel_size: float):
+    """(key, word) rows -> P3 world points at bin centres."""
+    half = 0.5 / 1024.0
+
+    def rec(shift, mn):
+        c = ((fkey >> shift) & 1023).to(torch.int32) + mn
+        o = ((fword >> shift) & 1023).to(torch.float32)
+        return (c.to(torch.float32) + o * (1.0 / 1024.0) + half) * voxel_size
+
+    return P3(rec(20, mins[0]), rec(10, mins[1]), rec(0, mins[2]))
+
+
+def _truncate(planes: P3, n: int, out_size: int):
+    if out_size <= n:
+        return P3(planes.x[:out_size], planes.y[:out_size],
+                  planes.z[:out_size])
+    pad = out_size - n
+    return P3(*(torch.cat([a, a.new_zeros(pad)])
+                for a in (planes.x, planes.y, planes.z)))
+
+
+def voxel_downsample(p: P3, mask, voxel_size: float, out_size: int,
+                     max_extent: float | None = None,
+                     tiebreak: str = "first"):
+    """Keep the first (in input order) point of each occupied voxel.
+
+    Returns (P3 of (out_size,), out_mask (out_size,), num_dropped int32):
+    output in voxel-lexicographic order; voxels past ``out_size`` are
+    dropped and counted.  At widths >= ``PACKED_WORD_MIN_N`` with a packable
+    span the payload is one 10/10/10-bit in-voxel word and survivors are
+    reconstructed at bin centres (at most voxel_size/2048 per axis off).
+    """
+    cx, cy, cz = voxel_coords_planar(p, voxel_size)
+    n = cx.shape[0]
+
+    if packable_span(voxel_size, max_extent) and n >= PACKED_WORD_MIN_N:
+        fkey, fword, mins, num_heads = _packed_downsample_core(
+            p, mask, voxel_size, tiebreak=tiebreak)
+        out = _truncate(_reconstruct_packed(fkey, fword, mins, voxel_size),
+                        n, out_size)
+    else:
+        if packable_span(voxel_size, max_extent):
+            key = pack_rebased_keys(cx, cy, cz, mask)
+            order = torch.sort(key, stable=True).indices
+            key = key[order]
+            valid = key != PACKED_KEY_SENTINEL
+            head = roll_heads(key)
+        else:
+            cx = torch.where(mask, cx, SENTINEL)
+            cy = torch.where(mask, cy, SENTINEL)
+            cz = torch.where(mask, cz, SENTINEL)
+            order = lexsort([cx, cy, cz])
+            cx, cy, cz = cx[order], cy[order], cz[order]
+            valid = cx != SENTINEL
+            head = roll_heads(cx) | roll_heads(cy) | roll_heads(cz)
+        sx, sy, sz = p.x[order], p.y[order], p.z[order]
+        head = head & valid
+        # Compact heads to the front; the key is the sorted position for
+        # heads (unique), so head order is kept.
+        pos = torch.where(head, torch.arange(n, dtype=torch.int32,
+                                             device=head.device), n)
+        order = torch.sort(pos, stable=True).indices
+        out = _truncate(P3(sx[order], sy[order], sz[order]), n, out_size)
+        num_heads = head.sum()
+    num_kept = torch.clamp(num_heads, max=out_size)
+    out_mask = torch.arange(out_size, device=num_kept.device) < num_kept
+    return out, out_mask, (num_heads - num_kept).to(torch.int32)
+
+
+def double_downsample(p: P3, mask, voxel_size: float, *,
+                      max_downsampled: int, max_source: int,
+                      max_extent: float | None = None,
+                      tiebreak: str = "first"):
+    """KISS-ICP's double downsample (reference KinematicICP.cpp:38-44).
+
+    Returns (source, source_mask, frame_downsample, frame_downsample_mask,
+    dropped (2,) int32 = [frame_downsample, source] capacity overflows).
+    """
+    frame_ds, frame_ds_mask, drop_ds = voxel_downsample(
+        p, mask, voxel_size * 0.5, max_downsampled, max_extent=max_extent,
+        tiebreak=tiebreak)
+    source, source_mask, drop_src = voxel_downsample(
+        frame_ds, frame_ds_mask, voxel_size * 1.5, max_source,
+        max_extent=max_extent)
+    return (source, source_mask, frame_ds, frame_ds_mask,
+            torch.stack([drop_ds, drop_src]))

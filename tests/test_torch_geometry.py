@@ -1,0 +1,106 @@
+"""Port vs JAX: SE(3), the unicycle motion model and point transforms."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kinematic_icp_tpu.ops import motion_model as jmm
+from kinematic_icp_tpu.ops import se3 as jse3
+from kinematic_icp_tpu.ops.points import P3 as JP3
+from kinematic_icp_tpu.ops.points import transform as jtransform
+from kinematic_icp_tpu_torch.ops import motion_model as tmm
+from kinematic_icp_tpu_torch.ops import se3 as tse3
+from kinematic_icp_tpu_torch.ops.points import P3 as TP3
+from kinematic_icp_tpu_torch.ops.points import transform as ttransform
+
+# pytest-xdist runs several workers on the same cores: one intra-op
+# thread each keeps these small tensors from oversubscribing them
+torch.set_num_threads(1)
+
+# float32 elementwise formulas evaluated by two compilers: agreement to a
+# few ulp of O(1) values
+ATOL = 1e-6
+
+
+def _twists(rng, n=64):
+    xi = rng.normal(0, 1.0, (n, 6)).astype(np.float32)
+    # rotation magnitudes across every switch point, including the
+    # theta < 3.4e-4 range where 1 - cos(theta) is 0 in float32
+    mags = np.concatenate([[0.0, 1e-8, 1e-6, 5e-5, 3e-4, 3.4e-4, 1e-3, 0.09,
+                            0.11, 0.49, 0.51, 1.0, 2.5, 3.1],
+                           rng.uniform(0, 3.0, n - 14)]).astype(np.float32)
+    w = xi[:, 3:]
+    xi[:, 3:] = w / np.linalg.norm(w, axis=1, keepdims=True) * mags[:, None]
+    return xi
+
+
+def _check(a, b, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(b), a.numpy(), atol=atol, rtol=0)
+
+
+class TestSE3:
+    def test_exp_log_roundtrip_matches_jax(self):
+        xi = _twists(np.random.default_rng(0))
+        T_t = tse3.se3_exp(torch.from_numpy(xi))
+        _check(T_t, jse3.se3_exp(jnp.asarray(xi)))
+        _check(tse3.se3_log(T_t), jse3.se3_log(jnp.asarray(T_t.numpy())),
+               atol=2e-6)
+
+    def test_so3_exp_log(self):
+        w = _twists(np.random.default_rng(1))[:, 3:].copy()
+        R = tse3.so3_exp(torch.from_numpy(w))
+        _check(R, jse3.so3_exp(jnp.asarray(w)))
+        _check(tse3.so3_log(R), jse3.so3_log(jnp.asarray(R.numpy())),
+               atol=2e-6)
+
+    def test_small_angle_log_is_finite_and_exact(self):
+        # theta < 3.4e-4: the naive 1 - cos form returns NaN translation
+        for theta in (0.0, 1e-7, 1e-5, 2e-4, 3.3e-4):
+            xi = np.array([0.5, -0.2, 0.01, 0.0, 0.0, theta], np.float32)
+            T = tse3.se3_exp(torch.from_numpy(xi))
+            out = tse3.se3_log(T).numpy()
+            assert np.all(np.isfinite(out))
+            np.testing.assert_allclose(out, xi, atol=1e-6)
+            _check(tse3.se3_log(T), jse3.se3_log(jnp.asarray(T.numpy())))
+
+    def test_inverse_compose_rotation_angle(self):
+        xi = _twists(np.random.default_rng(2), 32)
+        T = tse3.se3_exp(torch.from_numpy(xi))
+        Tj = jnp.asarray(T.numpy())
+        _check(tse3.inverse(T), jse3.inverse(Tj))
+        _check(tse3.compose44(T, tse3.inverse(T)),
+               jse3.compose44(Tj, jse3.inverse(Tj)))
+        _check(tse3.compose44(T[:-1], T[1:]), jse3.compose44(Tj[:-1], Tj[1:]))
+        # arccos at 1 turns a 1-ulp trace difference into sqrt(2 * 1.2e-7)
+        _check(tse3.rotation_angle(T), jse3.rotation_angle(Tj), atol=5e-4)
+
+    def test_float64(self):
+        xi = _twists(np.random.default_rng(3)).astype(np.float64)
+        T = tse3.se3_exp(torch.from_numpy(xi))
+        assert T.dtype == torch.float64
+        np.testing.assert_allclose(tse3.se3_log(T).numpy(), xi, atol=1e-9)
+
+
+class TestMotionModel:
+    @pytest.mark.parametrize("theta", [0.0, 1e-7, 1e-5, 3e-4, 1e-3, 0.2,
+                                       -0.7, 2.0])
+    def test_matches_jax(self, theta):
+        c = np.array([[0.37, theta], [-1.2, theta]], np.float32)
+        _check(tmm.control_to_twist(torch.from_numpy(c)),
+               jmm.control_to_twist(jnp.asarray(c)))
+        _check(tmm.motion_model(torch.from_numpy(c)),
+               jmm.motion_model(jnp.asarray(c)))
+
+
+def test_transform_matches_jax():
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-50, 50, (1000, 3)).astype(np.float32)
+    pose = tse3.se3_exp(torch.from_numpy(_twists(rng, 14)[5])).numpy()
+    out = ttransform(torch.from_numpy(pose), TP3.from_array(
+        torch.from_numpy(pts)))
+    ref = jtransform(jnp.asarray(pose), JP3.from_array(jnp.asarray(pts)))
+    for a, b in zip(out, ref):
+        # 50 m coordinates: a few ulp is ~1e-5 absolute
+        np.testing.assert_allclose(np.asarray(b), a.numpy(), atol=1e-5,
+                                   rtol=0)

@@ -1,0 +1,56 @@
+"""The port stands alone: no JAX, nothing of the JAX package; CUDA by default."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import kinematic_icp_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "kinematic_icp_tpu")
+             or m.startswith(("jax.", "jaxlib.", "kinematic_icp_tpu.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for name in ("offline", "convert", "ops.gn", "ops.cuda_build",
+                 "models.pipeline", "utils.synthetic", "utils.evaluation"):
+        assert f"kinematic_icp_tpu_torch.{name}" in res["modules"]
+
+
+@pytest.mark.parametrize("entry", ["run_offline", "init_state",
+                                   "make_sequence_runner"])
+def test_entry_points_default_to_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch import offline
+    from kinematic_icp_tpu_torch.models import pipeline
+
+    cfg = Config(max_points=64, max_downsampled=64, max_source=32,
+                 map_capacity=256)
+    call = {
+        "run_offline": lambda: offline.run_offline(
+            [np.zeros((8, 3), np.float32)], [np.eye(4)], cfg),
+        "init_state": lambda: pipeline.init_state(cfg),
+        "make_sequence_runner": lambda: offline.make_sequence_runner(cfg),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()

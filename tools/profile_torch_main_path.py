@@ -1,0 +1,112 @@
+"""Where the PyTorch port's offline main path spends its time on the card.
+
+Usage (on a machine with a CUDA card):
+
+    python3 tools/profile_torch_main_path.py [--frames 20] [--out FILE]
+
+Runs ``kinematic_icp_tpu_torch.offline.run_offline`` at the headline shape
+of ``chip_smoke.py`` on synthetic realistic scans under
+``torch.profiler`` and prints one JSON line: wall time per frame, device
+kernel time per frame, the device's busy and idle share of the wall time,
+kernel launches per frame, and the ops that take the most device time.
+Where the profiler records no device activity the device fields are null.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import HEADLINE
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import run_offline
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    if not torch.cuda.is_available():
+        print("profile: no CUDA card", file=sys.stderr)
+        return 1
+    cfg = Config(**HEADLINE)
+    seq = synthetic.make_sequence(args.frames,
+                                  lidar=synthetic.realistic_lidar(),
+                                  clear_path_margin=3.0)
+    frames, rels = seq["frames"], seq["rel_odometry"]
+    run_offline(frames[:3], rels[:3], cfg, extrinsic=seq["extrinsic"])
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_offline(frames, rels, cfg, extrinsic=seq["extrinsic"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    f = len(frames)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernel_us = sum(e.time_range.elapsed_us() for e in kernels)
+    busy_us = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in kernels])
+    gn_us = sum(e.time_range.elapsed_us() for e in kernels
+                if "gn_solve_kernel" in e.name)
+    top = {}
+    for e in kernels:
+        t = top.setdefault(e.name[:80], [0.0, 0])
+        t[0] += e.time_range.elapsed_us()
+        t[1] += 1
+    top = sorted(top.items(), key=lambda kv: -kv[1][0])[:12]
+    measured = bool(kernels)
+    row = {
+        "device": torch.cuda.get_device_name(0), "frames": f,
+        "config": HEADLINE,
+        "wall_ms_per_frame": wall_us / f / 1e3,
+        "device_kernel_ms_per_frame": kernel_us / f / 1e3 if measured
+        else None,
+        "device_busy_share": busy_us / wall_us if measured else None,
+        "device_idle_share": 1.0 - busy_us / wall_us if measured else None,
+        "kernel_launches_per_frame": len(kernels) / f if measured else None,
+        "gn_kernel_ms_per_frame": gn_us / f / 1e3 if measured else None,
+        "top_device_ops": [
+            {"name": name, "ms_per_frame": us / f / 1e3,
+             "launches_per_frame": n / f} for name, (us, n) in top],
+    }
+    line = json.dumps(row)
+    print(line, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
