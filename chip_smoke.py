@@ -9,14 +9,21 @@ last line.  Phases:
 
   1. environment: the card, torch and CUDA versions;
   2. build: every kernel of the main path, compiled from ``csrc/`` by nvcc;
+     fails if ptxas reports any spill;
   3. gn_solve: the CUDA kernel against its plain PyTorch version on the
      card at three shapes (main path V=10 K=20 N=1024; stock Config
-     N=8192; exact-mode V=27 with the crossing certificate), with timings;
+     N=8192; exact-mode V=27 with the crossing certificate), with its
+     cooperative grid size, a bit-equality check of two launches, timings
+     and the single-CTA design's times (``tools/gn_kernel_pace.py`` splits
+     a solve's time into launch, fixed per-pass cost and row scan);
   4. main path: ``offline.run_offline`` on a synthetic drive of realistic
      58K-point scans at the headline shape, with every kernel's launch
      count read around that one run, accuracy against ground truth, and
      the same frames through the plain GN version on the card;
-  5. the ``kernels`` summary line, the card's name and power limit, and
+  5. stock Config: 20 frames of the same drive under ``Config(deskew=True,
+     max_range=60.0)`` (8,192 ICP source slots a frame), the kernel on
+     every frame, zero overflow, and the plain GN version's trajectory;
+  6. the ``kernels`` summary line, the card's name and power limit, and
      the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
@@ -25,6 +32,7 @@ It imports nothing of JAX; it needs one card and exits non-zero without one.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -43,6 +51,15 @@ HEADLINE = dict(max_points=65536, max_downsampled=8192, max_source=1024,
 #: reports the first EARLY_FRAMES frames)
 MAIN_FRAMES = 60
 EARLY_FRAMES = 20
+#: the reference's default Config, but for deskew and the 60 m range of
+#: the synthetic sensor: max_source 8192, max_downsampled 16384,
+#: map_capacity 1 << 18
+STOCK = dict(deskew=True, max_range=60.0)
+STOCK_FRAMES = 20
+#: the single-CTA design's kernel ms at each (V, N, check_crossing) on an
+#: NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
+EARLIER_MS = {(10, 1024, False): 0.3212, (10, 8192, False): 2.591,
+              (27, 1024, True): 0.890}
 TIMED_RUNS = 20
 CALLS_PER_RUN = 10
 
@@ -61,14 +78,27 @@ def nvidia_smi_line():
 
 def median_ms(fn, runs=TIMED_RUNS, calls=CALLS_PER_RUN):
     """Median over ``runs`` of the device time per call of ``fn``, each run
-    ``calls`` calls back to back between two CUDA events, so that the host
-    queues the next call while the card runs the last one."""
+    ``calls`` calls back to back between two CUDA events.
+
+    A spin kernel (``torch.cuda._sleep``) runs first, longer than the host
+    takes to issue the run's calls, so the events time the calls' device
+    work back to back and not the host's issue rate (which sets the pace of
+    a kernel this short)."""
     import torch
     fn()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # at most 2 GHz (the H100's SM clock is at most 1.98 GHz), so the spin
+    # lasts at least twice the measured issue time of the run
+    cycles = int(2.0 * calls * issue_s * 2e9)
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(calls):
             fn()
@@ -77,25 +107,6 @@ def median_ms(fn, runs=TIMED_RUNS, calls=CALLS_PER_RUN):
         times.append(start.elapsed_time(end) / calls)
     times.sort()
     return times[len(times) // 2]
-
-
-def err_tolerance(pose, guess, max_range, pose_diff):
-    """How far the point-space error 2 R sqrt(h) + |dt| may move when the
-    pose moves by ``pose_diff``.
-
-    Kernel and plain version round each element alike (-fmad=false), so
-    only the pose difference that the order of the sums leaves propagates:
-    h = (1 - c)/2, with c from the nine-product trace of Rg^T R, moves by
-    3/4 * pose_diff, and sqrt turns dh into R dh / sqrt(h).  With equal
-    poses this is 0 and the 1e-5 relative floor alone applies.
-    """
-    import numpy as np
-    frob = float(np.sum(pose[:3, :3].astype(np.float64)
-                        * guess[:3, :3].astype(np.float64)))
-    h = max((1.0 - (frob - 1.0) * 0.5) * 0.5, 0.0)
-    dh = 3.0 * pose_diff / 4.0
-    dsqrt = min(dh / max(np.sqrt(h), 1e-30), np.sqrt(dh))
-    return 2.0 * max_range * dsqrt + 3.0 * pose_diff
 
 
 def gn_bound(v, k, n, iterations):
@@ -115,8 +126,12 @@ def gn_bound(v, k, n, iterations):
             "operations", nbytes, flops)
 
 
-def kernel_phase(torch, np, seq, v, n, check_crossing):
-    from kinematic_icp_tpu_torch.ops import gn, hashmap
+def gn_problem(torch, np, seq, v, n, check_crossing):
+    """One frame's GN solve on the card at (V, K=20, N): the map is one
+    realistic scan, the sources noisy scan points, the guess a few cm and
+    10 mrad off.  Returns (args, kwargs, guess as numpy, map insert
+    failures) for ``gn.gn_solve``."""
+    from kinematic_icp_tpu_torch.ops import hashmap
     from kinematic_icp_tpu_torch.ops.points import P3, transform
 
     dev = torch.device("cuda")
@@ -140,43 +155,62 @@ def kernel_phase(torch, np, seq, v, n, check_crossing):
                          [0, 0, 0, 1]], np.float32)
     guess = torch.from_numpy(guess_np).to(dev)
     cand = hashmap.gather_candidates(m, transform(guess, source), 1.0, 5, v)
-    tau = 0.7 if check_crossing else 0.5
+    # a 0-d tensor on the card, as the main path passes it
+    tau = torch.tensor(0.7 if check_crossing else 0.5, device=dev)
     kw = dict(voxel_size=1.0, max_num_iterations=10,
               convergence_criterion=0.001, use_adaptive_regularization=True,
               fixed_regularization=0.0, max_range=HEADLINE["max_range"],
               check_crossing=check_crossing)
+    return (cand, source, mask, guess, tau), kw, guess_np, int(failed)
 
+
+def kernel_phase(torch, np, seq, v, n, check_crossing):
+    from kinematic_icp_tpu_torch.ops import gn
+
+    (cand, source, mask, guess, tau), kw, guess_np, failed = gn_problem(
+        torch, np, seq, v, n, check_crossing)
     before = gn.LAUNCHES
     out_k = gn.gn_solve(cand, source, mask, guess, tau, backend="cuda", **kw)
     torch.cuda.synchronize()
     launches_per_solve = gn.LAUNCHES - before
+    ctas = gn.LAST_CTAS
+    out_k2 = gn.gn_solve(cand, source, mask, guess, tau, backend="cuda", **kw)
     out_p = gn.gn_solve(cand, source, mask, guess, tau, backend="torch", **kw)
     torch.cuda.synchronize()
+    deterministic = all(
+        torch.equal(a.reshape(-1).view(torch.uint8),
+                    b.reshape(-1).view(torch.uint8))
+        for a, b in zip(out_k, out_k2))
 
     pk, pp = out_k[0].cpu().numpy(), out_p[0].cpu().numpy()
     pose_err = float(np.abs(pk - pp).max())
     ints_k = [int(out_k[i]) for i in (1, 2, 4)]
     ints_p = [int(out_p[i]) for i in (1, 2, 4)]
     err_k, err_p = float(out_k[3]), float(out_p[3])
-    err_tol = 1e-5 * abs(err_p) + err_tolerance(pp, guess_np,
-                                                HEADLINE["max_range"],
-                                                pose_err)
+    # kernel and plain version round each element alike (-fmad=false), so
+    # only the pose difference that the order of the sums leaves moves the
+    # error, by its conditioning; plus a 1e-5 relative floor
+    err_tol = 1e-5 * abs(err_p) + gn.error_tolerance(
+        pp, guess_np, HEADLINE["max_range"], pose_err)
     ok = (pose_err <= 1e-5 and ints_k == ints_p
           and abs(err_k - err_p) <= err_tol and launches_per_solve == 1
-          and ints_k[1] > 0)
+          and ints_k[1] > 0 and deterministic and ctas > 1)
 
     kernel_ms = median_ms(lambda: gn.gn_solve(cand, source, mask, guess, tau,
                                               backend="cuda", **kw))
+    # the plain version issues hundreds of launches a call: fewer runs
     plain_ms = median_ms(lambda: gn.gn_solve(cand, source, mask, guess, tau,
-                                             backend="torch", **kw))
+                                             backend="torch", **kw), runs=5)
     bound_ms, bound_by, nbytes, flops = gn_bound(v, 20, n, ints_k[0])
     row = {"phase": "gn_solve", "V": v, "K": 20, "N": n,
-           "check_crossing": check_crossing, "map_insert_failed": int(failed),
+           "check_crossing": check_crossing, "map_insert_failed": failed,
            "iterations": ints_k[0], "correspondences": ints_k[1],
            "crossed": bool(ints_k[2]), "plain": ints_p,
            "max_abs_err_pose": pose_err, "err": err_k, "err_plain": err_p,
            "err_tol": err_tol, "launches_per_solve": launches_per_solve,
-           "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "ctas": ctas, "deterministic": deterministic,
+           "ms": kernel_ms, "earlier_ms": EARLIER_MS[(v, n, check_crossing)],
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bound_bytes": nbytes, "bound_flops": flops,
            "library_ms": None, "ok": ok}
     emit(row)
@@ -186,21 +220,27 @@ def kernel_phase(torch, np, seq, v, n, check_crossing):
     return row
 
 
-def main_path_phase(torch, np, seq):
+def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt):
+    """``run_offline`` over the first ``count`` frames under ``config_kw``,
+    with the GN launch count set to 0 just before and read just after,
+    then the same frames through the plain GN version on the card.
+
+    ``judge_vs_gt``: also require the estimate to beat dead reckoning
+    against ground truth (the headline drive, long enough to settle)."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import run_offline
     from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
-    cfg = Config(**HEADLINE)
-    frames, rels = seq["frames"], seq["rel_odometry"]
-    gt = seq["gt_poses"]
+    cfg = Config(**config_kw)
+    frames, rels = seq["frames"][:count], seq["rel_odometry"][:count]
+    gt = seq["gt_poses"][:count]
 
-    def drive(config, count=len(frames)):
+    def drive(config, n=count):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t0 = time.perf_counter()
-            poses, _ = run_offline(frames[:count], rels[:count], config,
+            poses, _ = run_offline(frames[:n], rels[:n], config,
                                    extrinsic=seq["extrinsic"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -220,36 +260,44 @@ def main_path_phase(torch, np, seq):
         dead.append(dead[-1] @ rel)
     ate = ate_rmse(gt, poses, align=False)
     ate_dead = ate_rmse(gt, dead, align=False)
-    # the start-up transient, for the record (not a check)
-    early = {"ate_vs_gt_m": ate_rmse(gt[:EARLY_FRAMES], poses[:EARLY_FRAMES],
-                                     align=False),
-             "ate_dead_reckoning_m": ate_rmse(gt[:EARLY_FRAMES],
-                                              dead[:EARLY_FRAMES],
-                                              align=False)}
     poses_plain, seconds_plain, overflow_plain = drive(
         cfg.replace(gn_backend="torch"))
     ate_plain = ate_rmse(poses_plain, poses, align=False)
     checks = {
         "finite": bool(np.isfinite(poses).all()),
         "zero_overflow": not overflow and not overflow_plain,
-        "kernel_every_frame": launches == len(frames),
-        "beats_dead_reckoning": ate < ate_dead,
+        "kernel_every_frame": launches == count,
         "plain_within_5mm": ate_plain < 5e-3,
     }
-    row = {"phase": "main_path", "frames": len(frames),
+    row = {"phase": phase, "frames": count,
            "mean_points": float(np.mean([len(f[0]) for f in frames])),
-           "config": HEADLINE, "gn_launches": launches,
+           "config": config_kw, "gn_launches": launches,
            "overflow": overflow or [0, 0, 0], "frames_per_s":
-           len(frames) / seconds, "seconds": seconds,
-           "plain_frames_per_s": len(frames) / seconds_plain,
+           count / seconds, "seconds": seconds,
+           "plain_frames_per_s": count / seconds_plain,
            "peak_memory_bytes": peak, "ate_vs_gt_m": ate,
            "ate_dead_reckoning_m": ate_dead, "ate_kernel_vs_plain_m":
-           ate_plain, f"first_{EARLY_FRAMES}_frames": early,
-           "checks": checks}
+           ate_plain}
+    if judge_vs_gt:
+        checks["beats_dead_reckoning"] = ate < ate_dead
+        # the start-up transient, for the record (not a check)
+        row[f"first_{EARLY_FRAMES}_frames"] = {
+            "ate_vs_gt_m": ate_rmse(gt[:EARLY_FRAMES], poses[:EARLY_FRAMES],
+                                    align=False),
+            "ate_dead_reckoning_m": ate_rmse(gt[:EARLY_FRAMES],
+                                             dead[:EARLY_FRAMES],
+                                             align=False)}
+    row["checks"] = checks
     emit(row)
     if not all(checks.values()):
-        raise SystemExit(f"main path failed: {checks}")
+        raise SystemExit(f"{phase} failed: {checks}")
     return launches
+
+
+def spills(log):
+    """Spill bytes (stores + loads) in each ptxas line of an nvcc log."""
+    return [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
 
 
 def main():
@@ -269,11 +317,15 @@ def main():
           "python": sys.version.split()[0]})
 
     built = cuda_build.build("gn_solve")
+    # one template instance per check_crossing value, each with a line
+    spill = {name: spills(b["log"]) for name, b in built.items()}
     emit({"phase": "build", "kernels": {
-        name: {"seconds": b["seconds"],
+        name: {"seconds": b["seconds"], "spill_bytes": spill[name],
                "ptxas": [ln.strip() for ln in b["log"].splitlines()
                          if "registers" in ln or "spill" in ln]}
         for name, b in built.items()}})
+    if any(len(v) < 2 or any(v) for v in spill.values()):
+        raise SystemExit(f"ptxas reports spills (or no spill lines): {spill}")
 
     seq = synthetic.make_sequence(MAIN_FRAMES,
                                   lidar=synthetic.realistic_lidar(),
@@ -282,7 +334,9 @@ def main():
     kernel_phase(torch, np, seq, 10, 8192, False)
     kernel_phase(torch, np, seq, 27, 1024, True)
 
-    launches = main_path_phase(torch, np, seq)
+    launches = drive_phase(torch, np, seq, "main_path", HEADLINE,
+                           MAIN_FRAMES, True)
+    drive_phase(torch, np, seq, "stock_config", STOCK, STOCK_FRAMES, False)
 
     emit({"kernels": [{
         "name": "gn_solve", "route": "cuda",

@@ -28,20 +28,20 @@ SOLVE = dict(voxel_size=1.0, max_num_iterations=10,
              fixed_regularization=0.0, max_range=60.0)
 
 
-def _maps(map_pts):
+def _maps(map_pts, k=20):
     n = len(map_pts)
     if n == 0:
-        return jhm.empty(1 << 13, 20), thm.empty(1 << 13, 20)
-    jm = jhm.insert(jhm.empty(1 << 13, 20), JP3.from_array(
+        return jhm.empty(1 << 13, k), thm.empty(1 << 13, k)
+    jm = jhm.insert(jhm.empty(1 << 13, k), JP3.from_array(
         jnp.asarray(map_pts)), jnp.ones(n, bool), 1.0, 4)
-    tm = thm.insert(thm.empty(1 << 13, 20), TP3.from_array(
+    tm = thm.insert(thm.empty(1 << 13, k), TP3.from_array(
         torch.from_numpy(map_pts)), torch.ones(n, dtype=torch.bool), 1.0, 4)
     return jm, tm
 
 
-def setup_cloud(rng, n=512, nmap=3000):
+def setup_cloud(rng, n=512, nmap=3000, extent=20.0):
     """tests/test_pallas_gn.py:setup: noisy map points as sources."""
-    map_pts = rng.uniform(-20, 20, (nmap, 3)).astype(np.float32)
+    map_pts = rng.uniform(-extent, extent, (nmap, 3)).astype(np.float32)
     src = (map_pts[:n] + rng.normal(0, 0.05, (n, 3))).astype(np.float32)
     mask = rng.uniform(size=n) < 0.9
     return map_pts, src, mask
@@ -65,9 +65,9 @@ def _guess(tx, ty=0.0, yaw=0.0):
                      [0, 0, 0, 1]], np.float32)
 
 
-def _solve_both(map_pts, src, mask, guess, tau, v, **kw):
+def _solve_both(map_pts, src, mask, guess, tau, v, k=20, **kw):
     kw = {**SOLVE, **kw}
-    jm, tm = _maps(map_pts)
+    jm, tm = _maps(map_pts, k)
     jsrc, tsrc = JP3.from_array(jnp.asarray(src)), TP3.from_array(
         torch.from_numpy(src))
     jg, tg = jnp.asarray(guess), torch.from_numpy(guess)
@@ -145,6 +145,35 @@ class TestPlainVersionMatchesPallas:
                                check_crossing=True)
         _assert_match(out, ref, _guess(0.45), 60.0)
         assert bool(out[4])
+
+
+    # The edges the kernel's 32-query tiles and row slices must get right:
+    # ragged N (one query, a partial last tile, many tiles), a single
+    # candidate voxel, 32 entries per voxel (the 5-bit lane field full) on a
+    # dense map, and no iteration (one selection pass).
+    @pytest.mark.parametrize("n,v,k,max_it,extent", [
+        (1, 10, 20, 10, 20.0),
+        (33, 10, 20, 10, 20.0),
+        (1000, 10, 20, 10, 20.0),
+        (512, 1, 20, 10, 20.0),
+        (512, 10, 32, 10, 3.0),
+        (512, 10, 20, 0, 20.0),
+    ])
+    def test_tiling_edges(self, n, v, k, max_it, extent):
+        rng = np.random.default_rng(10 + n + v + k + max_it)
+        map_pts, src, mask = setup_cloud(rng, n=n, extent=extent)
+        if k > 20:  # some voxels hold more than 20 points
+            _, counts = np.unique(np.floor(map_pts), axis=0,
+                                  return_counts=True)
+            assert counts.max() > 20
+        guess = _guess(0.02, -0.01, 0.01)
+        out, ref = _solve_both(map_pts, src, mask, guess, 0.5, v, k,
+                               max_num_iterations=max_it)
+        _assert_match(out, ref, guess, 60.0)
+        if max_it == 0:
+            assert int(out[1]) == 0
+        if n >= 33:
+            assert int(out[2]) > n // 4
 
 
 def test_backend_validation():

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX, nothing of the JAX package; CUDA by default."""
 
+import ast
 import json
 import os
 import subprocess
@@ -33,6 +34,24 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("offline", "convert", "ops.gn", "ops.cuda_build",
                  "models.pipeline", "utils.synthetic", "utils.evaluation"):
         assert f"kinematic_icp_tpu_torch.{name}" in res["modules"]
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/profile_torch_main_path.py",
+                                    "tools/gn_kernel_pace.py"])
+def test_card_scripts_import_no_jax(script):
+    """The card's scripts run where JAX is not installed: read their import
+    statements (at any depth, without running them)."""
+    with open(os.path.join(REPO, script)) as fh:
+        tree = ast.parse(fh.read(), filename=script)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "kinematic_icp_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "kinematic_icp_tpu"}, roots
 
 
 @pytest.mark.parametrize("entry", ["run_offline", "init_state",

@@ -26,40 +26,160 @@ def card():
     return torch.device("cuda")
 
 
-def _problem(dev, v, n=512, nmap=3000, seed=0):
+def _guess(dev, tx=0.02, ty=-0.01, yaw=0.01):
+    c, s = np.cos(yaw), np.sin(yaw)
+    return torch.tensor([[c, -s, 0, tx], [s, c, 0, ty], [0, 0, 1, 0],
+                         [0, 0, 0, 1]], dtype=torch.float32, device=dev)
+
+
+def _problem(dev, v, n=512, nmap=3000, seed=0, k=20, extent=20.0,
+             map_pts=None, src=None, mask=None, guess=None):
+    """Noisy map points as sources, candidates gathered at the guess."""
     rng = np.random.default_rng(seed)
-    map_pts = rng.uniform(-20, 20, (nmap, 3)).astype(np.float32)
-    src = (map_pts[:n] + rng.normal(0, 0.05, (n, 3))).astype(np.float32)
-    mask = torch.from_numpy(rng.uniform(size=n) < 0.9).to(dev)
-    m = hashmap.insert(hashmap.empty(1 << 13, 20, device=dev),
-                       P3.from_array(torch.from_numpy(map_pts).to(dev)),
-                       torch.ones(nmap, dtype=torch.bool, device=dev), 1.0, 4)
+    if map_pts is None:
+        map_pts = rng.uniform(-extent, extent, (nmap, 3)).astype(np.float32)
+    if src is None:
+        src = (map_pts[rng.choice(len(map_pts), n, replace=n > len(map_pts))]
+               + rng.normal(0, 0.05, (n, 3))).astype(np.float32)
+    if mask is None:
+        mask = rng.uniform(size=n) < 0.9
+    m = hashmap.empty(1 << 13, k, device=dev)
+    if len(map_pts):
+        m = hashmap.insert(m, P3.from_array(torch.from_numpy(map_pts).to(dev)),
+                           torch.ones(len(map_pts), dtype=torch.bool,
+                                      device=dev), 1.0, 4)
     source = P3.from_array(torch.from_numpy(src).to(dev))
-    c, s = np.cos(0.01), np.sin(0.01)
-    guess = torch.tensor([[c, -s, 0, 0.02], [s, c, 0, -0.01], [0, 0, 1, 0],
-                          [0, 0, 0, 1]], dtype=torch.float32, device=dev)
+    guess = _guess(dev) if guess is None else guess
     cand = hashmap.gather_candidates(m, transform(guess, source), 1.0, 4, v)
-    return cand, source, mask, guess
+    return cand, source, torch.from_numpy(mask).to(dev), guess
+
+
+def _assert_kernel_matches_plain(cand, source, mask, guess, tau, **kw):
+    kw = {**SOLVE, **kw}
+    before = gn.LAUNCHES
+    k = gn.gn_solve(cand, source, mask, guess, tau, **kw)
+    assert gn.LAUNCHES == before + 1
+    p = gn.gn_solve(cand, source, mask, guess, tau, backend="torch", **kw)
+    torch.cuda.synchronize()
+    assert gn.LAUNCHES == before + 1
+    # same per-element rounding (-fmad=false); sums in another order
+    pk, pp = k[0].cpu().numpy(), p[0].cpu().numpy()
+    np.testing.assert_allclose(pk, pp, atol=1e-5, rtol=0)
+    for i in (1, 2, 4):
+        assert int(k[i]) == int(p[i]), i
+    diff = float(np.abs(pk - pp).max())
+    tol = 1e-5 * abs(float(p[3])) + gn.error_tolerance(
+        pp, guess.cpu().numpy(), kw["max_range"], diff)
+    assert abs(float(k[3]) - float(p[3])) <= tol
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_it", [0, 1, 10])
+@pytest.mark.parametrize("k", [20, 32])
+@pytest.mark.parametrize("v", [1, 10, 27])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 8192])
+def test_gn_kernel_table(card, n, v, k, max_it):
+    # a dense map (~23 points a voxel), so 32-entry voxels fill past 20
+    cand, source, mask, guess = _problem(card, v, n=n, nmap=12000, k=k,
+                                         extent=4.0, seed=n + v + k)
+    out = _assert_kernel_matches_plain(cand, source, mask, guess, 0.5,
+                                       max_num_iterations=max_it)
+    if max_it == 0:
+        assert int(out[1]) == 0
+    if n >= 33:
+        assert int(out[2]) > n // 4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("v,crossing", [(10, False), (27, True)])
 def test_gn_kernel_matches_plain(card, v, crossing):
     cand, source, mask, guess = _problem(card, v)
-    before = gn.LAUNCHES
-    k = gn.gn_solve(cand, source, mask, guess, 0.5, check_crossing=crossing,
-                    **SOLVE)
-    assert gn.LAUNCHES == before + 1
-    p = gn.gn_solve(cand, source, mask, guess, 0.5, check_crossing=crossing,
-                    backend="torch", **SOLVE)
-    torch.cuda.synchronize()
-    assert gn.LAUNCHES == before + 1
-    # same per-element rounding (-fmad=false); sums in another order
-    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
-                               atol=1e-5, rtol=0)
-    for i in (1, 2, 4):
-        assert int(k[i]) == int(p[i])
+    k = _assert_kernel_matches_plain(cand, source, mask, guess, 0.5,
+                                     check_crossing=crossing)
     assert int(k[2]) > 100
+
+
+@pytest.mark.cuda
+def test_gn_kernel_all_masked(card):
+    cand, source, mask, guess = _problem(card, 10, n=300)
+    out = _assert_kernel_matches_plain(cand, source, torch.zeros_like(mask),
+                                       guess, 0.5)
+    assert int(out[2]) == 0
+    assert torch.equal(out[0], guess)
+
+
+@pytest.mark.cuda
+def test_gn_kernel_empty_map_fixed_regularization(card):
+    rng = np.random.default_rng(1)
+    src = rng.uniform(-10, 10, (256, 3)).astype(np.float32)
+    guess = _guess(card, 0.5, 0.0, 0.0)
+    cand, source, mask, guess = _problem(
+        card, 10, map_pts=np.zeros((0, 3), np.float32), src=src,
+        mask=np.ones(256, bool), guess=guess)
+    out = _assert_kernel_matches_plain(cand, source, mask, guess, 0.5,
+                                       use_adaptive_regularization=False,
+                                       fixed_regularization=0.1,
+                                       max_range=0.0)
+    assert int(out[1]) == 1 and int(out[2]) == 0 and float(out[3]) == 0.0
+    assert torch.equal(out[0], guess)
+
+
+def _margin_setup(n=400):
+    """Points >= 0.21 from every voxel boundary, so small GN steps never
+    change a query's voxel (the certificate holds)."""
+    rng = np.random.default_rng(1234)
+    base = rng.integers(-15, 15, (1200, 3)).astype(np.float32)
+    frac = rng.uniform(0.21, 0.79, (1200, 3)).astype(np.float32)
+    map_pts = np.unique(base + frac, axis=0)
+    src = map_pts[:n] + rng.normal(0, 0.01, (n, 3)).astype(np.float32)
+    src = np.clip(src - np.floor(src), 0.21, 0.79) + np.floor(src)
+    return map_pts, src.astype(np.float32), np.ones(n, bool)
+
+
+@pytest.mark.cuda
+def test_gn_kernel_check_crossing_holds(card):
+    map_pts, src, mask = _margin_setup()
+    cand, source, mask, guess = _problem(
+        card, 27, map_pts=map_pts, src=src, mask=mask,
+        guess=_guess(card, 1e-4, 0.0, 0.0))
+    out = _assert_kernel_matches_plain(cand, source, mask, guess, 0.7,
+                                       check_crossing=True)
+    assert not bool(out[4])
+
+
+@pytest.mark.cuda
+def test_gn_kernel_check_crossing_violated(card):
+    cand, source, mask, guess = _problem(card, 27, seed=2,
+                                         guess=_guess(card, 0.45, 0.0, 0.0))
+    out = _assert_kernel_matches_plain(cand, source, mask, guess, 2.0,
+                                       check_crossing=True)
+    assert bool(out[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,crossing", [(10, False), (27, True)])
+def test_gn_kernel_deterministic(card, v, crossing):
+    cand, source, mask, guess = _problem(card, v, n=8192, nmap=12000,
+                                         extent=4.0)
+    a = gn.gn_solve(cand, source, mask, guess, 0.5, check_crossing=crossing,
+                    **SOLVE)
+    b = gn.gn_solve(cand, source, mask, guess, 0.5, check_crossing=crossing,
+                    **SOLVE)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):  # bit-equal, the error included
+        assert torch.equal(x.reshape(-1).view(torch.uint8),
+                           y.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_gn_kernel_spreads_over_ctas(card):
+    cand, source, mask, guess = _problem(card, 10, n=8192, nmap=12000,
+                                         extent=4.0)
+    gn.gn_solve(cand, source, mask, guess, 0.5, **SOLVE)
+    torch.cuda.synchronize()
+    # one CTA per 32-query tile while the card holds them all at once
+    assert 1 < gn.LAST_CTAS <= 8192 // 32
 
 
 @pytest.mark.cuda

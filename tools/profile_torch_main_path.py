@@ -2,10 +2,12 @@
 
 Usage (on a machine with a CUDA card):
 
-    python3 tools/profile_torch_main_path.py [--frames 20] [--out FILE]
+    python3 tools/profile_torch_main_path.py [--frames 20]
+        [--config headline|stock] [--out FILE]
 
 Runs ``kinematic_icp_tpu_torch.offline.run_offline`` at the headline shape
-of ``chip_smoke.py`` on synthetic realistic scans under
+of ``chip_smoke.py`` (or, with ``--config stock``, its stock ``Config``:
+8,192 ICP source slots a frame) on synthetic realistic scans under
 ``torch.profiler`` and prints one JSON line: wall time per frame, device
 kernel time per frame, the device's busy and idle share of the wall time,
 kernel launches per frame, and the ops that take the most device time.
@@ -41,6 +43,8 @@ def _busy_us(intervals):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--config", choices=("headline", "stock"),
+                    default="headline")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -48,7 +52,7 @@ def main(argv=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import HEADLINE
+    from chip_smoke import HEADLINE, STOCK, nvidia_smi_line
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import run_offline
     from kinematic_icp_tpu_torch.utils import synthetic
@@ -56,7 +60,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("profile: no CUDA card", file=sys.stderr)
         return 1
-    cfg = Config(**HEADLINE)
+    config_kw = HEADLINE if args.config == "headline" else STOCK
+    cfg = Config(**config_kw)
     seq = synthetic.make_sequence(args.frames,
                                   lidar=synthetic.realistic_lidar(),
                                   clear_path_margin=3.0)
@@ -86,8 +91,9 @@ def main(argv=None):
     top = sorted(top.items(), key=lambda kv: -kv[1][0])[:12]
     measured = bool(kernels)
     row = {
-        "device": torch.cuda.get_device_name(0), "frames": f,
-        "config": HEADLINE,
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": nvidia_smi_line(), "frames": f,
+        "config": config_kw,
         "wall_ms_per_frame": wall_us / f / 1e3,
         "device_kernel_ms_per_frame": kernel_us / f / 1e3 if measured
         else None,
