@@ -19,11 +19,22 @@ last line.  Phases:
   4. main path: ``offline.run_offline`` on a synthetic drive of realistic
      58K-point scans at the headline shape, with every kernel's launch
      count read around that one run, accuracy against ground truth, and
-     the same frames through the plain GN version on the card;
+     the same frames through the torch loop lowering (``gn_backend=
+     "torch"``) on the card;
   5. stock Config: 20 frames of the same drive under ``Config(deskew=True,
      max_range=60.0)`` (8,192 ICP source slots a frame), the kernel on
-     every frame, zero overflow, and the plain GN version's trajectory;
-  6. the ``kernels`` summary line, the card's name and power limit, and
+     every frame, zero overflow, and the loop lowering's trajectory;
+  6. exact mode: the 60 headline frames under the JAX bench's
+     reference-exact configuration (27 voxels re-gathered every GN
+     iteration): the kernel's certified solve (its ``check_crossing``
+     instance) on every frame with the full-27 loop on the frames whose
+     certificate fails, zero overflow, better than dead reckoning, and
+     within 5 mm of the full-27 loop on every frame;
+  7. exact fallback: one frame whose certificate must fail, through
+     ``compute_robot_motion``, equal to the full-27 loop;
+  8. pruned exact: 20 frames with 14 of 27 voxels re-gathered and the
+     certificate, bit-equal to the full-27 loop on every frame;
+  9. the ``kernels`` summary line, the card's name and power limit, and
      the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
@@ -56,6 +67,13 @@ EARLY_FRAMES = 20
 #: map_capacity 1 << 18
 STOCK = dict(deskew=True, max_range=60.0)
 STOCK_FRAMES = 20
+#: the JAX bench's reference-exact configuration (bench.py:296-298)
+EXACT = dict(HEADLINE, neighbor_candidates=27, exact_gn_reassociation=True,
+             map_capacity=1 << 16, max_probes=4)
+EXACT_FRAMES = 60
+#: pruned exact runs on the loop lowering only, as in the JAX package
+PRUNED = dict(EXACT, exact_prune_candidates=14, gn_backend="torch")
+PRUNED_FRAMES = 20
 #: the single-CTA design's kernel ms at each (V, N, check_crossing) on an
 #: NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
 EARLIER_MS = {(10, 1024, False): 0.3212, (10, 8192, False): 2.591,
@@ -220,64 +238,76 @@ def kernel_phase(torch, np, seq, v, n, check_crossing):
     return row
 
 
+def run_drive(torch, seq, config, n):
+    """``run_offline`` over the first ``n`` frames on the card.  Returns
+    (poses, seconds, overflow warnings, stats)."""
+    from kinematic_icp_tpu_torch.offline import run_offline
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        poses, _, stats = run_offline(seq["frames"][:n],
+                                      seq["rel_odometry"][:n], config,
+                                      extrinsic=seq["extrinsic"],
+                                      return_stats=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    overflow = [str(w.message) for w in caught
+                if "capacity overflow" in str(w.message)]
+    return poses, seconds, overflow, stats
+
+
+def dead_reckoning(np, rels):
+    dead = [np.eye(4)]
+    for rel in rels[1:]:
+        dead.append(dead[-1] @ rel)
+    return dead
+
+
 def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt):
     """``run_offline`` over the first ``count`` frames under ``config_kw``,
     with the GN launch count set to 0 just before and read just after,
-    then the same frames through the plain GN version on the card.
+    then the same frames through the loop lowering on the card.
 
     ``judge_vs_gt``: also require the estimate to beat dead reckoning
-    against ground truth (the headline drive, long enough to settle)."""
+    against ground truth (the headline drive, long enough to settle).
+    Returns (GN launches, poses)."""
     from kinematic_icp_tpu_torch import Config
-    from kinematic_icp_tpu_torch.offline import run_offline
     from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = Config(**config_kw)
-    frames, rels = seq["frames"][:count], seq["rel_odometry"][:count]
+    frames = seq["frames"][:count]
     gt = seq["gt_poses"][:count]
 
-    def drive(config, n=count):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            poses, _ = run_offline(frames[:n], rels[:n], config,
-                                   extrinsic=seq["extrinsic"])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        overflow = [str(w.message) for w in caught
-                    if "capacity overflow" in str(w.message)]
-        return poses, seconds, overflow
-
-    drive(cfg, 3)  # warm-up: CUDA context, allocator, library load
+    run_drive(torch, seq, cfg, 3)  # warm-up: context, allocator, library
     torch.cuda.reset_peak_memory_stats()
     gn.LAUNCHES = 0
-    poses, seconds, overflow = drive(cfg)
+    poses, seconds, overflow, _ = run_drive(torch, seq, cfg, count)
     launches = gn.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
 
-    dead = [np.eye(4)]
-    for rel in rels[1:]:
-        dead.append(dead[-1] @ rel)
+    dead = dead_reckoning(np, seq["rel_odometry"][:count])
     ate = ate_rmse(gt, poses, align=False)
     ate_dead = ate_rmse(gt, dead, align=False)
-    poses_plain, seconds_plain, overflow_plain = drive(
-        cfg.replace(gn_backend="torch"))
-    ate_plain = ate_rmse(poses_plain, poses, align=False)
+    poses_loop, seconds_loop, overflow_loop, _ = run_drive(
+        torch, seq, cfg.replace(gn_backend="torch"), count)
+    ate_loop = ate_rmse(poses_loop, poses, align=False)
     checks = {
         "finite": bool(np.isfinite(poses).all()),
-        "zero_overflow": not overflow and not overflow_plain,
+        "zero_overflow": not overflow and not overflow_loop,
         "kernel_every_frame": launches == count,
-        "plain_within_5mm": ate_plain < 5e-3,
+        "loop_within_5mm": ate_loop < 5e-3,
     }
     row = {"phase": phase, "frames": count,
            "mean_points": float(np.mean([len(f[0]) for f in frames])),
            "config": config_kw, "gn_launches": launches,
            "overflow": overflow or [0, 0, 0], "frames_per_s":
            count / seconds, "seconds": seconds,
-           "plain_frames_per_s": count / seconds_plain,
+           "loop_frames_per_s": count / seconds_loop,
            "peak_memory_bytes": peak, "ate_vs_gt_m": ate,
-           "ate_dead_reckoning_m": ate_dead, "ate_kernel_vs_plain_m":
-           ate_plain}
+           "ate_dead_reckoning_m": ate_dead, "ate_kernel_vs_loop_m":
+           ate_loop}
     if judge_vs_gt:
         checks["beats_dead_reckoning"] = ate < ate_dead
         # the start-up transient, for the record (not a check)
@@ -291,7 +321,143 @@ def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt):
     emit(row)
     if not all(checks.values()):
         raise SystemExit(f"{phase} failed: {checks}")
-    return launches
+    return launches, poses
+
+
+def active_frames(torch, np, rels):
+    """Frames past the stationary gate (``offline._per_frame_constants``)."""
+    from kinematic_icp_tpu_torch.ops import se3
+
+    logs = se3.se3_log(torch.tensor(np.stack(rels), dtype=torch.float32))
+    return int((torch.linalg.vector_norm(logs, dim=-1) > 1e-3).sum())
+
+
+def exact_phase(torch, np, seq, main_poses):
+    """The reference-exact mode over the headline frames: the certified
+    solve on every frame (GN counts set to 0 just before, read just
+    after), then the full-27 loop on every frame.  Returns the
+    ``check_crossing`` instance's launches."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = Config(**EXACT)
+    count = EXACT_FRAMES
+    gt = seq["gt_poses"][:count]
+    run_drive(torch, seq, cfg, 3)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    gn.LAUNCHES = 0
+    gn.CROSSING_LAUNCHES = 0
+    poses, seconds, overflow, stats = run_drive(torch, seq, cfg, count)
+    launches, crossing = gn.LAUNCHES, gn.CROSSING_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    poses_loop, seconds_loop, overflow_loop, stats_loop = run_drive(
+        torch, seq, cfg.replace(gn_backend="torch"), count)
+
+    ate = ate_rmse(gt, poses, align=False)
+    ate_dead = ate_rmse(gt, dead_reckoning(np, seq["rel_odometry"][:count]),
+                        align=False)
+    ate_loop = ate_rmse(poses_loop, poses, align=False)
+    checks = {
+        "finite": bool(np.isfinite(poses).all()),
+        "zero_overflow": not overflow and not overflow_loop,
+        # every frame registers (the stationary gate only masks the state
+        # update), each through one launch of the certified instance
+        "certified_kernel_every_frame": crossing == launches == count,
+        "beats_dead_reckoning": ate < ate_dead,
+        "loop_within_5mm": ate_loop < 5e-3,
+        "loop_never_falls_back": stats_loop["exact_fallback_frames"] == 0,
+    }
+    row = {"phase": "exact_mode", "frames": count,
+           "active_frames": active_frames(torch, np,
+                                          seq["rel_odometry"][:count]),
+           "config": EXACT, "gn_launches": launches,
+           "gn_check_crossing_launches": crossing,
+           "exact_fallback_frames": stats["exact_fallback_frames"],
+           "overflow": overflow or [0, 0, 0],
+           "frames_per_s": count / seconds, "seconds": seconds,
+           "loop_frames_per_s": count / seconds_loop,
+           "peak_memory_bytes": peak, "ate_vs_gt_m": ate,
+           "ate_dead_reckoning_m": ate_dead, "ate_certified_vs_loop_m":
+           ate_loop, "default_vs_exact_ate_m": ate_rmse(
+               main_poses, poses, align=False), "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"exact_mode failed: {checks}")
+    return crossing
+
+
+def fallback_phase(torch, np):
+    """One frame whose certificate must fail (tests/test_pallas_gn.py:
+    160-166: a uniform 3,000-point map, 512 noisy sources, a 0.45 m guess
+    offset, tau 2.0) through ``compute_robot_motion``, against the full-27
+    loop on the same card."""
+    from kinematic_icp_tpu_torch.ops import gn, hashmap, registration
+    from kinematic_icp_tpu_torch.ops.points import P3
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    map_pts = rng.uniform(-20, 20, (3000, 3)).astype(np.float32)
+    src = (map_pts[:512] + rng.normal(0, 0.05, (512, 3))).astype(np.float32)
+    mask = torch.from_numpy(rng.uniform(size=512) < 0.9).to(dev)
+    m = hashmap.insert(hashmap.empty(1 << 13, 20, device=dev),
+                       P3.from_array(torch.from_numpy(map_pts).to(dev)),
+                       torch.ones(3000, dtype=torch.bool, device=dev),
+                       1.0, 4)
+    source = P3.from_array(torch.from_numpy(src).to(dev))
+    guess = torch.eye(4, device=dev)
+    guess[0, 3] = 0.45
+    kw = dict(voxel_size=1.0, max_probes=4, max_num_iterations=10,
+              convergence_criterion=0.001,
+              use_adaptive_odometry_regularization=True,
+              fixed_regularization=0.0, threshold_max_range=60.0,
+              exact_gn_reassociation=True)
+
+    def solve(backend):
+        return registration.compute_robot_motion(
+            m, source, mask, torch.eye(4, device=dev), guess,
+            torch.tensor(2.0, device=dev), gn_backend=backend, **kw)
+
+    before = gn.CROSSING_LAUNCHES
+    cert_pose, cert = solve("cuda")
+    launched = gn.CROSSING_LAUNCHES - before
+    loop_pose, loop = solve("torch")
+    pose_err = float((cert_pose - loop_pose).abs().max())
+    checks = {
+        "exact_fallback": bool(cert.exact_fallback),
+        "one_certified_launch": launched == 1,
+        "pose_within_1e-6": pose_err <= 1e-6,
+        "iterations_equal": int(cert.iterations) == int(loop.iterations),
+        "correspondences_equal": int(cert.num_correspondences) == int(
+            loop.num_correspondences),
+    }
+    emit({"phase": "exact_fallback", "iterations": int(cert.iterations),
+          "correspondences": int(cert.num_correspondences),
+          "max_abs_err_pose": pose_err, "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"exact_fallback failed: {checks}")
+
+
+def pruned_phase(torch, np, seq):
+    """Pruned exact over the first headline frames, against the full-27
+    loop on the same frames: bit-equal poses on every frame."""
+    from kinematic_icp_tpu_torch import Config
+
+    cfg = Config(**PRUNED)
+    count = PRUNED_FRAMES
+    poses, seconds, overflow, stats = run_drive(torch, seq, cfg, count)
+    full, seconds_full, overflow_full, _ = run_drive(
+        torch, seq, cfg.replace(exact_prune_candidates=0), count)
+    equal = sum(bool(np.array_equal(a, b)) for a, b in zip(poses, full))
+    checks = {"finite": bool(np.isfinite(poses).all()),
+              "zero_overflow": not overflow and not overflow_full,
+              "bit_equal_every_frame": equal == count}
+    emit({"phase": "pruned_exact", "frames": count, "config": PRUNED,
+          "exact_fallback_frames": stats["exact_fallback_frames"],
+          "frames_bit_equal": equal, "frames_per_s": count / seconds,
+          "full_27_frames_per_s": count / seconds_full, "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"pruned_exact failed: {checks}")
 
 
 def spills(log):
@@ -334,15 +500,19 @@ def main():
     kernel_phase(torch, np, seq, 10, 8192, False)
     kernel_phase(torch, np, seq, 27, 1024, True)
 
-    launches = drive_phase(torch, np, seq, "main_path", HEADLINE,
-                           MAIN_FRAMES, True)
+    launches, main_poses = drive_phase(torch, np, seq, "main_path",
+                                       HEADLINE, MAIN_FRAMES, True)
     drive_phase(torch, np, seq, "stock_config", STOCK, STOCK_FRAMES, False)
+    exact_launches = exact_phase(torch, np, seq, main_poses)
+    fallback_phase(torch, np)
+    pruned_phase(torch, np, seq)
 
     emit({"kernels": [{
         "name": "gn_solve", "route": "cuda",
         "source": "kinematic_icp_tpu_torch/csrc/gn_solve.cu",
         "replaces": "kinematic_icp_tpu/ops/pallas_gn.py:86",
         "launches": launches,
+        "launches_exact_mode_check_crossing": exact_launches,
         "max_abs_err": main_shape["max_abs_err_pose"],
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

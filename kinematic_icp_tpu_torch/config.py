@@ -4,9 +4,10 @@ Same fields and defaults as the JAX package's ``Config`` (the reference
 ``kinematic_icp::pipeline::Config`` plus the static capacities that replace
 its dynamically sized containers), so one set of values drives both
 packages.  ``gn_backend`` names this package's Gauss-Newton lowerings:
-``cuda`` is the hand-written kernel (``csrc/gn_solve.cu``), ``torch`` its
-plain tensor version, and ``auto`` takes the kernel for CUDA tensors and the
-plain version for CPU tensors.
+``cuda`` takes the kernel branches of the registration (the hand-written
+kernel ``csrc/gn_solve.cu``, or its plain version on CPU tensors),
+``torch`` the loop branches (JAX's ``xla``), and ``auto`` is ``cuda`` for
+CUDA tensors and ``torch`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -51,11 +52,16 @@ class Config:
     max_probes: int = 4
     #: candidate voxels fetched per nearest-neighbour query (27 = all)
     neighbor_candidates: int = 10
-    #: re-gather candidates on every GN iteration (not ported yet)
+    #: re-gather the 27-voxel neighbourhood on every GN iteration (the
+    #: reference's behaviour; "cuda" runs the kernel's certified solve with
+    #: a full-27 fallback, "torch" the full-27 loop)
     exact_gn_reassociation: bool = False
-    #: pruned exact re-gather (not ported yet)
+    #: with exact_gn_reassociation and the "torch" loop: re-gather only the
+    #: V nearest voxels, with a certificate and a full-27 fallback, so the
+    #: result equals the full loop bit for bit; 0 disables pruning
     exact_prune_candidates: int = 0
-    #: keep only the top-M candidates per voxel (not ported yet)
+    #: keep only the top-M candidates per voxel (ranked at the initial
+    #: guess) for the candidate-cached solve; 0 keeps all
     gn_candidates_per_voxel: int = 0
     #: "cuda" | "torch" | "auto" (see the module docstring)
     gn_backend: str = "auto"

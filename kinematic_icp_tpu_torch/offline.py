@@ -38,11 +38,14 @@ def _per_frame_constants(rels, extrinsic, config: Config):
 
 def make_sequence_runner(config: Config, device=None):
     """Build the sequence runner: ``run(state, pts, ts, mask, has_ts,
-    extrinsic, rels) -> (final_state, poses (F, 4, 4), overflow (3,))``.
+    extrinsic, rels) -> (final_state, poses (F, 4, 4), overflow (3,),
+    fallbacks ())``.
 
     ``overflow`` totals [downsample drops, source drops, insert failures]
-    over the sequence.  ``device`` (``None`` = CUDA; raises if absent) is
-    where the inputs must live.
+    over the sequence; ``fallbacks`` (int32) counts the active frames on
+    which an exact mode's certificate failed and the full-27 loop
+    recomputed the solve.  ``device`` (``None`` = CUDA; raises if absent)
+    is where the inputs must live.
     """
     dev = resolve_device(device)
 
@@ -54,6 +57,7 @@ def make_sequence_runner(config: Config, device=None):
         active, twists = _per_frame_constants(rels, extrinsic, config)
         poses = []
         overflow = torch.zeros(3, dtype=torch.int32, device=dev)
+        fallbacks = torch.zeros((), dtype=torch.int32, device=dev)
         for f in range(pts.shape[0]):
             state, out = pipeline.register_frame(
                 state, pts[f], ts[f], mask[f], has_ts[f], extrinsic, rels[f],
@@ -61,7 +65,10 @@ def make_sequence_runner(config: Config, device=None):
                 rel_twist_in_lidar=None if twists is None else twists[f])
             poses.append(state.pose)
             overflow = overflow + out.overflow
-        return state, torch.stack(poses), overflow
+            if out.debug.exact_fallback is not None:
+                fallbacks = fallbacks + (out.debug.exact_fallback
+                                         & active[f]).to(torch.int32)
+        return state, torch.stack(poses), overflow, fallbacks
 
     return run
 
@@ -113,8 +120,10 @@ def pad_sequence(frames, rel_odometry, config: Config, timestamps=None):
 
 def run_offline(frames, rel_odometry, config: Config | None = None,
                 extrinsic=None, initial_pose=None, timestamps=None,
-                state=None, device=None):
-    """Process a full sequence; returns (poses (F, 4, 4) np, final_state).
+                state=None, device=None, return_stats=False):
+    """Process a full sequence; returns (poses (F, 4, 4) np, final_state),
+    and with ``return_stats`` a third item, ``{"overflow": (3,) np int32,
+    "exact_fallback_frames": int}`` (see ``make_sequence_runner``).
 
     ``device`` ``None`` means CUDA (raises if absent); pass ``"cpu"`` to run
     on the CPU.  Warns when a static capacity overflowed.
@@ -130,12 +139,16 @@ def run_offline(frames, rel_odometry, config: Config | None = None,
     ext = torch.eye(4, dtype=torch.float32) if extrinsic is None else \
         torch.as_tensor(np.asarray(extrinsic, np.float32))
     runner = make_sequence_runner(config, dev)
-    final_state, poses, overflow = runner(state, pts, ts, mask, has_ts,
-                                          ext.to(dev), rels)
+    final_state, poses, overflow, fallbacks = runner(
+        state, pts, ts, mask, has_ts, ext.to(dev), rels)
     overflow = overflow.cpu().numpy()
     if overflow.any():
         warnings.warn(
             f"capacity overflow over the sequence: {overflow[0]} downsample "
             f"voxels, {overflow[1]} source voxels, {overflow[2]} map inserts "
             f"dropped — raise max_downsampled/max_source/map_capacity")
-    return poses.cpu().numpy().astype(np.float64), final_state
+    poses = poses.cpu().numpy().astype(np.float64)
+    if return_stats:
+        return poses, final_state, {"overflow": overflow,
+                                    "exact_fallback_frames": int(fallbacks)}
+    return poses, final_state

@@ -39,6 +39,9 @@ _EPSILON = 1e-30
 #: kernel launches so far (a plain count, for showing the path ran the
 #: kernel); the plain version does not count
 LAUNCHES = 0
+#: of those, launches of the ``check_crossing`` instance (the certified
+#: exact mode's)
+CROSSING_LAUNCHES = 0
 #: CTAs of the kernel's last cooperative grid (0 before the first launch)
 LAST_CTAS = 0
 
@@ -292,7 +295,7 @@ def _gn_solve_cuda(cand, source, source_mask, guess, tau, *, voxel_size,
     """One cooperative launch of the kernel and no other device work: the
     kernel reads ``guess``, ``tau`` and the bool mask where they lie, and
     takes the scalars by value."""
-    global LAUNCHES, LAST_CTAS
+    global LAUNCHES, CROSSING_LAUNCHES, LAST_CTAS
     v, k, n = cand.words.shape
     if not (1 <= v <= 27 and 1 <= k <= 32 and n >= 1):
         raise ValueError(f"gn_solve kernel takes V <= 27, K <= 32; got "
@@ -339,6 +342,7 @@ def _gn_solve_cuda(cand, source, source_mask, guess, tau, *, voxel_size,
     if rc != 0:
         raise RuntimeError(f"gn_solve kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    CROSSING_LAUNCHES += int(check_crossing)
     LAST_CTAS = ctas.value
     # stats[2] is 0 or 1; its low byte (little-endian) read as a bool is
     # `crossed` without a comparison kernel

@@ -29,7 +29,7 @@ import torch
 
 from .points import P3, transform
 from .voxel import (PACKED_KEY_SENTINEL, SENTINEL, lexsort, pack_rebased_keys,
-                    packable_span, roll_heads)
+                    packable_span, roll_heads, voxel_coords_planar)
 
 #: packed-point sentinel (u32 all-ones) as int32 bits
 PACKED_SENTINEL = -1
@@ -172,6 +172,23 @@ def unpack_offsets(words, bx, by, bz, voxel_size: float,
               bz.to(dtype) * voxel_size + (oz + half) * step)
 
 
+def pointcloud(m: MapState, voxel_size: float):
+    """All stored world points + validity mask (LocalMap()/Pointcloud()
+    parity), slot-major as in the JAX version.  Returns (P3 of (C*K,),
+    mask (C*K,))."""
+    k = m.block_size
+    s = _slots(m).transpose(0, 1)                                # (G, B, R)
+    words = s[..., :k].reshape(-1)
+
+    def per_point(lane):
+        return s[..., lane].repeat_interleave(k, dim=-1).reshape(-1)
+
+    mask = (words != PACKED_SENTINEL) & (per_point(k) != 0)
+    pts = unpack_offsets(words, per_point(k + 1), per_point(k + 2),
+                         per_point(k + 3), voxel_size)
+    return pts, mask
+
+
 def _box_lower_bound_d2(q: P3, bx, by, bz, voxel_size: float):
     """Squared distance from each query (N,) to each voxel box (27, N)."""
     def axis(b, c):
@@ -188,25 +205,44 @@ def _rel_to_offsets(rel):
     return rel // 9 - 1, (rel // 3) % 3 - 1, rel % 3 - 1
 
 
+def _voxel_words(m: MapState, bx, by, bz):
+    """The packed words stored in voxels (bx, by, bz), each (V, N): (V, N,
+    K) int32, -1 where the voxel is absent.  One row gather of the fat
+    bucket rows; a voxel occupies at most one slot of its bucket."""
+    k, g = m.block_size, m.bucket_slots
+    fat = m.table[bucket_of(bx, by, bz, m.num_buckets).long()].view(
+        *bx.shape, g, k + _META_LANES)                           # (V, N, G, R)
+    hit = ((fat[..., k] == fingerprint(bx, by, bz)[..., None])
+           & (fat[..., k + 1] == bx[..., None])
+           & (fat[..., k + 2] == by[..., None])
+           & (fat[..., k + 3] == bz[..., None]))                # (V, N, G)
+    words = torch.full((*bx.shape, k), PACKED_SENTINEL, dtype=torch.int32,
+                       device=bx.device)
+    for gi in range(g):
+        words = torch.where(hit[..., gi, None], fat[..., gi, :k], words)
+    return words
+
+
 def gather_candidates(m: MapState, q: P3, voxel_size: float, max_probes: int,
-                      num_candidate_voxels: int = 27) -> CandidateSet:
+                      num_candidate_voxels: int = 27,
+                      return_skip_bound: bool = False):
     """One gather pass: candidate map points around each query.
 
     Per query, the ``num_candidate_voxels`` (V) voxels with the smallest
     point-to-box lower bound are fetched (V = 27 is the whole
     neighbourhood).  The offset id rides in the low 5 bits of the bitcast
     bound, so one sort over the 27-row axis ranks them.
+
+    ``return_skip_bound`` also returns ``skip_lb_d2`` (N,) float32: per
+    query, the smallest squared box bound among the 27 - V voxels NOT
+    fetched (+inf when V = 27), the exactness certificate of pruned
+    search.  Masking the 5 id bits rounds the bound down, never up.
     """
     del max_probes  # the bucket holds every probe slot
-    k, g = m.block_size, m.bucket_slots
-    r = k + _META_LANES
     v = num_candidate_voxels
     n = q.x.shape[0]
     dev = q.x.device
-    inv = 1.0 / voxel_size
-    base_x = torch.floor(q.x * inv).to(torch.int32)
-    base_y = torch.floor(q.y * inv).to(torch.int32)
-    base_z = torch.floor(q.z * inv).to(torch.int32)
+    base_x, base_y, base_z = voxel_coords_planar(q, voxel_size)
 
     ids = torch.arange(27, dtype=torch.int32, device=dev)[:, None]
     if v < 27:
@@ -214,29 +250,25 @@ def gather_candidates(m: MapState, q: P3, voxel_size: float, max_probes: int,
         lb = _box_lower_bound_d2(q, base_x[None] + ox, base_y[None] + oy,
                                  base_z[None] + oz, voxel_size)  # (27, N)
         key = (_u32(lb.view(torch.int32)) & 0xFFFFFFE0) | ids
-        key = torch.sort(key, dim=0).values[:v]
-        rel = (key & 31).to(torch.int32)
+        key = torch.sort(key, dim=0).values
+        if return_skip_bound:
+            # row v is the nearest skipped box (keys sort ascending)
+            skip_lb_d2 = _i32(key[v] & 0xFFFFFFE0).view(torch.float32)
+        rel = (key[:v] & 31).to(torch.int32)
     else:
+        if return_skip_bound:
+            skip_lb_d2 = torch.full((n,), torch.inf, dtype=torch.float32,
+                                    device=dev)
         rel = ids.expand(27, n)
     ox, oy, oz = _rel_to_offsets(rel)
-    bx = base_x[None] + ox
-    by = base_y[None] + oy
-    bz = base_z[None] + oz
-
-    bucket = bucket_of(bx, by, bz, m.num_buckets).reshape(-1)
-    fpq = fingerprint(bx, by, bz).reshape(-1, 1)
-    fat = m.table[bucket.long()].view(-1, g, r)                 # (V*N, G, R)
-    hit = ((fat[..., k] == fpq) & (fat[..., k + 1] == bx.reshape(-1, 1))
-           & (fat[..., k + 2] == by.reshape(-1, 1))
-           & (fat[..., k + 3] == bz.reshape(-1, 1)))           # (V*N, G)
-    # A voxel occupies at most one slot of its bucket.
-    words = torch.full((fat.shape[0], k), PACKED_SENTINEL, dtype=torch.int32,
-                       device=dev)
-    for gi in range(g):
-        words = torch.where(hit[:, gi, None], fat[:, gi, :k], words)
-    words = words.view(v, n, k).transpose(1, 2).contiguous()
-    return CandidateSet(words=words, rel=rel.contiguous(), base_x=base_x,
+    words = _voxel_words(m, base_x[None] + ox, base_y[None] + oy,
+                         base_z[None] + oz)
+    cand = CandidateSet(words=words.transpose(1, 2).contiguous(),
+                        rel=rel.contiguous(), base_x=base_x,
                         base_y=base_y, base_z=base_z)
+    if return_skip_bound:
+        return cand, skip_lb_d2
+    return cand
 
 
 def _candidate_points(cand: CandidateSet, voxel_size: float,
@@ -249,6 +281,32 @@ def _candidate_points(cand: CandidateSet, voxel_size: float,
                          cand.base_z[None, None, :] + oz,
                          voxel_size, dtype)
     return pts, cand.words != PACKED_SENTINEL
+
+
+def reduce_candidates(cand: CandidateSet, q: P3, keep: int,
+                      voxel_size: float) -> CandidateSet:
+    """Shrink each voxel's candidate list to its ``keep`` nearest points,
+    ranked at the query positions ``q`` (the initial guess); ties go to
+    the lowest entry lane (Config.gn_candidates_per_voxel)."""
+    v, k, n = cand.words.shape
+    if keep >= k:
+        return cand
+    pts, valid = _candidate_points(cand, voxel_size, q.x.dtype)
+    dx = pts.x - q.x[None, None, :]
+    dy = pts.y - q.y[None, None, :]
+    dz = pts.z - q.z[None, None, :]
+    cur = torch.where(valid, dx * dx + dy * dy + dz * dz, torch.inf)
+    lane = torch.arange(k, device=q.x.device)[None, :, None]
+    outs = []
+    for _ in range(keep):
+        best = cur.amin(dim=1, keepdim=True)
+        first = torch.where(cur == best, lane, k).amin(dim=1, keepdim=True)
+        pick = lane == first                      # one lane per (v, n)
+        word = torch.where(pick, cand.words, 0).sum(dim=1, dtype=torch.int32)
+        outs.append(torch.where(torch.isfinite(best[:, 0]), word,
+                                PACKED_SENTINEL))
+        cur = torch.where(pick, torch.inf, cur)
+    return cand._replace(words=torch.stack(outs, dim=1))
 
 
 def nn_from_candidates(cand: CandidateSet, q: P3, query_mask,
@@ -291,6 +349,69 @@ def nn_from_candidates(cand: CandidateSet, q: P3, query_mask,
     return nearest, dist
 
 
+def nearest_neighbor_native(m: MapState, q: P3, query_mask,
+                            voxel_size: float):
+    """Full-27-neighbourhood GetClosestNeighbor in the row gather's own
+    (27, N, lanes) layout.
+
+    The same selection (packed distance key, (offset id, entry lane)
+    tie-break) as ``gather_candidates`` + ``nn_from_candidates``, for an
+    association consumed once (the exact re-gather-per-iteration mode,
+    Registration.cpp:179-187): no (V, K, N) cache is transposed.  It holds
+    the (27, N, G*R) int32 gathered rows (10.6 MB at N=1024, G=4, R=24)
+    and (27, N, K) int64 keys on the device.  The min runs over the entry
+    lane first, then the offset.
+
+    Returns (P3 neighbours (N,), dist (N,)); inf distance when none.
+    """
+    k = m.block_size
+    dev = q.x.device
+    base_x, base_y, base_z = voxel_coords_planar(q, voxel_size)
+    ids = torch.arange(27, dtype=torch.int32, device=dev)[:, None]
+    ox, oy, oz = _rel_to_offsets(ids)
+    bx = base_x[None] + ox                                       # (27, N)
+    by = base_y[None] + oy
+    bz = base_z[None] + oz
+    words = _voxel_words(m, bx, by, bz)                          # (27, N, K)
+
+    pts = unpack_offsets(words, bx[..., None], by[..., None], bz[..., None],
+                         voxel_size, q.x.dtype)                  # (27, N, K)
+    dx = pts.x - q.x[None, :, None]
+    dy = pts.y - q.y[None, :, None]
+    dz = pts.z - q.z[None, :, None]
+    d2 = dx * dx + dy * dy + dz * dz
+
+    lane = torch.arange(k, dtype=torch.int64, device=dev)
+    tag = (ids.to(torch.int64)[:, :, None] << 5) | lane
+    key = (_u32(d2.view(torch.int32)) & ~0x3FF) | tag
+    key = torch.where((words != PACKED_SENTINEL) & query_mask[None, :, None],
+                      key, _U32)
+    best = key.amin(dim=2).amin(dim=0)                           # (N,)
+
+    # a query with no candidate sums every word, wrapping like the u32 sum
+    pick = key == best[None, :, None]
+    word = torch.where(pick, _u32(words), 0).sum(dim=2).sum(dim=0) & _U32
+    wx, wy, wz = _rel_to_offsets(((best >> 5) & 31).to(torch.int32))
+    nearest = unpack_offsets(_i32(word), base_x + wx, base_y + wy,
+                             base_z + wz, voxel_size, q.x.dtype)
+    ex = nearest.x - q.x
+    ey = nearest.y - q.y
+    ez = nearest.z - q.z
+    has = best != _U32
+    dist = torch.where(query_mask & has, torch.sqrt(ex * ex + ey * ey + ez * ez),
+                       torch.inf)
+    return nearest, dist
+
+
+def nearest_neighbor(m: MapState, q: P3, query_mask, voxel_size: float,
+                     max_probes: int, num_candidate_voxels: int = 27):
+    """Batched GetClosestNeighbor over the (possibly pruned) neighbourhood."""
+    if num_candidate_voxels >= 27:
+        return nearest_neighbor_native(m, q, query_mask, voxel_size)
+    cand = gather_candidates(m, q, voxel_size, max_probes, num_candidate_voxels)
+    return nn_from_candidates(cand, q, query_mask, voxel_size)
+
+
 def insert(m: MapState, p: P3, mask, voxel_size: float, max_probes: int,
            max_extent: float | None = None, return_failed: bool = False):
     """AddPoints: insert world-frame points, first-come-kept per voxel block.
@@ -307,10 +428,7 @@ def insert(m: MapState, p: P3, mask, voxel_size: float, max_probes: int,
     r = kmax + _META_LANES
     n = p.x.shape[0]
     dev = p.x.device
-    inv = 1.0 / voxel_size
-    cx = torch.floor(p.x * inv).to(torch.int32)
-    cy = torch.floor(p.y * inv).to(torch.int32)
-    cz = torch.floor(p.z * inv).to(torch.int32)
+    cx, cy, cz = voxel_coords_planar(p, voxel_size)
 
     if packable_span(voxel_size, max_extent):
         big = 1 << 30

@@ -6,6 +6,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import se3
+
 
 class ThresholdState(NamedTuple):
     odom_sse: torch.Tensor     # scalar
@@ -30,10 +32,28 @@ def compute_threshold(state: ThresholdState, *, map_discretization_error: float,
     return 3.0 * (map_discretization_error + sigma_odom)
 
 
+def odometry_error_in_point_space(pose, max_range: float):
+    """|t| + 2 * max_range * sin(theta/2)  (CorrespondenceThreshold.cpp:7-12)."""
+    theta = se3.rotation_angle(pose)
+    delta_rot = 2.0 * max_range * torch.sin(theta / 2.0)
+    delta_trans = torch.linalg.vector_norm(pose[..., :3, 3], dim=-1)
+    return delta_trans + delta_rot
+
+
+def update_odometry_error(state: ThresholdState, odometry_error_pose, *,
+                          max_range: float, use_adaptive: bool) -> ThresholdState:
+    """Accumulate squared odometry error (CorrespondenceThreshold.cpp:37-44)."""
+    if not use_adaptive:
+        return state
+    err = odometry_error_in_point_space(odometry_error_pose, max_range)
+    return update_odometry_error_scalar(state, err, use_adaptive=True)
+
+
 def update_odometry_error_scalar(state: ThresholdState, err, *,
                                  use_adaptive: bool) -> ThresholdState:
     """Accumulate a precomputed point-space error (CorrespondenceThreshold
-    .cpp:37-44); the GN solve returns it with the pose."""
+    .cpp:37-44); the kernel branches of the GN solve return it with the
+    pose."""
     if not use_adaptive:
         return state
     return ThresholdState(

@@ -7,10 +7,12 @@ import torch
 
 from kinematic_icp_tpu.ops import motion_model as jmm
 from kinematic_icp_tpu.ops import se3 as jse3
+from kinematic_icp_tpu.ops import threshold as jthr
 from kinematic_icp_tpu.ops.points import P3 as JP3
 from kinematic_icp_tpu.ops.points import transform as jtransform
 from kinematic_icp_tpu_torch.ops import motion_model as tmm
 from kinematic_icp_tpu_torch.ops import se3 as tse3
+from kinematic_icp_tpu_torch.ops import threshold as tthr
 from kinematic_icp_tpu_torch.ops.points import P3 as TP3
 from kinematic_icp_tpu_torch.ops.points import transform as ttransform
 
@@ -104,3 +106,29 @@ def test_transform_matches_jax():
         # 50 m coordinates: a few ulp is ~1e-5 absolute
         np.testing.assert_allclose(np.asarray(b), a.numpy(), atol=1e-5,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("use_adaptive", [True, False])
+def test_odometry_error_update_matches_jax(use_adaptive):
+    """The threshold's se3 path (the loop branches' odometry error): the
+    trace is summed alike, so the point-space errors differ only by libm's
+    arccos and sin, a few ulp of values up to 2 * max_range."""
+    poses = tse3.se3_exp(torch.from_numpy(
+        _twists(np.random.default_rng(6), 32))).numpy()
+    err = tthr.odometry_error_in_point_space(torch.from_numpy(poses), 60.0)
+    ref = jthr.odometry_error_in_point_space(jnp.asarray(poses), 60.0)
+    np.testing.assert_allclose(err.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-5)
+    tstate = tthr.ThresholdState(torch.tensor(0.5), torch.tensor(3.0))
+    jstate = jthr.ThresholdState(jnp.float32(0.5), jnp.float32(3.0))
+    for pose in poses[:4]:
+        tstate = tthr.update_odometry_error(
+            tstate, torch.from_numpy(pose), max_range=60.0,
+            use_adaptive=use_adaptive)
+        jstate = jthr.update_odometry_error(
+            jstate, jnp.asarray(pose), max_range=60.0,
+            use_adaptive=use_adaptive)
+    np.testing.assert_allclose(float(tstate.odom_sse),
+                               float(jstate.odom_sse), rtol=1e-5)
+    assert float(tstate.num_samples) == float(jstate.num_samples) == (
+        7.0 if use_adaptive else 3.0)

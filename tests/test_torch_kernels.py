@@ -11,12 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from kinematic_icp_tpu_torch.ops import gn, hashmap
+from kinematic_icp_tpu_torch.ops import gn, hashmap, registration
 from kinematic_icp_tpu_torch.ops.points import P3, transform
 
 SOLVE = dict(voxel_size=1.0, max_num_iterations=10,
              convergence_criterion=0.001, use_adaptive_regularization=True,
              fixed_regularization=0.0, max_range=60.0)
+MOTION = dict(voxel_size=1.0, max_probes=4, max_num_iterations=10,
+              convergence_criterion=0.001,
+              use_adaptive_odometry_regularization=True,
+              fixed_regularization=0.0, threshold_max_range=60.0,
+              exact_gn_reassociation=True)
 
 
 @pytest.fixture
@@ -32,9 +37,10 @@ def _guess(dev, tx=0.02, ty=-0.01, yaw=0.01):
                          [0, 0, 0, 1]], dtype=torch.float32, device=dev)
 
 
-def _problem(dev, v, n=512, nmap=3000, seed=0, k=20, extent=20.0,
-             map_pts=None, src=None, mask=None, guess=None):
-    """Noisy map points as sources, candidates gathered at the guess."""
+def _scene(dev, n=512, nmap=3000, seed=0, k=20, extent=20.0, map_pts=None,
+           src=None, mask=None):
+    """A map of ``map_pts`` (uniform by default) and noisy map points as
+    sources: (map, source P3, mask)."""
     rng = np.random.default_rng(seed)
     if map_pts is None:
         map_pts = rng.uniform(-extent, extent, (nmap, 3)).astype(np.float32)
@@ -48,10 +54,16 @@ def _problem(dev, v, n=512, nmap=3000, seed=0, k=20, extent=20.0,
         m = hashmap.insert(m, P3.from_array(torch.from_numpy(map_pts).to(dev)),
                            torch.ones(len(map_pts), dtype=torch.bool,
                                       device=dev), 1.0, 4)
-    source = P3.from_array(torch.from_numpy(src).to(dev))
+    return (m, P3.from_array(torch.from_numpy(src).to(dev)),
+            torch.from_numpy(mask).to(dev))
+
+
+def _problem(dev, v, guess=None, **scene):
+    """``_scene`` with candidates gathered at the guess."""
+    m, source, mask = _scene(dev, **scene)
     guess = _guess(dev) if guess is None else guess
     cand = hashmap.gather_candidates(m, transform(guess, source), 1.0, 4, v)
-    return cand, source, torch.from_numpy(mask).to(dev), guess
+    return cand, source, mask, guess
 
 
 def _assert_kernel_matches_plain(cand, source, mask, guess, tau, **kw):
@@ -76,7 +88,7 @@ def _assert_kernel_matches_plain(cand, source, mask, guess, tau, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_it", [0, 1, 10])
-@pytest.mark.parametrize("k", [20, 32])
+@pytest.mark.parametrize("k", [8, 20, 32])  # 8: reduced candidates
 @pytest.mark.parametrize("v", [1, 10, 27])
 @pytest.mark.parametrize("n", [1, 31, 33, 1000, 8192])
 def test_gn_kernel_table(card, n, v, k, max_it):
@@ -180,6 +192,83 @@ def test_gn_kernel_spreads_over_ctas(card):
     torch.cuda.synchronize()
     # one CTA per 32-query tile while the card holds them all at once
     assert 1 < gn.LAST_CTAS <= 8192 // 32
+
+
+def _motion(dev, scene, guess, tau, **kw):
+    m, source, mask = scene
+    return registration.compute_robot_motion(
+        m, source, mask, torch.eye(4, device=dev), guess,
+        torch.tensor(tau, dtype=torch.float32, device=dev),
+        **{**MOTION, **kw})
+
+
+def _assert_same_solve(a, b):
+    assert torch.equal(a[0], b[0])
+    assert int(a[1].iterations) == int(b[1].iterations)
+    assert int(a[1].num_correspondences) == int(b[1].num_correspondences)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crosses", [False, True],
+                         ids=["certificate-holds", "certificate-fails"])
+def test_certified_exact_against_full_loop(card, crosses):
+    """The certified solve (the kernel's check_crossing instance) against
+    the full-27 loop on the card: equal on a passing frame, the loop's
+    result itself on a frame that falls back."""
+    if crosses:
+        scene = _scene(card, seed=2)
+        guess, tau = _guess(card, 0.45, 0.0, 0.0), 2.0
+    else:
+        map_pts, src, mask = _margin_setup()
+        scene = _scene(card, map_pts=map_pts, src=src, mask=mask)
+        guess, tau = _guess(card, 1e-4, 0.0, 0.0), 0.7
+    before = (gn.LAUNCHES, gn.CROSSING_LAUNCHES)
+    cert = _motion(card, scene, guess, tau, gn_backend="cuda")
+    assert (gn.LAUNCHES, gn.CROSSING_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    loop = _motion(card, scene, guess, tau, gn_backend="torch")
+    torch.cuda.synchronize()
+    assert gn.LAUNCHES == before[0] + 1
+    assert bool(cert[1].exact_fallback) == crosses
+    assert loop[1].exact_fallback is None
+    if crosses:
+        _assert_same_solve(cert, loop)
+    else:
+        # kernel vs loop: same rounding per element, sums in another order
+        np.testing.assert_allclose(cert[0].cpu().numpy(),
+                                   loop[0].cpu().numpy(), atol=1e-5, rtol=0)
+        assert int(cert[1].iterations) == int(loop[1].iterations)
+        assert int(cert[1].num_correspondences) == int(
+            loop[1].num_correspondences)
+    assert torch.isfinite(cert[1].odometry_error_pt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [8, 14, 22])
+def test_pruned_exact_equals_full_loop(card, v):
+    scene = _scene(card, seed=3)
+    for tau, tx in ((0.3, 0.08), (1.5, 0.08), (2.0, 0.45)):
+        guess = _guess(card, tx, 0.0, 0.0)
+        pruned = _motion(card, scene, guess, tau, gn_backend="torch",
+                         exact_prune_candidates=v)
+        _assert_same_solve(pruned, _motion(card, scene, guess, tau,
+                                           gn_backend="torch"))
+
+
+@pytest.mark.cuda
+def test_pruned_exact_corner_voxel_falls_back(card):
+    """The only map point lies in a corner voxel, which V=14 skips."""
+    scene = _scene(card, map_pts=np.array([[-0.01, -0.01, -0.01]],
+                                          np.float32),
+                   src=np.array([[0.5, 0.5, 0.5]], np.float32),
+                   mask=np.ones(1, bool))
+    guess = _guess(card, 0.0, 0.0, 0.0)
+    pruned = _motion(card, scene, guess, 1.0, gn_backend="torch",
+                     exact_prune_candidates=14)
+    assert bool(pruned[1].exact_fallback)
+    assert int(pruned[1].num_correspondences) == 1
+    _assert_same_solve(pruned, _motion(card, scene, guess, 1.0,
+                                       gn_backend="torch"))
 
 
 @pytest.mark.cuda

@@ -3,15 +3,22 @@
 Usage (on a machine with a CUDA card):
 
     python3 tools/profile_torch_main_path.py [--frames 20]
-        [--config headline|stock] [--out FILE]
+        [--config headline|stock|exact] [--out FILE]
 
 Runs ``kinematic_icp_tpu_torch.offline.run_offline`` at the headline shape
-of ``chip_smoke.py`` (or, with ``--config stock``, its stock ``Config``:
-8,192 ICP source slots a frame) on synthetic realistic scans under
-``torch.profiler`` and prints one JSON line: wall time per frame, device
-kernel time per frame, the device's busy and idle share of the wall time,
-kernel launches per frame, and the ops that take the most device time.
-Where the profiler records no device activity the device fields are null.
+of ``chip_smoke.py`` (``--config stock``: its stock ``Config``, 8,192 ICP
+source slots a frame; ``--config exact``: its reference-exact
+configuration, the certified solve with the full-27 fallback) on synthetic
+realistic scans under ``torch.profiler`` and prints one JSON line: wall
+time per frame, device kernel time per frame, the device's busy and idle
+share of the wall time, kernel launches per frame, and the ops that take
+the most device time.  Where the profiler records no device activity the
+device fields are null.
+
+With ``--config exact`` a second, unprofiled pass over the same frames
+times each registration (``compute_robot_motion``, synchronised before and
+after) and reports the median wall time of frames whose certificate held
+and of frames that fell back to the full-27 loop.
 """
 
 from __future__ import annotations
@@ -40,10 +47,43 @@ def _busy_us(intervals):
     return total
 
 
+def _registration_times(torch, frames, rels, cfg, extrinsic):
+    """Median wall ms of one registration on frames whose certificate held
+    and on frames that fell back, with the count of each."""
+    from kinematic_icp_tpu_torch.offline import run_offline
+    from kinematic_icp_tpu_torch.ops import registration
+
+    solve = registration.compute_robot_motion
+    times = {False: [], True: []}
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pose, debug = solve(*args, **kwargs)
+        fell_back = bool(debug.exact_fallback)
+        torch.cuda.synchronize()
+        times[fell_back].append((time.perf_counter() - t0) * 1e3)
+        return pose, debug
+
+    registration.compute_robot_motion = timed
+    try:
+        run_offline(frames, rels, cfg, extrinsic=extrinsic)
+    finally:
+        registration.compute_robot_motion = solve
+
+    def median(v):
+        return sorted(v)[len(v) // 2] if v else None
+
+    return {"passing_frames": len(times[False]),
+            "passing_median_ms": median(times[False]),
+            "fallback_frames": len(times[True]),
+            "fallback_median_ms": median(times[True])}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=20)
-    ap.add_argument("--config", choices=("headline", "stock"),
+    ap.add_argument("--config", choices=("headline", "stock", "exact"),
                     default="headline")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -52,7 +92,7 @@ def main(argv=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import HEADLINE, STOCK, nvidia_smi_line
+    from chip_smoke import EXACT, HEADLINE, STOCK, nvidia_smi_line
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import run_offline
     from kinematic_icp_tpu_torch.utils import synthetic
@@ -60,7 +100,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("profile: no CUDA card", file=sys.stderr)
         return 1
-    config_kw = HEADLINE if args.config == "headline" else STOCK
+    config_kw = {"headline": HEADLINE, "stock": STOCK,
+                 "exact": EXACT}[args.config]
     cfg = Config(**config_kw)
     seq = synthetic.make_sequence(args.frames,
                                   lidar=synthetic.realistic_lidar(),
@@ -105,6 +146,9 @@ def main(argv=None):
             {"name": name, "ms_per_frame": us / f / 1e3,
              "launches_per_frame": n / f} for name, (us, n) in top],
     }
+    if args.config == "exact":
+        row["registration_wall_ms"] = _registration_times(
+            torch, frames, rels, cfg, seq["extrinsic"])
     line = json.dumps(row)
     print(line, flush=True)
     if args.out:
