@@ -264,14 +264,17 @@ def dead_reckoning(np, rels):
     return dead
 
 
-def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt):
+def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt,
+                judge=None):
     """``run_offline`` over the first ``count`` frames under ``config_kw``,
-    with the GN launch count set to 0 just before and read just after,
-    then the same frames through the loop lowering on the card.
+    with the GN launch counts set to 0 just before and read just after,
+    then the same frames through the loop lowering (``gn_backend=
+    "torch"``) on the card.  ``judge(row, poses)`` adds a phase's own
+    fields to ``row`` and returns its own checks.
 
     ``judge_vs_gt``: also require the estimate to beat dead reckoning
-    against ground truth (the headline drive, long enough to settle).
-    Returns (GN launches, poses)."""
+    against ground truth (a drive long enough to settle).  Returns (row,
+    poses); the row holds the GN launch counts and the fallback totals."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
@@ -283,33 +286,37 @@ def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt):
     run_drive(torch, seq, cfg, 3)  # warm-up: context, allocator, library
     torch.cuda.reset_peak_memory_stats()
     gn.LAUNCHES = 0
-    poses, seconds, overflow, _ = run_drive(torch, seq, cfg, count)
-    launches = gn.LAUNCHES
+    gn.CROSSING_LAUNCHES = 0
+    poses, seconds, overflow, stats = run_drive(torch, seq, cfg, count)
+    launches, crossing = gn.LAUNCHES, gn.CROSSING_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
 
     dead = dead_reckoning(np, seq["rel_odometry"][:count])
     ate = ate_rmse(gt, poses, align=False)
     ate_dead = ate_rmse(gt, dead, align=False)
-    poses_loop, seconds_loop, overflow_loop, _ = run_drive(
+    poses_loop, seconds_loop, overflow_loop, stats_loop = run_drive(
         torch, seq, cfg.replace(gn_backend="torch"), count)
     ate_loop = ate_rmse(poses_loop, poses, align=False)
-    checks = {
-        "finite": bool(np.isfinite(poses).all()),
-        "zero_overflow": not overflow and not overflow_loop,
-        "kernel_every_frame": launches == count,
-        "loop_within_5mm": ate_loop < 5e-3,
-    }
     row = {"phase": phase, "frames": count,
            "mean_points": float(np.mean([len(f[0]) for f in frames])),
            "config": config_kw, "gn_launches": launches,
+           "gn_check_crossing_launches": crossing,
+           "exact_fallback_frames": stats["exact_fallback_frames"],
+           "loop_exact_fallback_frames": stats_loop["exact_fallback_frames"],
            "overflow": overflow or [0, 0, 0], "frames_per_s":
            count / seconds, "seconds": seconds,
            "loop_frames_per_s": count / seconds_loop,
            "peak_memory_bytes": peak, "ate_vs_gt_m": ate,
            "ate_dead_reckoning_m": ate_dead, "ate_kernel_vs_loop_m":
            ate_loop}
+    row["checks"] = {
+        "finite": bool(np.isfinite(poses).all()),
+        "zero_overflow": not overflow and not overflow_loop,
+        "loop_within_5mm": ate_loop < 5e-3,
+        **(judge(row, poses) if judge else
+           {"kernel_every_frame": launches == count})}
     if judge_vs_gt:
-        checks["beats_dead_reckoning"] = ate < ate_dead
+        row["checks"]["beats_dead_reckoning"] = ate < ate_dead
         # the start-up transient, for the record (not a check)
         row[f"first_{EARLY_FRAMES}_frames"] = {
             "ate_vs_gt_m": ate_rmse(gt[:EARLY_FRAMES], poses[:EARLY_FRAMES],
@@ -317,11 +324,10 @@ def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt):
             "ate_dead_reckoning_m": ate_rmse(gt[:EARLY_FRAMES],
                                              dead[:EARLY_FRAMES],
                                              align=False)}
-    row["checks"] = checks
     emit(row)
-    if not all(checks.values()):
-        raise SystemExit(f"{phase} failed: {checks}")
-    return launches, poses
+    if not all(row["checks"].values()):
+        raise SystemExit(f"{phase} failed: {row['checks']}")
+    return row, poses
 
 
 def active_frames(torch, np, rels):
@@ -334,57 +340,29 @@ def active_frames(torch, np, rels):
 
 def exact_phase(torch, np, seq, main_poses):
     """The reference-exact mode over the headline frames: the certified
-    solve on every frame (GN counts set to 0 just before, read just
-    after), then the full-27 loop on every frame.  Returns the
-    ``check_crossing`` instance's launches."""
-    from kinematic_icp_tpu_torch import Config
-    from kinematic_icp_tpu_torch.ops import gn
+    solve on every frame, then the full-27 loop on every frame.  Returns
+    the ``check_crossing`` instance's launches."""
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
-    cfg = Config(**EXACT)
     count = EXACT_FRAMES
-    gt = seq["gt_poses"][:count]
-    run_drive(torch, seq, cfg, 3)  # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    gn.LAUNCHES = 0
-    gn.CROSSING_LAUNCHES = 0
-    poses, seconds, overflow, stats = run_drive(torch, seq, cfg, count)
-    launches, crossing = gn.LAUNCHES, gn.CROSSING_LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
-    poses_loop, seconds_loop, overflow_loop, stats_loop = run_drive(
-        torch, seq, cfg.replace(gn_backend="torch"), count)
 
-    ate = ate_rmse(gt, poses, align=False)
-    ate_dead = ate_rmse(gt, dead_reckoning(np, seq["rel_odometry"][:count]),
-                        align=False)
-    ate_loop = ate_rmse(poses_loop, poses, align=False)
-    checks = {
-        "finite": bool(np.isfinite(poses).all()),
-        "zero_overflow": not overflow and not overflow_loop,
+    def judge(row, poses):
+        row["active_frames"] = active_frames(torch, np,
+                                             seq["rel_odometry"][:count])
+        # the JAX bench's default_vs_exact_ate_m, for the record
+        row["default_vs_exact_ate_m"] = ate_rmse(main_poses, poses,
+                                                 align=False)
         # every frame registers (the stationary gate only masks the state
         # update), each through one launch of the certified instance
-        "certified_kernel_every_frame": crossing == launches == count,
-        "beats_dead_reckoning": ate < ate_dead,
-        "loop_within_5mm": ate_loop < 5e-3,
-        "loop_never_falls_back": stats_loop["exact_fallback_frames"] == 0,
-    }
-    row = {"phase": "exact_mode", "frames": count,
-           "active_frames": active_frames(torch, np,
-                                          seq["rel_odometry"][:count]),
-           "config": EXACT, "gn_launches": launches,
-           "gn_check_crossing_launches": crossing,
-           "exact_fallback_frames": stats["exact_fallback_frames"],
-           "overflow": overflow or [0, 0, 0],
-           "frames_per_s": count / seconds, "seconds": seconds,
-           "loop_frames_per_s": count / seconds_loop,
-           "peak_memory_bytes": peak, "ate_vs_gt_m": ate,
-           "ate_dead_reckoning_m": ate_dead, "ate_certified_vs_loop_m":
-           ate_loop, "default_vs_exact_ate_m": ate_rmse(
-               main_poses, poses, align=False), "checks": checks}
-    emit(row)
-    if not all(checks.values()):
-        raise SystemExit(f"exact_mode failed: {checks}")
-    return crossing
+        return {"certified_kernel_every_frame": (
+                    row["gn_check_crossing_launches"] == row["gn_launches"]
+                    == count),
+                "loop_never_falls_back":
+                    row["loop_exact_fallback_frames"] == 0}
+
+    row, _ = drive_phase(torch, np, seq, "exact_mode", EXACT, count, True,
+                         judge=judge)
+    return row["gn_check_crossing_launches"]
 
 
 def fallback_phase(torch, np):
@@ -500,7 +478,7 @@ def main():
     kernel_phase(torch, np, seq, 10, 8192, False)
     kernel_phase(torch, np, seq, 27, 1024, True)
 
-    launches, main_poses = drive_phase(torch, np, seq, "main_path",
+    main_row, main_poses = drive_phase(torch, np, seq, "main_path",
                                        HEADLINE, MAIN_FRAMES, True)
     drive_phase(torch, np, seq, "stock_config", STOCK, STOCK_FRAMES, False)
     exact_launches = exact_phase(torch, np, seq, main_poses)
@@ -511,7 +489,7 @@ def main():
         "name": "gn_solve", "route": "cuda",
         "source": "kinematic_icp_tpu_torch/csrc/gn_solve.cu",
         "replaces": "kinematic_icp_tpu/ops/pallas_gn.py:86",
-        "launches": launches,
+        "launches": main_row["gn_launches"],
         "launches_exact_mode_check_crossing": exact_launches,
         "max_abs_err": main_shape["max_abs_err_pose"],
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],

@@ -349,65 +349,14 @@ def nn_from_candidates(cand: CandidateSet, q: P3, query_mask,
     return nearest, dist
 
 
-def nearest_neighbor_native(m: MapState, q: P3, query_mask,
-                            voxel_size: float):
-    """Full-27-neighbourhood GetClosestNeighbor in the row gather's own
-    (27, N, lanes) layout.
-
-    The same selection (packed distance key, (offset id, entry lane)
-    tie-break) as ``gather_candidates`` + ``nn_from_candidates``, for an
-    association consumed once (the exact re-gather-per-iteration mode,
-    Registration.cpp:179-187): no (V, K, N) cache is transposed.  It holds
-    the (27, N, G*R) int32 gathered rows (10.6 MB at N=1024, G=4, R=24)
-    and (27, N, K) int64 keys on the device.  The min runs over the entry
-    lane first, then the offset.
-
-    Returns (P3 neighbours (N,), dist (N,)); inf distance when none.
-    """
-    k = m.block_size
-    dev = q.x.device
-    base_x, base_y, base_z = voxel_coords_planar(q, voxel_size)
-    ids = torch.arange(27, dtype=torch.int32, device=dev)[:, None]
-    ox, oy, oz = _rel_to_offsets(ids)
-    bx = base_x[None] + ox                                       # (27, N)
-    by = base_y[None] + oy
-    bz = base_z[None] + oz
-    words = _voxel_words(m, bx, by, bz)                          # (27, N, K)
-
-    pts = unpack_offsets(words, bx[..., None], by[..., None], bz[..., None],
-                         voxel_size, q.x.dtype)                  # (27, N, K)
-    dx = pts.x - q.x[None, :, None]
-    dy = pts.y - q.y[None, :, None]
-    dz = pts.z - q.z[None, :, None]
-    d2 = dx * dx + dy * dy + dz * dz
-
-    lane = torch.arange(k, dtype=torch.int64, device=dev)
-    tag = (ids.to(torch.int64)[:, :, None] << 5) | lane
-    key = (_u32(d2.view(torch.int32)) & ~0x3FF) | tag
-    key = torch.where((words != PACKED_SENTINEL) & query_mask[None, :, None],
-                      key, _U32)
-    best = key.amin(dim=2).amin(dim=0)                           # (N,)
-
-    # a query with no candidate sums every word, wrapping like the u32 sum
-    pick = key == best[None, :, None]
-    word = torch.where(pick, _u32(words), 0).sum(dim=2).sum(dim=0) & _U32
-    wx, wy, wz = _rel_to_offsets(((best >> 5) & 31).to(torch.int32))
-    nearest = unpack_offsets(_i32(word), base_x + wx, base_y + wy,
-                             base_z + wz, voxel_size, q.x.dtype)
-    ex = nearest.x - q.x
-    ey = nearest.y - q.y
-    ez = nearest.z - q.z
-    has = best != _U32
-    dist = torch.where(query_mask & has, torch.sqrt(ex * ex + ey * ey + ez * ez),
-                       torch.inf)
-    return nearest, dist
-
-
 def nearest_neighbor(m: MapState, q: P3, query_mask, voxel_size: float,
                      max_probes: int, num_candidate_voxels: int = 27):
-    """Batched GetClosestNeighbor over the (possibly pruned) neighbourhood."""
-    if num_candidate_voxels >= 27:
-        return nearest_neighbor_native(m, q, query_mask, voxel_size)
+    """Batched GetClosestNeighbor over the (possibly pruned) neighbourhood.
+
+    At V = 27 this is the selection of the JAX package's
+    ``nearest_neighbor_native`` bit for bit: that function exists there to
+    steer XLA's layout assignment, which eager PyTorch does not have.
+    """
     cand = gather_candidates(m, q, voxel_size, max_probes, num_candidate_voxels)
     return nn_from_candidates(cand, q, query_mask, voxel_size)
 

@@ -109,9 +109,13 @@ def _port_run(cfg, frames, rels, state):
                   torch.eye(4), torch.from_numpy(arrays[4]))
 
 
-def test_drive_matches_jax(drive):
+@pytest.mark.parametrize("gn_backend", ["torch", "cuda"])
+def test_drive_matches_jax(drive, gn_backend):
+    """The JAX drive (its "xla" loop on the CPU) against the port's loop
+    lowering and against its kernel branch, which on CPU tensors runs the
+    kernel's plain version."""
     seq, _, jposes, jover = drive
-    cfg = _port_cfg(DRIVE_CFG)
+    cfg = _port_cfg(DRIVE_CFG).replace(gn_backend=gn_backend)
     _, tposes, tover, _ = _port_run(cfg, seq["frames"][:FRAMES],
                                     seq["rel_odometry"][:FRAMES],
                                     tpipe.init_state(cfg, device=CPU))

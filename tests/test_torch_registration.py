@@ -169,8 +169,8 @@ class TestHashmap:
 
     @pytest.mark.parametrize("v", [10, 27])
     def test_nearest_neighbor_bit_equal(self, scene, v):
-        """V = 27 is ``nearest_neighbor_native``; V = 10 the pruned gather
-        and re-selection."""
+        """V = 27 is JAX's ``nearest_neighbor_native``, the port's full
+        gather and re-selection; V = 10 the pruned gather."""
         jm, tm, q, qmask = scene
         jq, tq = _planes(q)
         jn, jd = jhm.nearest_neighbor(jm, jq, jnp.asarray(qmask), 1.0, G, v)
@@ -184,16 +184,6 @@ class TestHashmap:
         np.testing.assert_array_equal(np.isinf(td.numpy()), np.isinf(jd))
         np.testing.assert_allclose(td.numpy(), jd, rtol=2.4e-7, atol=0)
         assert np.isinf(jd).any() and np.isfinite(jd).any()
-
-    def test_native_equals_cached_full_27(self, scene):
-        _, tm, q, qmask = scene
-        tq = TP3.from_array(torch.from_numpy(q))
-        qm = torch.from_numpy(qmask)
-        a = thm.nearest_neighbor_native(tm, tq, qm, 1.0)
-        b = thm.nn_from_candidates(thm.gather_candidates(tm, tq, 1.0, G, 27),
-                                   tq, qm, 1.0)
-        for x, y in zip(a[0] + (a[1],), b[0] + (b[1],)):
-            assert torch.equal(x, y)
 
     @pytest.mark.parametrize("keep", [4, 8, 20])
     def test_reduce_candidates_bit_equal(self, scene, keep):
@@ -295,18 +285,6 @@ class TestLoops:
                       _jax_motion(jm, src, mask, guess, 0.5, **kw))
 
 
-def err_tolerance(pose, guess, max_range, pose_diff=1e-6):
-    """Float32 tolerance of the point-space error 2 R sqrt(h) + |dt|
-    (tests/test_torch_gn.py:err_tolerance): a ~5e-7 trace rounding plus
-    3 * the pose difference, through sqrt's conditioning."""
-    frob = float(np.sum(np.asarray(pose, np.float64)[:3, :3]
-                        * np.asarray(guess, np.float64)[:3, :3]))
-    h = max((1.0 - (frob - 1.0) * 0.5) * 0.5, 0.0)
-    dh = (5e-7 + 3.0 * pose_diff) / 4.0
-    dsqrt = min(dh / max(np.sqrt(h), 1e-30), np.sqrt(dh))
-    return 1e-5 + 2.0 * max_range * dsqrt + 3.0 * pose_diff
-
-
 class TestCertified:
     """``gn_backend="cuda"`` on CPU tensors: the kernel's plain version
     with the certificate, and the full-27 loop where it fails, against the
@@ -351,7 +329,7 @@ class TestCertified:
         if not crosses:
             np.testing.assert_allclose(
                 float(tdbg.odometry_error_pt), float(k_err), rtol=0,
-                atol=err_tolerance(k_pose, guess, 60.0))
+                atol=1e-5 + gn.error_tolerance(k_pose, guess, 60.0, 1.5e-6))
         else:
             # the fallback's error is the kernel's formula on the loop pose
             jp = np.asarray(jpose, np.float64)
@@ -360,7 +338,8 @@ class TestCertified:
             ref = dt + 120.0 * np.sqrt(max((1 - c) / 2, 0.0))
             np.testing.assert_allclose(float(tdbg.odometry_error_pt), ref,
                                        rtol=0,
-                                       atol=err_tolerance(jpose, guess, 60.0))
+                                       atol=1e-5 + gn.error_tolerance(
+                                           jpose, guess, 60.0, 1.5e-6))
 
     def test_certified_fallback_equals_full_loop(self):
         map_pts, src, mask = _crossing_setup()
