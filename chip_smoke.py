@@ -34,7 +34,18 @@ last line.  Phases:
      ``compute_robot_motion``, equal to the full-27 loop;
   8. pruned exact: 20 frames with 14 of 27 voxels re-gathered and the
      certificate, bit-equal to the full-27 loop on every frame;
-  9. the ``kernels`` summary line, the card's name and power limit, and
+  9. serve: ``server.LidarOdometryServer`` over the 60 headline frames,
+     one JSON line per sub-phase: blocking (per-frame latency p50/p90/p99,
+     frames/s, one GN launch per registered frame, zero overflow, better
+     than dead reckoning, within 5 mm of the main path's ``run_offline``
+     poses, peak memory); streaming ``"steps"`` (bit-equal to blocking)
+     and ``"scan"`` (within 1e-6 of "steps"), 8 frames a chunk; the ``u16``
+     upload codec (ATE < 0.02 m against the f32 server); a checkpoint
+     saved at frame 30 and resumed by a fresh server (bit-equal to the
+     uninterrupted run); and ``online.OnlineOdometryNode`` over 20 frames
+     of in-memory messages (PointCloud2 with per-point stamps, ``/tf``
+     wheel odometry, ``/tf_static`` extrinsic);
+ 10. the ``kernels`` summary line, the card's name and power limit, and
      the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
@@ -74,6 +85,12 @@ EXACT_FRAMES = 60
 #: pruned exact runs on the loop lowering only, as in the JAX package
 PRUNED = dict(EXACT, exact_prune_candidates=14, gn_backend="torch")
 PRUNED_FRAMES = 20
+#: the serve phase: frames a streaming chunk, the checkpoint's frame, the
+#: online node's frames, the scan period (s) the frames are stamped with
+SERVE_CHUNK = 8
+SERVE_CHECKPOINT_FRAME = 30
+ONLINE_FRAMES = 20
+SCAN_PERIOD = 0.1
 #: the single-CTA design's kernel ms at each (V, N, check_crossing) on an
 #: NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
 EARLIER_MS = {(10, 1024, False): 0.3212, (10, 8192, False): 2.591,
@@ -438,6 +455,245 @@ def pruned_phase(torch, np, seq):
         raise SystemExit(f"pruned_exact failed: {checks}")
 
 
+def stamped_poses(np, server):
+    return np.asarray([p for _, p in server.poses_with_stamps])
+
+
+def serve_frames(server, seq, frames, blocking=True):
+    """Feed ``frames`` (indices) of the drive to ``server``; returns the
+    wall seconds of each ``register_frame`` call that registered its frame
+    (a stationary frame is host work only) and of all calls.  A blocking
+    call returns after its one readback, so its wall time is the frame's
+    latency."""
+    registered, total = [], 0.0
+    for i in frames:
+        pts, ts = seq["frames"][i]
+        t0 = time.perf_counter()
+        res = server.register_frame(pts, ts, seq["rel_odometry"][i],
+                                    stamp=SCAN_PERIOD * (i + 1),
+                                    blocking=blocking)
+        seconds = time.perf_counter() - t0
+        total += seconds
+        if res["registered"]:
+            registered.append(seconds)
+    return registered, total
+
+
+def pack_and_upload_ms(torch, np, seq, count):
+    """Median host ms, per codec, of a served frame's pack (numpy, at the
+    headline bucket) and of its upload (one pageable host->device copy,
+    synchronized), over the drive's frames."""
+    from kinematic_icp_tpu_torch.utils import packing
+
+    bucket = HEADLINE["max_points"]
+    pack, upload = {}, {}
+    for codec in packing.CODECS:
+        times = []
+        for i in range(1, count):
+            pts, ts = seq["frames"][i]
+            t0 = time.perf_counter()
+            buf, _ = packing.pack_frame(pts, ts, seq["rel_odometry"][i],
+                                        bucket, codec)
+            t1 = time.perf_counter()
+            torch.from_numpy(buf.view(np.int16)).to("cuda")
+            torch.cuda.synchronize()
+            times.append((t1 - t0, time.perf_counter() - t1))
+        pack[codec], upload[codec] = (float(v) * 1e3 for v in
+                                      np.median(np.asarray(times), axis=0))
+    return pack, upload
+
+
+def serve_check(row, name):
+    row["checks"] = {k: bool(v) for k, v in row["checks"].items()}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"{name} failed: {row['checks']}")
+
+
+def serve_phase(torch, np, seq, main_poses):
+    """The serving path at the headline shape: blocking, streaming "steps"
+    and "scan", the u16 codec, checkpoint resume and the online node.
+    Each sub-phase sets the GN launch count to 0 just before its run and
+    reads it just after.  Returns the blocking run's GN launches."""
+    import io
+
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.online import OnlineOdometryNode
+    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+    from kinematic_icp_tpu_torch.utils import checkpoint, synthetic
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = Config(**HEADLINE)
+    count = MAIN_FRAMES
+    ext = seq["extrinsic"]
+    gt = seq["gt_poses"][:count]
+    zero = {"points_truncated": 0, "downsample_dropped": 0,
+            "source_dropped": 0, "insert_failed": 0}
+
+    def server(**kw):
+        return LidarOdometryServer(cfg, extrinsic=ext, **kw)
+
+    # 1. blocking, with the checkpoint saved after frame 30 (outside the
+    #    timed calls)
+    blocking = server()
+    t0 = time.perf_counter()
+    blocking.warmup(HEADLINE["max_points"])
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gn.LAUNCHES = 0
+    lat, total = serve_frames(blocking, seq, range(SERVE_CHECKPOINT_FRAME))
+    launches = gn.LAUNCHES
+    ckpt = io.BytesIO()
+    checkpoint.save_state(ckpt, blocking.state, cfg)
+    gn.LAUNCHES = 0
+    lat2, total2 = serve_frames(blocking, seq,
+                                range(SERVE_CHECKPOINT_FRAME, count))
+    launches += gn.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    poses = stamped_poses(np, blocking)
+    registered = blocking.frames_registered
+    lat = np.asarray(lat + lat2, np.float64) * 1e3
+    pack_ms, upload_ms = pack_and_upload_ms(torch, np, seq, count)
+    ate = ate_rmse(gt, poses, align=False)
+    ate_dead = ate_rmse(gt, dead_reckoning(np, seq["rel_odometry"][:count]),
+                        align=False)
+    ate_offline = ate_rmse(main_poses, poses, align=False)
+    equal = sum(bool(np.array_equal(a, b)) for a, b in zip(poses, main_poses))
+    row = {"phase": "serve_blocking", "frames": count,
+           "frames_registered": registered,
+           "frames_skipped": blocking.frames_skipped,
+           "warmup_s": warmup_s,
+           # over the registered frames' register_frame calls
+           "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                          "p90": float(np.percentile(lat, 90)),
+                          "p99": float(np.percentile(lat, 99)),
+                          "mean": float(lat.mean()), "max": float(lat.max())},
+           # two parts of it, timed apart from the server on the same
+           # frames, for both codecs
+           "pack_ms_p50": pack_ms, "upload_ms_p50": upload_ms,
+           "frames_per_s": count / (total + total2),
+           "gn_launches": launches, "overflow": blocking.overflow_stats,
+           "peak_memory_bytes": peak, "ate_vs_gt_m": ate,
+           "ate_dead_reckoning_m": ate_dead, "ate_vs_offline_m": ate_offline,
+           "frames_bit_equal_to_offline": equal,
+           "max_abs_diff_vs_offline": float(np.abs(poses - main_poses).max())}
+    row["checks"] = {"finite": bool(np.isfinite(poses).all()),
+                     "kernel_every_registered_frame": launches == registered,
+                     "zero_overflow": blocking.overflow_stats == zero,
+                     "beats_dead_reckoning": ate < ate_dead,
+                     "offline_within_5mm": ate_offline < 5e-3}
+    serve_check(row, "serve_blocking")
+
+    # 2-3. streaming, "steps" then "scan"
+    rows = {}
+    for mode in ("steps", "scan"):
+        s = server(stream_chunk=SERVE_CHUNK, stream_mode=mode)
+        gn.LAUNCHES = 0
+        t0 = time.perf_counter()
+        serve_frames(s, seq, range(count), blocking=False)
+        s.drain()
+        seconds = time.perf_counter() - t0
+        got = stamped_poses(np, s)
+        rows[mode] = got
+        row = {"phase": f"serve_stream_{mode}", "frames": count,
+               "stream_chunk": SERVE_CHUNK, "gn_launches": gn.LAUNCHES,
+               "frames_registered": s.frames_registered,
+               "frames_per_s": count / seconds, "seconds": seconds,
+               "overflow": s.overflow_stats}
+        if mode == "steps":
+            row["frames_bit_equal_to_blocking"] = sum(
+                bool(np.array_equal(a, b)) for a, b in zip(got, poses))
+            row["checks"] = {
+                "bit_equal_to_blocking": np.array_equal(got, poses),
+                "kernel_every_registered_frame":
+                    gn.LAUNCHES == s.frames_registered}
+        else:
+            diff = float(np.abs(got - rows["steps"]).max())
+            flushes = -(-s.frames_registered // SERVE_CHUNK)
+            row["max_abs_diff_vs_steps"] = diff
+            row["checks"] = {
+                "within_1e-6_of_steps": diff <= 1e-6,
+                # every row of every chunk runs, padding rows included
+                "kernel_every_row": gn.LAUNCHES == flushes * SERVE_CHUNK}
+        row["checks"]["overflow_equal"] = (
+            s.overflow_stats == blocking.overflow_stats)
+        serve_check(row, f"serve_stream_{mode}")
+
+    # 4. the u16 upload codec
+    quantized = server(upload="u16")
+    gn.LAUNCHES = 0
+    _, total = serve_frames(quantized, seq, range(count))
+    got = stamped_poses(np, quantized)
+    ate_u16 = ate_rmse(poses, got, align=False)
+    serve_check({"phase": "serve_u16", "frames": count,
+                 "gn_launches": gn.LAUNCHES,
+                 "frames_per_s": count / total,
+                 "ate_vs_f32_server_m": ate_u16,
+                 "ate_vs_gt_m": ate_rmse(gt, got, align=False),
+                 "overflow": quantized.overflow_stats,
+                 "checks": {"ate_vs_f32_below_0.02m": ate_u16 < 0.02,
+                            "kernel_every_registered_frame":
+                                gn.LAUNCHES == quantized.frames_registered}},
+                "serve_u16")
+
+    # 5. checkpoint resume: a fresh server continues from frame 30
+    ckpt.seek(0)
+    state, meta = checkpoint.load_state(ckpt)
+    resumed = server()
+    resumed.state = state
+    gn.LAUNCHES = 0
+    serve_frames(resumed, seq, range(SERVE_CHECKPOINT_FRAME, count))
+    got = stamped_poses(np, resumed)
+    tail = poses[SERVE_CHECKPOINT_FRAME:]
+    serve_check({"phase": "serve_checkpoint", "saved_at_frame":
+                 SERVE_CHECKPOINT_FRAME, "checkpoint_bytes": len(
+                     ckpt.getvalue()), "gn_launches": gn.LAUNCHES,
+                 "frames_bit_equal": sum(bool(np.array_equal(a, b))
+                                         for a, b in zip(got, tail)),
+                 "checks": {
+                     "config_round_trip":
+                         checkpoint.load_config(meta) == cfg,
+                     "bit_equal_to_uninterrupted":
+                         np.array_equal(got, tail)}},
+                "serve_checkpoint")
+
+    # 6. the online node over in-memory messages
+    n = ONLINE_FRAMES
+    sub = dict(seq, frames=seq["frames"][:n],
+               rel_odometry=seq["rel_odometry"][:n])
+    outputs = []
+    node = OnlineOdometryNode(cfg, on_odometry=lambda o, t, r: outputs.append(
+        (o, t)))
+    gn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    node.run(synthetic.sequence_messages(sub))
+    seconds = time.perf_counter() - t0
+    srv = node.server
+    odom, tf_msg = outputs[-1]
+    online = stamped_poses(np, srv)
+    serve_check({"phase": "serve_online", "frames": n,
+                 "frames_registered": srv.frames_registered,
+                 "frames_skipped": srv.frames_skipped,
+                 "callbacks": len(outputs), "gn_launches": gn.LAUNCHES,
+                 "frames_per_s": n / seconds,
+                 "ate_vs_gt_m": ate_rmse(gt[:n], online, align=False),
+                 "checks": {
+                     "callback_every_frame": len(outputs) == (
+                         srv.frames_registered + srv.frames_skipped) == n,
+                     "finite": bool(np.isfinite(online).all()) and bool(
+                         np.isfinite(odom.position).all()),
+                     "frame_ids": (odom.header.frame_id == "odom_lidar"
+                                   and tf_msg.transforms[0].header.frame_id
+                                   == "base_link"
+                                   and odom.pose_covariance[0] == 0.1),
+                     "kernel_every_registered_frame":
+                         gn.LAUNCHES == srv.frames_registered}},
+                "serve_online")
+    return launches
+
+
 def spills(log):
     """Spill bytes (stores + loads) in each ptxas line of an nvcc log."""
     return [int(a) + int(b) for a, b in re.findall(
@@ -484,6 +740,7 @@ def main():
     exact_launches = exact_phase(torch, np, seq, main_poses)
     fallback_phase(torch, np)
     pruned_phase(torch, np, seq)
+    serve_launches = serve_phase(torch, np, seq, main_poses)
 
     emit({"kernels": [{
         "name": "gn_solve", "route": "cuda",
@@ -491,6 +748,7 @@ def main():
         "replaces": "kinematic_icp_tpu/ops/pallas_gn.py:86",
         "launches": main_row["gn_launches"],
         "launches_exact_mode_check_crossing": exact_launches,
+        "launches_serve_blocking": serve_launches,
         "max_abs_err": main_shape["max_abs_err_pose"],
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

@@ -96,3 +96,66 @@ class Config:
             kw["gn_backend"] = _BACKEND_FROM_JAX.get(kw["gn_backend"],
                                                      kw["gn_backend"])
         return cls(**kw)
+
+    def to_jax_dict(self) -> dict:
+        """``dataclasses.asdict`` under the JAX package's backend names
+        (``cuda``->``pallas``, ``torch``->``xla``), so the JAX ``Config``
+        takes it as keyword arguments."""
+        d = dataclasses.asdict(self)
+        d["gn_backend"] = _BACKEND_TO_JAX[d["gn_backend"]]
+        return d
+
+
+_BACKEND_TO_JAX = {v: k for k, v in _BACKEND_FROM_JAX.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    """Ingestion/serving-layer parameters.
+
+    Mirrors the ROS-parameter surface of the reference
+    ``LidarOdometryServer`` (LidarOdometryServer.cpp:40-46,127-130) minus the
+    tf-frame plumbing that a pure-array pipeline does not need.
+    """
+
+    lidar_odom_frame: str = "odom_lidar"
+    wheel_odom_frame: str = "odom"
+    base_frame: str = "base_link"
+    publish_odom_tf: bool = True
+    invert_odom_tf: bool = True
+    tf_timeout: float = 0.0
+    position_covariance: float = 0.1
+    orientation_covariance: float = 0.1
+    #: skip registration when the wheel-odometry delta is below this
+    #: (reference LidarOdometryServer.cpp:202)
+    stationary_gate: float = 1e-3
+
+
+def load_yaml_config(path: str) -> tuple[Config, ServerConfig]:
+    """Load a reference-style ROS parameter YAML.
+
+    Accepts the file the reference ships (ros/config/kinematic_icp_ros.yaml),
+    including the ROS ``<node>: ros__parameters:`` nesting, as well as a
+    flat mapping.  Needs PyYAML, imported here and nowhere else.
+    """
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    # Unwrap ROS nesting: {node_name: {ros__parameters: {...}}}
+    params = raw
+    if len(raw) == 1:
+        inner = next(iter(raw.values()))
+        if isinstance(inner, dict) and "ros__parameters" in inner:
+            params = inner["ros__parameters"]
+    if "ros__parameters" in params:
+        params = params["ros__parameters"]
+
+    srv_fields = {f.name for f in dataclasses.fields(ServerConfig)}
+    cfg = Config.from_dict(params)
+    # Reference guard: max_range < min_range => min_range = 0
+    # (LidarOdometryServer.cpp:98-102)
+    if cfg.max_range < cfg.min_range:
+        cfg = cfg.replace(min_range=0.0)
+    return cfg, ServerConfig(**{k: v for k, v in params.items()
+                                if k in srv_fields})

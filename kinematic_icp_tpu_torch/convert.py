@@ -19,14 +19,14 @@ from .runtime import resolve_device
 
 
 def state_from_numpy(pose, table, odom_sse, num_samples, *, bucket_slots: int,
-                     device=None) -> OdometryState:
+                     device=None, dtype=torch.float32) -> OdometryState:
     """(4, 4) pose, (B, G*R) uint32 table, scalar accumulators -> state.
 
     ``bucket_slots`` (G, ``Config.max_probes``) splits the table rows into
-    slots; ``device`` ``None`` means CUDA (raises if absent).
+    slots; ``device`` ``None`` means CUDA (raises if absent); ``dtype`` is
+    the pose's and the accumulators' (the state's float type).
     """
     dev = resolve_device(device)
-    pose = np.asarray(pose, np.float32)
     table = np.ascontiguousarray(table)
     if table.dtype != np.uint32 or table.ndim != 2:
         raise ValueError(f"table must be a 2-D uint32 array, got "
@@ -36,11 +36,10 @@ def state_from_numpy(pose, table, odom_sse, num_samples, *, bucket_slots: int,
                          f"into {bucket_slots} slots")
 
     def scalar(x):
-        return torch.tensor(float(np.asarray(x)), dtype=torch.float32,
-                            device=dev)
+        return torch.tensor(float(np.asarray(x)), dtype=dtype, device=dev)
 
     return OdometryState(
-        pose=torch.from_numpy(pose.copy()).to(dev),
+        pose=torch.tensor(np.asarray(pose), dtype=dtype, device=dev),
         map=MapState(table=torch.from_numpy(table.view(np.int32).copy()
                                             ).to(dev),
                      bucket_slots=bucket_slots),

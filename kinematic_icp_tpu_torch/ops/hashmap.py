@@ -247,8 +247,10 @@ def gather_candidates(m: MapState, q: P3, voxel_size: float, max_probes: int,
     ids = torch.arange(27, dtype=torch.int32, device=dev)[:, None]
     if v < 27:
         ox, oy, oz = _rel_to_offsets(ids)
+        # the key packs float32 bits (a no-op cast for float32 queries)
         lb = _box_lower_bound_d2(q, base_x[None] + ox, base_y[None] + oy,
-                                 base_z[None] + oz, voxel_size)  # (27, N)
+                                 base_z[None] + oz, voxel_size
+                                 ).to(torch.float32)             # (27, N)
         key = (_u32(lb.view(torch.int32)) & 0xFFFFFFE0) | ids
         key = torch.sort(key, dim=0).values
         if return_skip_bound:
@@ -329,7 +331,8 @@ def nn_from_candidates(cand: CandidateSet, q: P3, query_mask,
 
     lane = torch.arange(k, dtype=torch.int64, device=q.x.device)[None, :, None]
     tag = (cand.rel.to(torch.int64)[:, None, :] << 5) | lane
-    key = (_u32(d2.view(torch.int32)) & ~0x3FF) | tag
+    # the key packs float32 bits (a no-op cast for float32 queries)
+    key = (_u32(d2.to(torch.float32).view(torch.int32)) & ~0x3FF) | tag
     key = torch.where(valid & query_mask[None, None, :], key, _U32)
     best = key.amin(dim=(0, 1))                                  # (N,)
 

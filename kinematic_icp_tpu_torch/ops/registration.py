@@ -328,8 +328,8 @@ def compute_robot_motion(m: hashmap.MapState, source: P3, source_mask,
             # trip); the comparison stays in float32.
             d_cap = torch.minimum(dist, max_correspondence_distance)
             d2 = torch.minimum(d_cap * d_cap, tau2)
-            thresh = ((d2.view(torch.int32) | 0x3FF) + 0x400).view(
-                torch.float32)
+            thresh = ((d2.to(torch.float32).view(torch.int32) | 0x3FF)
+                      + 0x400).view(torch.float32)
             viol = torch.any(source_mask & (skip_lb_d2 <= thresh))
             return t, source_mask & (dist < max_correspondence_distance), viol
 

@@ -285,3 +285,36 @@ def make_sequence(num_frames=50, *, world_seed=0, traj_seed=1, noise_seed=2,
         "world": world,
         "scan_duration": lidar.scan_duration,
     }
+
+
+def sequence_messages(seq, *, base_frame="base_link", odom_frame="odom",
+                      lidar_frame="lidar", rate_hz=10.0,
+                      start_time=1700000000.0):
+    """A synthetic sequence as the in-memory message stream of a live robot:
+    ``(kind, message)`` tuples for ``online.OnlineOdometryNode.run``.
+
+    The same surface as the JAX package's ``write_sequence_to_mcap``, in
+    memory: the static extrinsic on ``tf_static`` (base -> lidar), then per
+    frame the noisy integrated wheel odometry on ``tf`` (odom -> base at
+    the scan's end stamp) and the scan as a PointCloud2 stamped at the scan
+    start, with a float32 ``t`` field of scan-relative seconds (the
+    convention the reference's stamp heuristic classifies robustly).
+    """
+    from .io.messages import (PointCloud2, PointFieldType, TFMessage,
+                              TransformStamped)
+
+    dt = 1.0 / rate_hz
+    scan_dur = seq.get("scan_duration", 0.1)
+    out = [("tf_static", TFMessage([TransformStamped.from_matrix(
+        seq["extrinsic"], start_time, base_frame, lidar_frame)]))]
+    odom_pose = np.eye(4)
+    for k, (pts, taus) in enumerate(seq["frames"]):
+        stamp = start_time + k * dt  # end-of-scan stamp
+        odom_pose = odom_pose @ seq["rel_odometry"][k]
+        out.append(("tf", TFMessage([TransformStamped.from_matrix(
+            odom_pose, stamp, odom_frame, base_frame)])))
+        out.append(("pointcloud", PointCloud2.from_xyz(
+            pts, stamp=stamp - scan_dur, frame_id=lidar_frame,
+            timestamps=np.asarray(taus, np.float32) * scan_dur,
+            timestamp_field="t", timestamp_type=PointFieldType.FLOAT32)))
+    return out

@@ -32,7 +32,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for name in ("offline", "convert", "ops.gn", "ops.cuda_build",
-                 "models.pipeline", "utils.synthetic", "utils.evaluation"):
+                 "models.pipeline", "utils.synthetic", "utils.evaluation",
+                 "server", "online", "utils.packing", "utils.checkpoint",
+                 "utils.io.messages"):
         assert f"kinematic_icp_tpu_torch.{name}" in res["modules"]
 
 
@@ -55,21 +57,31 @@ def test_card_scripts_import_no_jax(script):
 
 
 @pytest.mark.parametrize("entry", ["run_offline", "init_state",
-                                   "make_sequence_runner"])
-def test_entry_points_default_to_cuda(entry):
+                                   "make_sequence_runner",
+                                   "LidarOdometryServer",
+                                   "OnlineOdometryNode", "load_state"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA card")
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch import offline
     from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.online import OnlineOdometryNode
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+    from kinematic_icp_tpu_torch.utils import checkpoint
 
     cfg = Config(max_points=64, max_downsampled=64, max_source=32,
                  map_capacity=256)
+    path = str(tmp_path / "state.npz")
+    checkpoint.save_state(path, pipeline.init_state(cfg, device="cpu"))
     call = {
         "run_offline": lambda: offline.run_offline(
             [np.zeros((8, 3), np.float32)], [np.eye(4)], cfg),
         "init_state": lambda: pipeline.init_state(cfg),
         "make_sequence_runner": lambda: offline.make_sequence_runner(cfg),
+        "LidarOdometryServer": lambda: LidarOdometryServer(cfg),
+        "OnlineOdometryNode": lambda: OnlineOdometryNode(cfg),
+        "load_state": lambda: checkpoint.load_state(path),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

@@ -279,3 +279,81 @@ def test_gn_kernel_rejects_bad_input(card):
     with pytest.raises(ValueError):
         gn.gn_solve(cand._replace(words=cand.words.transpose(1, 2)), source,
                     mask, guess, 0.5, **SOLVE)
+
+
+def _packed_frame(codec, bucket=1024, n=1000, seed=0):
+    from kinematic_icp_tpu_torch.utils import packing
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-60, 60, (n, 3)).astype(np.float32)
+    pts[:4] = [[1e-40, -0.0, np.inf], [np.nan, -np.inf, 3.14],
+               [-1e-45, 0.0, 1e38], [65504.0, -7.25, 2.0 ** -126]]
+    ts = rng.uniform(0, 1, n).astype(np.float32)
+    rel = (np.eye(4) + rng.normal(0, 0.01, (4, 4))).astype(np.float32)
+    buf, _ = packing.pack_frame(pts, ts, rel, bucket, codec)
+    return torch.from_numpy(buf.view(np.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("active", [False, True])
+def test_unpack_frame_on_card_bit_equal_to_cpu(card, active):
+    """The f32 codec decodes by reinterpreting views: the card's unpack is
+    bit-equal to the CPU's, special floats included."""
+    from kinematic_icp_tpu_torch.utils import packing
+
+    buf = _packed_frame("f32")
+    cpu = packing.unpack_frame(buf, 1024, "f32", return_active=active)
+    dev = packing.unpack_frame(buf.to(card), 1024, "f32",
+                               return_active=active)
+    for a, b in zip(cpu, dev):
+        b = b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+def _served(card, blocking, frames=5, stream_chunk=2):
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    seq = synthetic.make_sequence(frames)
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 13, max_range=60.0, deskew=True)
+    s = LidarOdometryServer(cfg, extrinsic=seq["extrinsic"],
+                            stream_chunk=stream_chunk, device=card)
+    for i, (p, t) in enumerate(seq["frames"]):
+        s.register_frame(p, t, seq["rel_odometry"][i], stamp=0.1 * (i + 1),
+                         blocking=blocking)
+    s.drain()
+    return s
+
+
+@pytest.mark.cuda
+def test_cuda_server_streaming_bit_equal_to_blocking(card):
+    blocking = _served(card, True)
+    streamed = _served(card, False)
+    a = np.asarray([p for _, p in blocking.poses_with_stamps])
+    b = np.asarray([p for _, p in streamed.poses_with_stamps])
+    np.testing.assert_array_equal(a, b)
+    assert streamed.overflow_stats == blocking.overflow_stats
+    assert blocking.frames_registered == 4  # frame 0 is stationary
+
+
+@pytest.mark.cuda
+def test_served_frame_launches_gn_kernel_once(card):
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    seq = synthetic.make_sequence(2)
+    s = LidarOdometryServer(
+        Config(max_points=4096, max_downsampled=4096, max_source=1024,
+               map_capacity=1 << 13, max_range=60.0, deskew=True),
+        extrinsic=seq["extrinsic"])
+    s.warmup(4096)
+    before = gn.LAUNCHES
+    res = s.register_frame(seq["frames"][1][0], seq["frames"][1][1],
+                           seq["rel_odometry"][1], stamp=0.1)
+    assert res["registered"] and np.isfinite(res["pose"]).all()
+    assert gn.LAUNCHES == before + 1
