@@ -34,7 +34,18 @@ last line.  Phases:
      ``compute_robot_motion``, equal to the full-27 loop;
   8. pruned exact: 20 frames with 14 of 27 voxels re-gathered and the
      certificate, bit-equal to the full-27 loop on every frame;
-  9. serve: ``server.LidarOdometryServer`` over the 60 headline frames,
+  9. batched: the GN kernel solving 8 frames in one launch at N=1024 and
+     N=8192 (each frame bit-equal to its own single launch, equal to the
+     plain version); 8 distinct headline drives (one cut to 44 frames)
+     through ``offline.make_batched_sequence_runner`` (one GN launch a
+     batched frame, zero overflow, each drive within 5 mm of its own
+     ``run_offline``, the short drive's pose held over its padding; each
+     drive's ATE against its dead reckoning is reported); aggregate
+     frames/s, device launches a batched frame and peak memory at B = 1,
+     2, 8, 16; and
+     ``parallel.BatchedOdometryRunner`` (``run`` against ``run_device``,
+     a stationary gate other than 1e-3, the raise on too many sequences);
+ 10. serve: ``server.LidarOdometryServer`` over the 60 headline frames,
      one JSON line per sub-phase: blocking (per-frame latency p50/p90/p99,
      frames/s, one GN launch per registered frame, zero overflow, better
      than dead reckoning, within 5 mm of the main path's ``run_offline``
@@ -45,7 +56,7 @@ last line.  Phases:
      uninterrupted run); and ``online.OnlineOdometryNode`` over 20 frames
      of in-memory messages (PointCloud2 with per-point stamps, ``/tf``
      wheel odometry, ``/tf_static`` extrinsic);
- 10. the ``kernels`` summary line, the card's name and power limit, and
+ 11. the ``kernels`` summary line, the card's name and power limit, and
      the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
@@ -97,6 +108,15 @@ EARLIER_MS = {(10, 1024, False): 0.3212, (10, 8192, False): 2.591,
               (27, 1024, True): 0.890}
 TIMED_RUNS = 20
 CALLS_PER_RUN = 10
+#: the batched phase: drives a batch, the frames of the short one (the
+#: rest run MAIN_FRAMES), the swept batch sizes with their frames and
+#: profiled frames, and the frames of BatchedOdometryRunner's drives
+BATCH = 8
+BATCH_SHORT = 44
+SWEEP_BATCHES = (1, 2, 8, 16)
+SWEEP_FRAMES = 20
+PROFILED_FRAMES = 5
+RUNNER_FRAMES = 20
 
 
 def emit(obj):
@@ -161,16 +181,17 @@ def gn_bound(v, k, n, iterations):
             "operations", nbytes, flops)
 
 
-def gn_problem(torch, np, seq, v, n, check_crossing):
+def gn_problem(torch, np, seq, v, n, check_crossing, seed=0):
     """One frame's GN solve on the card at (V, K=20, N): the map is one
     realistic scan, the sources noisy scan points, the guess a few cm and
-    10 mrad off.  Returns (args, kwargs, guess as numpy, map insert
-    failures) for ``gn.gn_solve``."""
+    10 mrad off (``seed`` > 0: other sources and a guess further off).
+    Returns (args, kwargs, guess as numpy, map insert failures) for
+    ``gn.gn_solve``."""
     from kinematic_icp_tpu_torch.ops import hashmap
     from kinematic_icp_tpu_torch.ops.points import P3, transform
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(1000 + v + n)
+    rng = np.random.default_rng(1000 + v + n + 7919 * seed)
     # the map: the port's own insert of one realistic scan (~58K points)
     pts0 = torch.from_numpy(seq["frames"][0][0]).to(dev)
     m = hashmap.empty(HEADLINE["map_capacity"], 20,
@@ -185,8 +206,9 @@ def gn_problem(torch, np, seq, v, n, check_crossing):
     src = (all_pts[pick] + rng.normal(0, 0.05, (n, 3))).astype(np.float32)
     source = P3.from_array(torch.from_numpy(src).to(dev))
     mask = torch.from_numpy(rng.uniform(size=n) < 0.95).to(dev)
-    c, s = np.cos(0.01), np.sin(0.01)
-    guess_np = np.array([[c, -s, 0, 0.03], [s, c, 0, -0.02], [0, 0, 1, 0],
+    yaw, tx, ty = 0.01 + 0.004 * seed, 0.03 + 0.02 * seed, -0.02 + 0.01 * seed
+    c, s = np.cos(yaw), np.sin(yaw)
+    guess_np = np.array([[c, -s, 0, tx], [s, c, 0, ty], [0, 0, 1, 0],
                          [0, 0, 0, 1]], np.float32)
     guess = torch.from_numpy(guess_np).to(dev)
     cand = hashmap.gather_candidates(m, transform(guess, source), 1.0, 5, v)
@@ -453,6 +475,365 @@ def pruned_phase(torch, np, seq):
           "full_27_frames_per_s": count / seconds_full, "checks": checks})
     if not all(checks.values()):
         raise SystemExit(f"pruned_exact failed: {checks}")
+
+
+def stack_frames(torch, problems):
+    """B single-frame GN problems (``gn_problem``'s) -> one batched call's
+    arguments."""
+    from kinematic_icp_tpu_torch.ops.hashmap import CandidateSet
+    from kinematic_icp_tpu_torch.ops.points import P3
+
+    args = [p[0] for p in problems]
+    cand = CandidateSet(*(torch.stack(t) for t in zip(*(a[0] for a in args))))
+    source = P3(*(torch.stack(t) for t in zip(*(a[1] for a in args))))
+    return (cand, source, torch.stack([a[2] for a in args]),
+            torch.stack([a[3] for a in args]),
+            torch.stack([a[4] for a in args]))
+
+
+def bits_equal(torch, a, b):
+    return torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                       b.reshape(-1).contiguous().view(torch.uint8))
+
+
+def batched_kernel_phase(torch, np, seq, v, n):
+    """BATCH frames (their own sources and guesses, one map) solved in one
+    launch: each frame bit-equal to its own single launch, equal to the
+    plain version within the single-frame phase's tolerance, two batched
+    launches bit-equal."""
+    from kinematic_icp_tpu_torch.ops import gn
+
+    problems = [gn_problem(torch, np, seq, v, n, False, seed=i)
+                for i in range(BATCH)]
+    args, kw = stack_frames(torch, problems), problems[0][1]
+    before = (gn.LAUNCHES, gn.FRAMES)
+    out = gn.gn_solve(*args, backend="cuda", **kw)
+    torch.cuda.synchronize()
+    launched = (gn.LAUNCHES - before[0], gn.FRAMES - before[1])
+    ctas = gn.LAST_CTAS
+    again = gn.gn_solve(*args, backend="cuda", **kw)
+    singles = [gn.gn_solve(*p[0], backend="cuda", **kw) for p in problems]
+    plain = gn.gn_solve(*args, backend="torch", **kw)
+    torch.cuda.synchronize()
+    deterministic = all(bits_equal(torch, a, b) for a, b in zip(out, again))
+    frames_equal = sum(
+        all(bits_equal(torch, x[i], y) for x, y in zip(out, one))
+        for i, one in enumerate(singles))
+    pk, pp = out[0].cpu().numpy(), plain[0].cpu().numpy()
+    pose_err = float(np.abs(pk - pp).max())
+    ints_k = [out[i].cpu().numpy().astype(int).tolist() for i in (1, 2, 4)]
+    ints_p = [plain[i].cpu().numpy().astype(int).tolist() for i in (1, 2, 4)]
+    err_k, err_p = out[3].cpu().numpy(), plain[3].cpu().numpy()
+    err_ok = all(
+        abs(float(err_k[i]) - float(err_p[i])) <= 1e-5 * abs(float(err_p[i]))
+        + gn.error_tolerance(pp[i], problems[i][2], HEADLINE["max_range"],
+                             float(np.abs(pk[i] - pp[i]).max()))
+        for i in range(BATCH))
+    iterations = ints_k[0]
+    ms = median_ms(lambda: gn.gn_solve(*args, backend="cuda", **kw))
+    single_ms = median_ms(lambda: gn.gn_solve(*problems[0][0],
+                                              backend="cuda", **kw))
+    plain_ms = median_ms(lambda: gn.gn_solve(*args, backend="torch", **kw),
+                         runs=3, calls=2)
+    bounds = [gn_bound(v, 20, n, it) for it in iterations]
+    nbytes = sum(b[2] for b in bounds)
+    flops = sum(b[3] for b in bounds)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    row = {"phase": "batched_gn_solve", "B": BATCH, "V": v, "K": 20, "N": n,
+           "launches": launched[0], "frames_solved": launched[1],
+           "ctas_per_frame": ctas, "ctas": ctas * BATCH,
+           "tiles_per_frame": (n + 31) // 32, "iterations": iterations,
+           "correspondences": ints_k[1], "plain": ints_p,
+           "frames_bit_equal_to_single_launch": frames_equal,
+           "deterministic": deterministic, "max_abs_err_pose": pose_err,
+           "ms": ms, "ms_per_frame": ms / BATCH, "single_frame_ms": single_ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_bytes": nbytes, "bound_flops": flops, "library_ms": None}
+    row["checks"] = {"one_launch_b_frames": launched == (1, BATCH),
+                     "bit_equal_to_single_launches": frames_equal == BATCH,
+                     "deterministic": deterministic,
+                     "plain_within_tolerance": (pose_err <= 1e-5
+                                                and ints_k == ints_p
+                                                and err_ok)}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"batched gn_solve failed at V={v} N={n}: "
+                         f"{row['checks']}")
+    return row
+
+
+def run_batched(torch, np, seqs, config, count, profile=False):
+    """The batched sequence runner over the first ``count`` frames of
+    ``seqs`` on the card (a shorter drive pads with stationary frames):
+    pad, upload, run, read back (as ``run_offline`` does).  Returns
+    (poses (F, B, 4, 4), overflow (B, 3), {"pad_s", "upload_s", "run_s",
+    "seconds"}: host seconds of the numpy padding, of the uploads (to their
+    end) and of the runner with the readback, and their sum, device
+    launches a frame with ``profile``, else None)."""
+    from kinematic_icp_tpu_torch.offline import (init_batched_state,
+                                                 make_batched_sequence_runner,
+                                                 pad_batch)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    padded = pad_batch([dict(s, frames=s["frames"][:count],
+                             rel_odometry=s["rel_odometry"][:count])
+                        for s in seqs], config)
+    t1 = time.perf_counter()
+    arrays = [torch.from_numpy(a).to(dev) for a in padded]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state = init_batched_state(config, len(seqs), device=dev)
+    ext = torch.tensor(np.asarray(seqs[0]["extrinsic"], np.float32),
+                       device=dev)
+    runner = make_batched_sequence_runner(config, dev)
+    launches = None
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+            out = runner(state, *arrays[:4], ext, arrays[4])
+            torch.cuda.synchronize()
+        launches = sum(e.device_type == DeviceType.CUDA
+                       for e in prof.events()) / count
+    else:
+        out = runner(state, *arrays[:4], ext, arrays[4])
+    poses = out[1].cpu().numpy().astype(np.float64)
+    overflow = out[2].cpu().numpy()
+    t3 = time.perf_counter()
+    stages = {"pad_s": t1 - t0, "upload_s": t2 - t1, "run_s": t3 - t2,
+              "seconds": t3 - t0}
+    return poses, overflow, stages, launches
+
+
+def batched_drive_phase(torch, np):
+    """BATCH distinct headline drives (the last cut short) through the
+    batched sequence runner, against each drive's own ``run_offline`` on
+    the card.  Returns (row, the drives)."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = Config(**HEADLINE)
+    count = MAIN_FRAMES
+    seqs = [synthetic.make_sequence(count, world_seed=s, traj_seed=s + 10,
+                                    noise_seed=s + 20,
+                                    lidar=synthetic.realistic_lidar(),
+                                    clear_path_margin=3.0)
+            for s in range(BATCH)]
+    last = seqs[-1]
+    seqs[-1] = dict(last, frames=last["frames"][:BATCH_SHORT],
+                    rel_odometry=last["rel_odometry"][:BATCH_SHORT],
+                    gt_poses=last["gt_poses"][:BATCH_SHORT])
+    run_batched(torch, np, seqs, cfg, 3)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    gn.LAUNCHES = 0
+    gn.FRAMES = 0
+    poses, overflow, stages, _ = run_batched(torch, np, seqs, cfg, count)
+    seconds = stages["seconds"]
+    launches, frames = gn.LAUNCHES, gn.FRAMES
+    peak = torch.cuda.max_memory_allocated()
+
+    per_seq = []
+    for i, s in enumerate(seqs):
+        f_i = len(s["frames"])
+        got = poses[:f_i, i]
+        single, single_s, single_overflow, _ = run_drive(torch, s, cfg, f_i)
+        gt = s["gt_poses"][:f_i]
+        ate = ate_rmse(gt, got, align=False)
+        ate_dead = ate_rmse(gt, dead_reckoning(np, s["rel_odometry"][:f_i]),
+                            align=False)
+        per_seq.append({
+            "frames": f_i, "ate_vs_gt_m": ate,
+            "ate_dead_reckoning_m": ate_dead,
+            "beats_dead_reckoning": ate < ate_dead,
+            "ate_vs_run_offline_m": ate_rmse(single, got, align=False),
+            "frames_bit_equal_to_run_offline": sum(
+                bool(np.array_equal(a, b)) for a, b in zip(got, single)),
+            "run_offline_frames_per_s": f_i / single_s,
+            "run_offline_overflow": single_overflow or [0, 0, 0]})
+    padded = poses[BATCH_SHORT:, -1]
+    row = {"phase": "batched_drive", "B": BATCH, "frames": count,
+           "short_sequence_frames": BATCH_SHORT, "config": HEADLINE,
+           "gn_launches": launches, "gn_frames_solved": frames,
+           "frames_per_launch": frames / max(launches, 1),
+           "overflow": overflow.tolist(), "seconds": seconds,
+           "stages_s": stages,
+           "aggregate_frames_per_s": BATCH * count / seconds,
+           "peak_memory_bytes": peak,
+           # a fact of each drive's data, not of the batch: each pose is
+           # held to the drive's own run_offline below, and the main path
+           # phase holds run_offline to its dead reckoning
+           "drives_beating_dead_reckoning": sum(
+               p["beats_dead_reckoning"] for p in per_seq),
+           "sequences": per_seq}
+    row["checks"] = {
+        "finite": bool(np.isfinite(poses).all()),
+        "one_gn_launch_per_batched_frame": launches == count,
+        "b_frames_per_launch": frames == BATCH * count,
+        "zero_overflow": not overflow.any() and not any(
+            any(p["run_offline_overflow"]) for p in per_seq),
+        "each_within_5mm_of_run_offline": all(
+            p["ate_vs_run_offline_m"] < 5e-3 for p in per_seq),
+        "padding_keeps_the_short_pose": all(
+            np.array_equal(p, poses[BATCH_SHORT - 1, -1]) for p in padded)}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"batched_drive failed: {row['checks']}")
+    return row, seqs
+
+
+def batched_sweep_phase(torch, np, seq, card):
+    """Aggregate frames/s, device launches a batched frame and peak memory
+    at each B of SWEEP_BATCHES (the batch filled with one drive), beside
+    the same call's ``run_offline``."""
+    from kinematic_icp_tpu_torch import Config
+
+    cfg = Config(**HEADLINE)
+    count = SWEEP_FRAMES
+    rows = {}
+    for b in SWEEP_BATCHES:
+        seqs = [seq] * b
+        run_batched(torch, np, seqs, cfg, 3)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _, overflow, stages, _ = run_batched(torch, np, seqs, cfg, count)
+        seconds = stages["seconds"]
+        peak = torch.cuda.max_memory_allocated()
+        _, _, _, launches = run_batched(torch, np, seqs, cfg,
+                                        PROFILED_FRAMES, profile=True)
+        rows[b] = {"aggregate_frames_per_s": b * count / seconds,
+                   "batched_frames_per_s": count / seconds,
+                   # a batched frame's wall ms, split by stage
+                   **{k[:-2] + "_ms_per_frame": v * 1e3 / count
+                      for k, v in stages.items() if k != "seconds"},
+                   "launches_per_batched_frame": launches,
+                   "peak_memory_bytes": peak,
+                   "zero_overflow": not overflow.any()}
+    _, single_s, _, _ = run_drive(torch, seq, cfg, count)
+    ratio = (rows[BATCH]["launches_per_batched_frame"]
+             / rows[1]["launches_per_batched_frame"])
+    row = {"phase": "batched_sweep", "frames": count, "nvidia_smi": card,
+           "profiled_frames": PROFILED_FRAMES,
+           "by_batch": {str(b): r for b, r in rows.items()},
+           "run_offline_frames_per_s": count / single_s,
+           f"launches_b{BATCH}_over_b1": ratio}
+    row["checks"] = {"launches_independent_of_batch": ratio <= 1.1,
+                     "zero_overflow": all(r["zero_overflow"]
+                                          for r in rows.values())}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"batched_sweep failed: {row['checks']}")
+    return row
+
+
+def gate_between(np, norms):
+    """A stationary gate in the widest gap between the middle half of the
+    moving frames' |log(rel)|: far from every frame's value, where the
+    host's float64 gate and the device's float32 gate agree."""
+    s = np.sort(norms[norms > 1e-3])
+    lo = len(s) // 4
+    hi = max(3 * len(s) // 4, lo + 1)
+    i = lo + int(np.argmax(np.diff(s)[lo:hi]))
+    return float(0.5 * (s[i] + s[i + 1]))
+
+
+def batched_runner_phase(torch, np, seqs):
+    """``BatchedOdometryRunner`` over RUNNER_FRAMES frames of two drives:
+    ``run`` (a host-gated ``step`` a frame) against ``run_device``, a
+    stationary gate other than 1e-3 in both, and the raise on too many
+    sequences."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.oracle.reference import se3_log
+    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = Config(**HEADLINE)
+    two = [{"frames": s["frames"][:RUNNER_FRAMES],
+            "rel_odometry": s["rel_odometry"][:RUNNER_FRAMES]}
+           for s in seqs[:2]]
+    ext = seqs[0]["extrinsic"]
+
+    def runner(gate=1e-3, batch=2):
+        return BatchedOdometryRunner(cfg, batch, extrinsic=ext,
+                                     stationary_gate=gate)
+
+    stepped = runner().run(two)
+    device = runner().run_device(two)
+    ate = [ate_rmse(stepped[i], device[i], align=False) for i in range(2)]
+    norms = np.array([np.linalg.norm(se3_log(np.asarray(r, np.float64)))
+                      for r in two[0]["rel_odometry"]])
+    gate = gate_between(np, norms)
+    gated = {}
+    for how in ("run", "run_device"):
+        poses = np.asarray(getattr(runner(gate), how)(two)[0])
+        prev = np.concatenate([np.eye(4)[None], poses[:-1]])
+        gated[how] = (np.abs(poses - prev).max(axis=(1, 2)) > 0).tolist()
+    want = (norms > gate).tolist()
+    try:
+        runner(batch=1).run_device(two)
+        raised = False
+    except ValueError:
+        raised = True
+    row = {"phase": "batched_runner", "frames": RUNNER_FRAMES,
+           "ate_run_vs_run_device_m": ate, "stationary_gate": gate,
+           "active_frames_default_gate": int((norms > 1e-3).sum()),
+           "active_frames_gate": int(sum(want)),
+           "moved_frames": {k: int(sum(v)) for k, v in gated.items()}}
+    row["checks"] = {
+        "run_and_run_device_within_5mm": max(ate) < 5e-3,
+        "gate_selects_frames_in_both": (gated["run"] == want
+                                        == gated["run_device"]),
+        "gate_differs_from_1e-3": int(sum(want)) < int((norms > 1e-3).sum()),
+        "too_many_sequences_raise": raised}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"batched_runner failed: {row['checks']}")
+    return row
+
+
+def batched_phase(torch, np, seq, card):
+    """The batched multi-sequence path: the kernel on B frames a launch,
+    BATCH drives through the batched runner, the B sweep and
+    ``BatchedOdometryRunner``; then one summary line."""
+    kernels = [batched_kernel_phase(torch, np, seq, 10, n)
+               for n in (1024, 8192)]
+    drive, seqs = batched_drive_phase(torch, np)
+    sweep = batched_sweep_phase(torch, np, seq, card)
+    runner = batched_runner_phase(torch, np, seqs)
+    row = {"phase": "batched", "B": BATCH,
+           "kernel_frames_bit_equal_to_single_launch": {
+               str(k["N"]): k["frames_bit_equal_to_single_launch"]
+               for k in kernels},
+           "gn_launches_per_batched_frame": (drive["gn_launches"]
+                                             / drive["frames"]),
+           "overflow": drive["overflow"],
+           "ate_vs_run_offline_m": [p["ate_vs_run_offline_m"]
+                                    for p in drive["sequences"]],
+           "frames_bit_equal_to_run_offline": [
+               p["frames_bit_equal_to_run_offline"]
+               for p in drive["sequences"]],
+           "ate_vs_gt_m": [p["ate_vs_gt_m"] for p in drive["sequences"]],
+           "ate_dead_reckoning_m": [p["ate_dead_reckoning_m"]
+                                    for p in drive["sequences"]],
+           "drives_beating_dead_reckoning":
+               drive["drives_beating_dead_reckoning"],
+           f"launches_b{BATCH}_over_b1": sweep[f"launches_b{BATCH}_over_b1"],
+           "aggregate_frames_per_s": {
+               b: r["aggregate_frames_per_s"]
+               for b, r in sweep["by_batch"].items()},
+           "checks": {**{f"kernel_N{k['N']}_" + c: v for k in kernels
+                         for c, v in k["checks"].items()},
+                      **{"drive_" + c: v for c, v in drive["checks"].items()},
+                      **{"sweep_" + c: v for c, v in sweep["checks"].items()},
+                      **{"runner_" + c: v
+                         for c, v in runner["checks"].items()}}}
+    emit(row)
+    return kernels[0], drive
 
 
 def stamped_poses(np, server):
@@ -740,6 +1121,7 @@ def main():
     exact_launches = exact_phase(torch, np, seq, main_poses)
     fallback_phase(torch, np)
     pruned_phase(torch, np, seq)
+    batched_kernel, batched_drive = batched_phase(torch, np, seq, card)
     serve_launches = serve_phase(torch, np, seq, main_poses)
 
     emit({"kernels": [{
@@ -749,6 +1131,10 @@ def main():
         "launches": main_row["gn_launches"],
         "launches_exact_mode_check_crossing": exact_launches,
         "launches_serve_blocking": serve_launches,
+        "launches_batched": batched_drive["gn_launches"],
+        "frames_per_launch_batched": batched_drive["frames_per_launch"],
+        "batched_ms": batched_kernel["ms"],
+        "batched_bound_ms": batched_kernel["bound_ms"],
         "max_abs_err": main_shape["max_abs_err_pose"],
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

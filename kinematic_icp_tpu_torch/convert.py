@@ -4,7 +4,9 @@ The state the system carries between frames (its "weights") is the pose,
 the packed voxel map table and the adaptive-threshold accumulators.  Given
 as numpy arrays (e.g. from the JAX package's ``OdometryState``), they
 become this package's state, and back.  The table's u32 words are stored as
-int32 bits, so the round trip is bit-exact.
+int32 bits, so the round trip is bit-exact.  A batched state (the batched
+sequence runner's, or JAX's ``init_batched_state``) carries the same arrays
+with a leading batch axis.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from .runtime import resolve_device
 
 def state_from_numpy(pose, table, odom_sse, num_samples, *, bucket_slots: int,
                      device=None, dtype=torch.float32) -> OdometryState:
-    """(4, 4) pose, (B, G*R) uint32 table, scalar accumulators -> state.
+    """(4, 4) pose, (NB, G*R) uint32 table, scalar accumulators -> state;
+    or (B, 4, 4) poses, a (B, NB, G*R) table and (B,) accumulators -> a
+    batched state.
 
     ``bucket_slots`` (G, ``Config.max_probes``) splits the table rows into
     slots; ``device`` ``None`` means CUDA (raises if absent); ``dtype`` is
@@ -28,29 +32,39 @@ def state_from_numpy(pose, table, odom_sse, num_samples, *, bucket_slots: int,
     """
     dev = resolve_device(device)
     table = np.ascontiguousarray(table)
-    if table.dtype != np.uint32 or table.ndim != 2:
-        raise ValueError(f"table must be a 2-D uint32 array, got "
-                         f"{table.dtype} {table.shape}")
-    if table.shape[1] % bucket_slots:
-        raise ValueError(f"table rows of {table.shape[1]} lanes do not split "
-                         f"into {bucket_slots} slots")
+    if table.dtype != np.uint32 or table.ndim not in (2, 3):
+        raise ValueError(f"table must be a 2-D (or batched 3-D) uint32 "
+                         f"array, got {table.dtype} {table.shape}")
+    if table.shape[-1] % bucket_slots:
+        raise ValueError(f"table rows of {table.shape[-1]} lanes do not "
+                         f"split into {bucket_slots} slots")
+    lead = table.shape[:-2]
+    pose = np.asarray(pose)
+    if pose.shape != lead + (4, 4):
+        raise ValueError(f"pose of shape {pose.shape} for a table of shape "
+                         f"{table.shape}")
 
-    def scalar(x):
-        return torch.tensor(float(np.asarray(x)), dtype=dtype, device=dev)
+    def per_sequence(x):
+        x = np.asarray(x)
+        if x.shape != lead:
+            raise ValueError(f"accumulator of shape {x.shape} for a table "
+                             f"of shape {table.shape}")
+        return torch.tensor(x, dtype=dtype, device=dev)
 
     return OdometryState(
-        pose=torch.tensor(np.asarray(pose), dtype=dtype, device=dev),
+        pose=torch.tensor(pose, dtype=dtype, device=dev),
         map=MapState(table=torch.from_numpy(table.view(np.int32).copy()
                                             ).to(dev),
                      bucket_slots=bucket_slots),
-        threshold=ThresholdState(odom_sse=scalar(odom_sse),
-                                 num_samples=scalar(num_samples)),
+        threshold=ThresholdState(odom_sse=per_sequence(odom_sse),
+                                 num_samples=per_sequence(num_samples)),
     )
 
 
 def state_to_numpy(state: OdometryState):
-    """State -> (pose (4, 4) f32, table (B, G*R) uint32, odom_sse,
-    num_samples) numpy arrays."""
+    """State -> (pose (4, 4), table (NB, G*R) uint32, odom_sse,
+    num_samples) numpy arrays, each with the leading B of a batched
+    state."""
     return (state.pose.detach().cpu().numpy(),
             state.map.table.detach().cpu().numpy().view(np.uint32),
             state.threshold.odom_sse.detach().cpu().numpy(),

@@ -18,18 +18,22 @@ import torch
 
 from ..config import Config
 from ..ops import hashmap, preprocessing, registration, se3, threshold, voxel
-from ..ops.points import P3, transform
+from ..ops.points import P3, per_row, transform
 from ..runtime import resolve_device
 
 
 class OdometryState(NamedTuple):
+    """The state one sequence carries between frames; a batch of B
+    sequences puts B before every tensor (pose (B, 4, 4), table (B, NB,
+    G*R), accumulators (B,))."""
     pose: torch.Tensor                   # (4, 4) — last_pose_
     map: hashmap.MapState                # local_map_
     threshold: threshold.ThresholdState  # correspondence_threshold_
 
 
 class FrameOutputs(NamedTuple):
-    """Per-frame outputs, mirroring the reference's return + debug topics."""
+    """Per-frame outputs, mirroring the reference's return + debug topics
+    (each with a leading B in a batch)."""
     frame: P3                   # (N,) planes — deskewed frame in base coords
     frame_mask: torch.Tensor    # (N,)
     source: P3                  # (S,) planes — ICP keypoints (base frame)
@@ -38,7 +42,7 @@ class FrameOutputs(NamedTuple):
     debug: registration.RegistrationDebug
     #: (3,) int32 capacity-overflow counters [downsample voxels dropped,
     #: source voxels dropped, map insert bucket-overflow voxels]; nonzero
-    #: means the static capacities are undersized
+    #: means the static capacities are undersized; (B, 3) in a batch
     overflow: torch.Tensor
 
 
@@ -73,6 +77,12 @@ def register_frame(state: OdometryState, points, timestamps, mask,
                    ) -> tuple[OdometryState, FrameOutputs]:
     """One odometry step (KinematicICP.cpp:48-85).
 
+    With a batched ``state`` (``offline.init_batched_state``) every per-frame
+    input gains the same leading B axis (points (B, N, 3), ``active`` and
+    ``has_timestamps`` (B,), odometry (B, 4, 4); ``lidar_to_base`` stays
+    one shared (4, 4)) and B sequences advance by one frame each, in the
+    launches of one frame.
+
     Args:
       state: current odometry state.
       points: (N, 3) raw scan in the lidar frame (padded).
@@ -93,9 +103,9 @@ def register_frame(state: OdometryState, points, timestamps, mask,
     if config.deskew:
         if rel_twist_in_lidar is None:
             # Deskew in the lidar frame (KinematicICP.cpp:53-55).
-            ext_inv = se3.inverse(lidar_to_base)
+            ext = lidar_to_base.expand(relative_odometry.shape)
             rel_odom_in_lidar = se3.compose44(
-                se3.compose44(ext_inv, relative_odometry), lidar_to_base)
+                se3.compose44(se3.inverse(ext), relative_odometry), ext)
             rel_twist_in_lidar = se3.se3_log(rel_odom_in_lidar)
         frame, frame_mask = preprocessing.preprocess(
             p, timestamps, mask, None,
@@ -159,7 +169,7 @@ def register_frame(state: OdometryState, points, timestamps, mask,
         return_failed=True)
 
     if active is not None:
-        new_pose = torch.where(active, new_pose, state.pose)
+        new_pose = torch.where(per_row(active, 2), new_pose, state.pose)
         new_threshold = threshold.ThresholdState(
             *(torch.where(active, a, b)
               for a, b in zip(new_threshold, state.threshold)))
@@ -170,6 +180,6 @@ def register_frame(state: OdometryState, points, timestamps, mask,
         frame=frame_in_base, frame_mask=frame_mask,
         source=source, source_mask=source_mask,
         pose=new_pose, debug=debug,
-        overflow=torch.cat([ds_dropped,
-                            insert_failed[None]]).to(torch.int32))
+        overflow=torch.cat([ds_dropped, insert_failed[..., None]],
+                           dim=-1).to(torch.int32))
     return new_state, outputs

@@ -3,8 +3,11 @@
 ``gn_solve`` runs the whole per-frame GN loop of the candidate-cached
 registration (reference Registration.cpp:151-190) in one cooperative
 launch of the hand-written kernel ``csrc/gn_solve.cu`` (a persistent grid
-of CTAs with one grid barrier per selection pass), the counterpart of the
-JAX package's Pallas kernel (``kinematic_icp_tpu/ops/pallas_gn.py:_kernel``):
+of CTAs with one barrier per frame and selection pass), the counterpart of
+the JAX package's Pallas kernel (``kinematic_icp_tpu/ops/pallas_gn.py:
+_kernel``).  Inputs with a leading batch axis of B frames (the batched
+sequence runner's) are solved in ONE launch; a single frame is B = 1 of
+the same kernel.  Per frame:
 
   * nearest-candidate re-selection per iteration among the per-frame cached
     candidates, with the packed-key tie-break of
@@ -30,6 +33,7 @@ import torch
 
 from . import cuda_build
 from .hashmap import CandidateSet, _candidate_points
+from .points import P3
 
 #: far-away coordinate of an invalid candidate: d2 ~ 3e36 stays finite in
 #: float32 and its key sorts after every real distance
@@ -39,10 +43,13 @@ _EPSILON = 1e-30
 #: kernel launches so far (a plain count, for showing the path ran the
 #: kernel); the plain version does not count
 LAUNCHES = 0
-#: of those, launches of the ``check_crossing`` instance (the certified
+#: frames solved by those launches (B a launch)
+FRAMES = 0
+#: of the launches, those of the ``check_crossing`` instance (the certified
 #: exact mode's)
 CROSSING_LAUNCHES = 0
-#: CTAs of the kernel's last cooperative grid (0 before the first launch)
+#: CTAs a frame of the kernel's last cooperative grid (0 before the first
+#: launch); the grid holds B times as many
 LAST_CTAS = 0
 
 
@@ -96,12 +103,26 @@ def gn_solve_reference(cand: CandidateSet, source, source_mask, guess, tau, *,
                        max_range: float = 0.0,
                        check_crossing: bool = False):
     """Plain PyTorch version of the kernel; same arguments and outputs as
-    ``gn_solve``.
+    ``gn_solve``.  A leading batch axis solves the frames one after the
+    other, each as an unbatched call.
 
     The data-dependent ``while`` loop becomes ``max_num_iterations`` trips
     whose updates are masked once the loop would have stopped, so the
     function reads nothing back to the host.
     """
+    kw = dict(voxel_size=voxel_size, max_num_iterations=max_num_iterations,
+              convergence_criterion=convergence_criterion,
+              use_adaptive_regularization=use_adaptive_regularization,
+              fixed_regularization=fixed_regularization, max_range=max_range,
+              check_crossing=check_crossing)
+    if cand.words.dim() == 4:
+        tau = torch.as_tensor(tau, device=guess.device).expand(
+            guess.shape[0])
+        outs = [gn_solve_reference(
+            CandidateSet(*(t[b] for t in cand)), P3(*(t[b] for t in source)),
+            source_mask[b], guess[b], tau[b], **kw)
+            for b in range(guess.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
     v, k, n = cand.words.shape
     if k > 32:
         raise ValueError("packed tie-break key holds a 5-bit entry lane")
@@ -273,7 +294,8 @@ def _kernel_entry():
     fn = cuda_build.load("gn_solve").kicp_gn_solve
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 15 + [i] * 4 + [f, i, f, f, f, i,
+        fn.argtypes = ([p] * 15 + [i] * 5 + [f, i, f, f, f, i,
+                                              ctypes.POINTER(i),
                                               ctypes.POINTER(i), p])
         fn.restype = i
     return fn
@@ -292,36 +314,49 @@ def _gn_solve_cuda(cand, source, source_mask, guess, tau, *, voxel_size,
                    max_num_iterations, convergence_criterion,
                    use_adaptive_regularization, fixed_regularization,
                    max_range, check_crossing):
-    """One cooperative launch of the kernel and no other device work: the
-    kernel reads ``guess``, ``tau`` and the bool mask where they lie, and
-    takes the scalars by value."""
-    global LAUNCHES, CROSSING_LAUNCHES, LAST_CTAS
-    v, k, n = cand.words.shape
-    if not (1 <= v <= 27 and 1 <= k <= 32 and n >= 1):
+    """One cooperative launch of the kernel for the B frames of a batched
+    call (B = 1 for an unbatched one) and no other device work but the
+    copies that make a strided input dense: the kernel reads ``guess``,
+    ``tau`` and the bool mask where they lie, and takes the scalars by
+    value."""
+    global LAUNCHES, FRAMES, CROSSING_LAUNCHES, LAST_CTAS
+    batched = cand.words.dim() == 4
+    if not batched:
+        cand = CandidateSet(*(t[None] for t in cand))
+        source = P3(*(t[None] for t in source))
+        source_mask, guess = source_mask[None], guess[None]
+    if cand.words.dim() != 4:
+        raise ValueError(f"gn_solve kernel: words must be (V, K, N) or "
+                         f"(B, V, K, N); got {tuple(cand.words.shape)}")
+    b, v, k, n = cand.words.shape
+    if not (1 <= v <= 27 and 1 <= k <= 32 and n >= 1 and b >= 1):
         raise ValueError(f"gn_solve kernel takes V <= 27, K <= 32; got "
-                         f"{(v, k, n)}")
+                         f"{(b, v, k, n)}")
     dev = cand.words.device
     i32, f32 = torch.int32, torch.float32
-    _check("words", cand.words, i32, (v, k, n), dev)
-    _check("rel", cand.rel, i32, (v, n), dev)
+    _check("words", cand.words, i32, (b, v, k, n), dev)
+    _check("rel", cand.rel, i32, (b, v, n), dev)
     for name in ("base_x", "base_y", "base_z"):
-        _check(name, getattr(cand, name), i32, (n,), dev)
-    # no-ops for the main path's dense planes
+        _check(name, getattr(cand, name), i32, (b, n), dev)
+    # no-ops for dense planes (an unbatched frame's); copies of the rows of
+    # a batch's truncated (strided) source planes
     sx, sy, sz = (t.contiguous() for t in source)
     for name, t in zip("xyz", (sx, sy, sz)):
-        _check(f"source.{name}", t, f32, (n,), dev)
-    _check("source_mask", source_mask, torch.bool, (n,), dev)
-    _check("guess", guess, f32, (4, 4), dev)
-    if torch.is_tensor(tau):  # a no-op for the f32 0-d tau of the main path
-        tau = tau.to(device=dev, dtype=f32).reshape(()).contiguous()
+        _check(f"source.{name}", t, f32, (b, n), dev)
+    _check("source_mask", source_mask, torch.bool, (b, n), dev)
+    _check("guess", guess, f32, (b, 4, 4), dev)
+    if torch.is_tensor(tau):  # a no-op for the pipeline's f32 tau
+        tau = tau.to(device=dev, dtype=f32).expand(b).contiguous()
     else:
-        tau = torch.full((), tau, dtype=f32, device=dev)
-    pose16 = torch.empty(16, dtype=f32, device=dev)
-    stats = torch.empty(3, dtype=i32, device=dev)
-    err = torch.empty(1, dtype=f32, device=dev)
-    # per CTA and pass parity, 8 floats; there are at most ceil(N/32) CTAs
-    partials = torch.empty(2 * ((n + 31) // 32) * 8, dtype=f32, device=dev)
-    ctas = ctypes.c_int(0)
+        tau = torch.full((b,), tau, dtype=f32, device=dev)
+    pose16 = torch.empty((b, 16), dtype=f32, device=dev)
+    stats = torch.empty((b, 3), dtype=i32, device=dev)
+    err = torch.empty(b, dtype=f32, device=dev)
+    # per pass parity, frame and 32-query tile 8 floats of slots, then 32
+    # words of barrier a frame
+    partials = torch.empty(2 * b * ((n + 31) // 32) * 8 + 32 * b, dtype=f32,
+                           device=dev)
+    ctas, capacity = ctypes.c_int(0), ctypes.c_int(0)
 
     fn = _kernel_entry()
     # tau, the source copies and the scratch may be freed on return while
@@ -335,19 +370,27 @@ def _gn_solve_cuda(cand, source, source_mask, guess, tau, *, voxel_size,
                 sx.data_ptr(), sy.data_ptr(), sz.data_ptr(),
                 source_mask.data_ptr(),
                 pose16.data_ptr(), stats.data_ptr(), err.data_ptr(),
-                partials.data_ptr(), v, k, n, max_num_iterations,
+                partials.data_ptr(), b, v, k, n, max_num_iterations,
                 convergence_criterion, int(use_adaptive_regularization),
                 fixed_regularization, voxel_size, max_range,
-                int(check_crossing), ctypes.byref(ctas), stream)
+                int(check_crossing), ctypes.byref(ctas),
+                ctypes.byref(capacity), stream)
     if rc != 0:
+        if b > capacity.value > 0:
+            raise ValueError(
+                f"gn_solve kernel: a batch of {b} frames needs at least one "
+                f"CTA a frame, but the card holds {capacity.value} CTAs of "
+                f"the kernel at once; split the batch")
         raise RuntimeError(f"gn_solve kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    FRAMES += b
     CROSSING_LAUNCHES += int(check_crossing)
     LAST_CTAS = ctas.value
-    # stats[2] is 0 or 1; its low byte (little-endian) read as a bool is
+    # stats[:, 2] is 0 or 1; its low byte (little-endian) read as a bool is
     # `crossed` without a comparison kernel
-    crossed = stats[2:].view(torch.bool)[0]
-    return pose16.view(4, 4), stats[0], stats[1], err[0], crossed
+    crossed = stats.view(torch.bool)[:, 8]
+    out = (pose16.view(b, 4, 4), stats[:, 0], stats[:, 1], err, crossed)
+    return out if batched else tuple(t[0] for t in out)
 
 
 def gn_solve(cand: CandidateSet, source, source_mask, guess, tau, *,
@@ -358,13 +401,16 @@ def gn_solve(cand: CandidateSet, source, source_mask, guess, tau, *,
              max_range: float = 0.0,
              check_crossing: bool = False,
              backend: str = "auto"):
-    """Run the whole candidate-cached GN solve of one frame.
+    """Run the whole candidate-cached GN solve of one frame, or of a batch.
 
     Args mirror the candidate-cached branch of
     ``registration.compute_robot_motion``; ``guess`` is the (4, 4) initial
     pose and ``tau`` the correspondence threshold.  Returns (pose (4, 4),
     iterations, num_correspondences, odometry_error_pt, crossed), all
-    tensors on the input's device.
+    tensors on the input's device.  With a leading batch axis (``cand``
+    (B, V, K, N) words and (B, V, N) rel, (B, N) bases, sources and mask,
+    ``guess`` (B, 4, 4), ``tau`` (B,)) each output gains it, and the
+    kernel solves the B frames in one launch.
 
     ``backend``: ``"torch"`` runs the plain version on any device (the
     comparison baseline); ``"auto"`` and ``"cuda"`` launch the kernel for

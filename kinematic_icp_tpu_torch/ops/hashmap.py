@@ -3,11 +3,17 @@
 Equivalent of ``kiss_icp::VoxelHashMap`` (KISS-ICP v1.2.0) with the JAX
 package's layout, bit for bit:
 
-    table: (B, G*R) int32, R = K + 4 lanes per voxel slot, G slots a bucket
+    table: (NB, G*R) int32, NB buckets, R = K + 4 lanes per voxel slot,
+      G slots a bucket
       lanes [0..K-1] : packed points, 10/10/10-bit in-voxel offsets;
                        0xFFFFFFFF (int32 -1) = unused entry
       lane  [K]      : key fingerprint (0 = empty slot)
       lanes [K+1..]  : exact voxel key (kx, ky, kz)
+
+A batch of B sequences' maps is one (B, NB, G*R) table beside (B, N)
+query planes; every operation works on each sequence's rows alone, as
+``jax.vmap`` of the JAX version does.  Row gathers and the insert scatter
+index the flattened (B*NB, G*R) table at ``b*NB + bucket``.
 
 The table holds the u32 words of the JAX version as int32 bits, so
 ``table.view(uint32)`` in numpy compares bit for bit.  Hashes are computed
@@ -16,8 +22,8 @@ product of two values below 2^32 wraps, but its low 32 bits are right.
 
 Writes are functional: ``insert`` and ``evict_far`` return a new table.
 JAX's dropped scatters become one ``index_put_`` on a copy with one spare
-trailing element, the sink every masked row writes to, so no index is ever
-out of range.
+trailing element, the sink every masked row of every sequence writes to,
+so no index is ever out of range.
 """
 
 from __future__ import annotations
@@ -27,9 +33,10 @@ from typing import NamedTuple
 
 import torch
 
-from .points import P3, transform
+from .points import P3, per_row, transform
 from .voxel import (PACKED_KEY_SENTINEL, SENTINEL, lexsort, pack_rebased_keys,
-                    packable_span, roll_heads, voxel_coords_planar)
+                    packable_span, rebase_minima, roll_heads,
+                    voxel_coords_planar)
 
 #: packed-point sentinel (u32 all-ones) as int32 bits
 PACKED_SENTINEL = -1
@@ -44,7 +51,7 @@ _F1, _F2, _F3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
 
 @dataclasses.dataclass(frozen=True)
 class MapState:
-    table: torch.Tensor  # (B, G * (K + 4)) int32
+    table: torch.Tensor  # (NB, G * (K + 4)) int32; (B, NB, ...) batched
     bucket_slots: int
 
     @property
@@ -65,7 +72,8 @@ class CandidateSet(NamedTuple):
 
     ``words`` (V, K, N) int32 bits of the stored offsets (-1 = none);
     ``rel`` (V, N) int32 in [0, 27): which neighbour offset each row probes
-    relative to ``base_*``, the query's voxel coords at gather time.
+    relative to ``base_*``, the query's voxel coords at gather time (N,).
+    A batch puts B before each: (B, V, K, N), (B, V, N), (B, N).
     """
     words: torch.Tensor
     rel: torch.Tensor
@@ -126,12 +134,29 @@ def clear(m: MapState) -> MapState:
 
 
 def _slots(m: MapState):
-    """(B, G, R) view of the table."""
-    return m.table.view(m.num_buckets, m.bucket_slots, -1)
+    """(..., NB, G, R) view of the table."""
+    return m.table.view(*m.table.shape[:-1], m.bucket_slots, -1)
+
+
+def _flat_rows(m: MapState, bucket):
+    """Row indices (int64) into the flattened (B*NB, G*R) table of
+    per-sequence bucket indices: ``b*NB + bucket`` in a batch."""
+    bucket = bucket.long()
+    if m.table.dim() == 3:
+        first = torch.arange(m.table.shape[0], device=bucket.device)
+        bucket = bucket + (first * m.num_buckets).view(
+            -1, *([1] * (bucket.dim() - 1)))
+    return bucket
+
+
+def _rows(m: MapState, flat_rows):
+    """The fat bucket rows (..., G*R) at ``_flat_rows`` indices."""
+    return m.table.reshape(-1, m.table.shape[-1])[flat_rows]
 
 
 def num_voxels(m: MapState):
-    return (_slots(m)[..., m.block_size] != 0).sum()
+    """Occupied voxel slots (of each sequence, in a batch)."""
+    return (_slots(m)[..., m.block_size] != 0).sum((-2, -1))
 
 
 def is_empty(m: MapState):
@@ -139,7 +164,8 @@ def is_empty(m: MapState):
 
 
 def slot_counts(m: MapState):
-    """(B, G) stored-point count per voxel slot (blocks fill contiguously)."""
+    """(NB, G) stored-point count per voxel slot (blocks fill
+    contiguously)."""
     s = _slots(m)
     k = m.block_size
     stored = (s[..., :k] != PACKED_SENTINEL).sum(-1, dtype=torch.int32)
@@ -190,10 +216,12 @@ def pointcloud(m: MapState, voxel_size: float):
 
 
 def _box_lower_bound_d2(q: P3, bx, by, bz, voxel_size: float):
-    """Squared distance from each query (N,) to each voxel box (27, N)."""
+    """Squared distance from each query (..., N) to each voxel box
+    (..., 27, N)."""
     def axis(b, c):
         lo = b.to(c.dtype) * voxel_size
-        return torch.clamp(torch.maximum(lo - c[None], c[None] - (lo + voxel_size)),
+        c = c[..., None, :]
+        return torch.clamp(torch.maximum(lo - c, c - (lo + voxel_size)),
                            min=0.0)
 
     dx, dy, dz = axis(bx, q.x), axis(by, q.y), axis(bz, q.z)
@@ -206,12 +234,13 @@ def _rel_to_offsets(rel):
 
 
 def _voxel_words(m: MapState, bx, by, bz):
-    """The packed words stored in voxels (bx, by, bz), each (V, N): (V, N,
-    K) int32, -1 where the voxel is absent.  One row gather of the fat
-    bucket rows; a voxel occupies at most one slot of its bucket."""
+    """The packed words stored in voxels (bx, by, bz), each (..., V, N):
+    (..., V, N, K) int32, -1 where the voxel is absent.  One row gather of
+    the fat bucket rows; a voxel occupies at most one slot of its bucket."""
     k, g = m.block_size, m.bucket_slots
-    fat = m.table[bucket_of(bx, by, bz, m.num_buckets).long()].view(
-        *bx.shape, g, k + _META_LANES)                           # (V, N, G, R)
+    rows = _flat_rows(m, bucket_of(bx, by, bz, m.num_buckets))
+    fat = _rows(m, rows).view(*bx.shape, g,
+                              k + _META_LANES)         # (..., V, N, G, R)
     hit = ((fat[..., k] == fingerprint(bx, by, bz)[..., None])
            & (fat[..., k + 1] == bx[..., None])
            & (fat[..., k + 2] == by[..., None])
@@ -237,10 +266,12 @@ def gather_candidates(m: MapState, q: P3, voxel_size: float, max_probes: int,
     query, the smallest squared box bound among the 27 - V voxels NOT
     fetched (+inf when V = 27), the exactness certificate of pruned
     search.  Masking the 5 id bits rounds the bound down, never up.
+
+    Batched: a (B, NB, G*R) table and (B, N) queries give (B, ...) words,
+    rel and bases (and a (B, N) bound).
     """
     del max_probes  # the bucket holds every probe slot
     v = num_candidate_voxels
-    n = q.x.shape[0]
     dev = q.x.device
     base_x, base_y, base_z = voxel_coords_planar(q, voxel_size)
 
@@ -248,24 +279,27 @@ def gather_candidates(m: MapState, q: P3, voxel_size: float, max_probes: int,
     if v < 27:
         ox, oy, oz = _rel_to_offsets(ids)
         # the key packs float32 bits (a no-op cast for float32 queries)
-        lb = _box_lower_bound_d2(q, base_x[None] + ox, base_y[None] + oy,
-                                 base_z[None] + oz, voxel_size
-                                 ).to(torch.float32)             # (27, N)
+        lb = _box_lower_bound_d2(q, base_x[..., None, :] + ox,
+                                 base_y[..., None, :] + oy,
+                                 base_z[..., None, :] + oz, voxel_size
+                                 ).to(torch.float32)        # (..., 27, N)
         key = (_u32(lb.view(torch.int32)) & 0xFFFFFFE0) | ids
-        key = torch.sort(key, dim=0).values
+        key = torch.sort(key, dim=-2).values
         if return_skip_bound:
             # row v is the nearest skipped box (keys sort ascending)
-            skip_lb_d2 = _i32(key[v] & 0xFFFFFFE0).view(torch.float32)
-        rel = (key[:v] & 31).to(torch.int32)
+            skip_lb_d2 = _i32(key[..., v, :] & 0xFFFFFFE0).view(
+                torch.float32)
+        rel = (key[..., :v, :] & 31).to(torch.int32)
     else:
         if return_skip_bound:
-            skip_lb_d2 = torch.full((n,), torch.inf, dtype=torch.float32,
-                                    device=dev)
-        rel = ids.expand(27, n)
+            skip_lb_d2 = torch.full(q.x.shape, torch.inf,
+                                    dtype=torch.float32, device=dev)
+        rel = ids.expand(*q.x.shape[:-1], 27, q.x.shape[-1])
     ox, oy, oz = _rel_to_offsets(rel)
-    words = _voxel_words(m, base_x[None] + ox, base_y[None] + oy,
-                         base_z[None] + oz)
-    cand = CandidateSet(words=words.transpose(1, 2).contiguous(),
+    words = _voxel_words(m, base_x[..., None, :] + ox,
+                         base_y[..., None, :] + oy,
+                         base_z[..., None, :] + oz)
+    cand = CandidateSet(words=words.transpose(-1, -2).contiguous(),
                         rel=rel.contiguous(), base_x=base_x,
                         base_y=base_y, base_z=base_z)
     if return_skip_bound:
@@ -275,12 +309,13 @@ def gather_candidates(m: MapState, q: P3, voxel_size: float, max_probes: int,
 
 def _candidate_points(cand: CandidateSet, voxel_size: float,
                       dtype=torch.float32):
-    """Unpack candidate words -> ((V, K, N) coordinate planes, valid)."""
-    ox, oy, oz = _rel_to_offsets(cand.rel[:, None, :])
+    """Unpack candidate words -> ((..., V, K, N) coordinate planes,
+    valid)."""
+    ox, oy, oz = _rel_to_offsets(cand.rel[..., None, :])
     pts = unpack_offsets(cand.words,
-                         cand.base_x[None, None, :] + ox,
-                         cand.base_y[None, None, :] + oy,
-                         cand.base_z[None, None, :] + oz,
+                         cand.base_x[..., None, None, :] + ox,
+                         cand.base_y[..., None, None, :] + oy,
+                         cand.base_z[..., None, None, :] + oz,
                          voxel_size, dtype)
     return pts, cand.words != PACKED_SENTINEL
 
@@ -290,25 +325,26 @@ def reduce_candidates(cand: CandidateSet, q: P3, keep: int,
     """Shrink each voxel's candidate list to its ``keep`` nearest points,
     ranked at the query positions ``q`` (the initial guess); ties go to
     the lowest entry lane (Config.gn_candidates_per_voxel)."""
-    v, k, n = cand.words.shape
+    k = cand.words.shape[-2]
     if keep >= k:
         return cand
     pts, valid = _candidate_points(cand, voxel_size, q.x.dtype)
-    dx = pts.x - q.x[None, None, :]
-    dy = pts.y - q.y[None, None, :]
-    dz = pts.z - q.z[None, None, :]
+    dx = pts.x - q.x[..., None, None, :]
+    dy = pts.y - q.y[..., None, None, :]
+    dz = pts.z - q.z[..., None, None, :]
     cur = torch.where(valid, dx * dx + dy * dy + dz * dz, torch.inf)
-    lane = torch.arange(k, device=q.x.device)[None, :, None]
+    lane = torch.arange(k, device=q.x.device)[:, None]
     outs = []
     for _ in range(keep):
-        best = cur.amin(dim=1, keepdim=True)
-        first = torch.where(cur == best, lane, k).amin(dim=1, keepdim=True)
+        best = cur.amin(dim=-2, keepdim=True)
+        first = torch.where(cur == best, lane, k).amin(dim=-2, keepdim=True)
         pick = lane == first                      # one lane per (v, n)
-        word = torch.where(pick, cand.words, 0).sum(dim=1, dtype=torch.int32)
-        outs.append(torch.where(torch.isfinite(best[:, 0]), word,
+        word = torch.where(pick, cand.words, 0).sum(dim=-2,
+                                                    dtype=torch.int32)
+        outs.append(torch.where(torch.isfinite(best[..., 0, :]), word,
                                 PACKED_SENTINEL))
         cur = torch.where(pick, torch.inf, cur)
-    return cand._replace(words=torch.stack(outs, dim=1))
+    return cand._replace(words=torch.stack(outs, dim=-2))
 
 
 def nn_from_candidates(cand: CandidateSet, q: P3, query_mask,
@@ -318,28 +354,29 @@ def nn_from_candidates(cand: CandidateSet, q: P3, query_mask,
     The min-reduced key is the bitcast squared distance with its low 10
     mantissa bits replaced by (offset id, entry lane), so ties break to the
     lowest (offset id, lane) and the key alone rebuilds the winner.
-    Returns (P3 neighbours (N,), dist (N,)); inf distance when none.
+    Returns (P3 neighbours (N,), dist (N,)); inf distance when none.  A
+    batch gives (B, N) of each.
     """
-    v, k, n = cand.words.shape
+    k = cand.words.shape[-2]
     if k > 32:
         raise ValueError("packed argmin key holds a 5-bit entry lane")
     pts, valid = _candidate_points(cand, voxel_size, q.x.dtype)
-    dx = pts.x - q.x[None, None, :]
-    dy = pts.y - q.y[None, None, :]
-    dz = pts.z - q.z[None, None, :]
+    dx = pts.x - q.x[..., None, None, :]
+    dy = pts.y - q.y[..., None, None, :]
+    dz = pts.z - q.z[..., None, None, :]
     d2 = dx * dx + dy * dy + dz * dz
 
-    lane = torch.arange(k, dtype=torch.int64, device=q.x.device)[None, :, None]
-    tag = (cand.rel.to(torch.int64)[:, None, :] << 5) | lane
+    lane = torch.arange(k, dtype=torch.int64, device=q.x.device)[:, None]
+    tag = (cand.rel.to(torch.int64)[..., None, :] << 5) | lane
     # the key packs float32 bits (a no-op cast for float32 queries)
     key = (_u32(d2.to(torch.float32).view(torch.int32)) & ~0x3FF) | tag
-    key = torch.where(valid & query_mask[None, None, :], key, _U32)
-    best = key.amin(dim=(0, 1))                                  # (N,)
+    key = torch.where(valid & query_mask[..., None, None, :], key, _U32)
+    best = key.amin(dim=(-3, -2))                                # (..., N)
 
     # (rel, lane) is unique per query; a query with no candidate sums the
     # sentinel words, wrapping like the u32 sum of the JAX version.
-    pick = key == best[None, None, :]
-    word = torch.where(pick, _u32(cand.words), 0).sum(dim=(0, 1)) & _U32
+    pick = key == best[..., None, None, :]
+    word = torch.where(pick, _u32(cand.words), 0).sum(dim=(-3, -2)) & _U32
     wx, wy, wz = _rel_to_offsets(((best >> 5) & 31).to(torch.int32))
     nearest = unpack_offsets(_i32(word), cand.base_x + wx, cand.base_y + wy,
                              cand.base_z + wz, voxel_size, q.x.dtype)
@@ -373,25 +410,26 @@ def insert(m: MapState, p: P3, mask, voxel_size: float, max_probes: int,
     of a bucket run takes the j-th currently empty slot of that bucket;
     new voxels past the empty slots fail this frame and are counted
     (``return_failed``) — they retry on later frames.
+
+    Batched ((B, NB, G*R) table, (B, N) points and mask): each sequence's
+    points are sorted, ranked and scattered into its own rows; the failure
+    count is (B,).
     """
     del max_probes
     g = m.bucket_slots
     kmax = m.block_size
     r = kmax + _META_LANES
-    n = p.x.shape[0]
+    n = p.x.shape[-1]
     dev = p.x.device
     cx, cy, cz = voxel_coords_planar(p, voxel_size)
 
     if packable_span(voxel_size, max_extent):
-        big = 1 << 30
-        mnx = torch.where(mask, cx, big).amin()
-        mny = torch.where(mask, cy, big).amin()
-        mnz = torch.where(mask, cz, big).amin()
+        mnx, mny, mnz = rebase_minima(cx, cy, cz, mask)
         vkey = pack_rebased_keys(cx, cy, cz, mask)
         bucket_key = bucket_of(cx, cy, cz, m.num_buckets)
         order = torch.sort((bucket_key.to(torch.int64) << 32) | vkey,
-                           stable=True).indices
-        bucket_key, vkey = bucket_key[order], vkey[order]
+                           dim=-1, stable=True).indices
+        bucket_key, vkey = bucket_key.gather(-1, order), vkey.gather(-1, order)
         svalid = vkey != PACKED_KEY_SENTINEL
         cx = ((vkey >> 20) & 1023).to(torch.int32) + mnx
         cy = ((vkey >> 10) & 1023).to(torch.int32) + mny
@@ -406,72 +444,72 @@ def insert(m: MapState, p: P3, mask, voxel_size: float, max_probes: int,
         cz = torch.where(mask, cz, SENTINEL)
         bucket_key = bucket_of(cx, cy, cz, m.num_buckets)
         order = lexsort([bucket_key, cx, cy, cz])
-        bucket_key = bucket_key[order]
-        cx, cy, cz = cx[order], cy[order], cz[order]
+        bucket_key = bucket_key.gather(-1, order)
+        cx, cy, cz = (c.gather(-1, order) for c in (cx, cy, cz))
         svalid = cx != SENTINEL
         head = (roll_heads(cx) | roll_heads(cy) | roll_heads(cz)) & svalid
-    sx, sy, sz = p.x[order], p.y[order], p.z[order]
+    sp = p.take(order)
     run_start = roll_heads(bucket_key)
 
     # --- probe: every point reads its bucket row --------------------------
     fpq = fingerprint(cx, cy, cz)
-    fat = m.table[bucket_key.long()].view(n, g, r)
-    fills = (fat[..., :kmax] != PACKED_SENTINEL).sum(-1)         # (n, G)
-    hit_g = ((fat[..., kmax] == fpq[:, None])
-             & (fat[..., kmax + 1] == cx[:, None])
-             & (fat[..., kmax + 2] == cy[:, None])
-             & (fat[..., kmax + 3] == cz[:, None])
-             & svalid[:, None])
+    bucket_row = _flat_rows(m, bucket_key)
+    fat = _rows(m, bucket_row).view(*cx.shape, g, r)
+    fills = (fat[..., :kmax] != PACKED_SENTINEL).sum(-1)     # (..., n, G)
+    hit_g = ((fat[..., kmax] == fpq[..., None])
+             & (fat[..., kmax + 1] == cx[..., None])
+             & (fat[..., kmax + 2] == cy[..., None])
+             & (fat[..., kmax + 3] == cz[..., None])
+             & svalid[..., None])
     gsel = torch.arange(g, device=dev)
-    found = hit_g.any(1)
-    found_slot = torch.where(hit_g, gsel, 0).sum(1)
-    base = torch.where(hit_g, fills, 0).sum(1)
-    win_empty = fat[..., kmax] == 0                              # (n, G)
+    found = hit_g.any(-1)
+    found_slot = torch.where(hit_g, gsel, 0).sum(-1)
+    base = torch.where(hit_g, fills, 0).sum(-1)
+    win_empty = fat[..., kmax] == 0                          # (..., n, G)
 
-    # --- segmented counters -------------------------------------------------
+    # --- segmented counters (along each sequence's points) ---------------
     iota = torch.arange(n, device=dev)
     pend_head = (head & ~found).to(torch.int64)
-    pend_cum = torch.cumsum(pend_head, 0)
+    pend_cum = torch.cumsum(pend_head, -1)
     run_base = torch.cummax(torch.where(run_start, pend_cum - pend_head, -1),
-                            0).values
+                            -1).values
     # rank of this point's new voxel among the new voxels of its bucket run
     pend_rank = pend_cum - run_base - 1
-    head_pos = torch.cummax(torch.where(head, iota, -1), 0).values
+    head_pos = torch.cummax(torch.where(head, iota, -1), -1).values
     lane = iota - head_pos
 
     # --- slot assignment: new voxel #j takes the j-th empty slot ----------
-    tgt = torch.full((n,), g, dtype=torch.int64, device=dev)
-    cnt = torch.zeros((n,), dtype=torch.int64, device=dev)
+    tgt = torch.full(cx.shape, g, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(cx.shape, dtype=torch.int64, device=dev)
     for pp in range(g):
-        take = win_empty[:, pp] & (cnt == pend_rank) & (tgt == g)
+        take = win_empty[..., pp] & (cnt == pend_rank) & (tgt == g)
         tgt = torch.where(take, pp, tgt)
-        cnt = cnt + win_empty[:, pp]
+        cnt = cnt + win_empty[..., pp]
     sub = torch.where(found, found_slot, tgt)
     has_slot = svalid & (found | (tgt < g))
 
     # --- one scatter: a word per stored point + meta lanes per new voxel ---
     row_lanes = g * r
-    size = m.num_buckets * row_lanes
+    size = m.table.numel()  # the sink's index
     dest_k = base + lane
     ok = has_slot & (dest_k < kmax)
-    words = pack_offsets(P3(sx, sy, sz), cx, cy, cz, voxel_size)
-    slot_base = bucket_key.to(torch.int64) * row_lanes \
-        + torch.clamp(sub, max=g - 1) * r
+    words = pack_offsets(sp, cx, cy, cz, voxel_size)
+    slot_base = bucket_row * row_lanes + torch.clamp(sub, max=g - 1) * r
     word_idx = torch.where(ok, slot_base + torch.clamp(dest_k, max=kmax - 1),
                            size)
     fresh = head & ~found & (tgt < g)
-    meta_idx = torch.where(fresh[:, None],
-                           slot_base[:, None] + kmax
-                           + torch.arange(4, device=dev)[None, :], size)
+    meta_idx = torch.where(fresh[..., None],
+                           slot_base[..., None] + kmax
+                           + torch.arange(4, device=dev), size)
     meta = torch.stack((fpq, cx, cy, cz), dim=-1)
     flat = torch.cat((m.table.reshape(-1),
                       m.table.new_zeros(1)))                      # + sink
-    flat.index_put_((torch.cat((word_idx, meta_idx.reshape(-1))),),
-                    torch.cat((words, meta.reshape(-1))))
-    out = MapState(table=flat[:size].view(m.num_buckets, row_lanes),
-                   bucket_slots=g)
+    flat.index_put_((torch.cat((word_idx.reshape(-1),
+                                meta_idx.reshape(-1))),),
+                    torch.cat((words.reshape(-1), meta.reshape(-1))))
+    out = MapState(table=flat[:size].view(m.table.shape), bucket_slots=g)
     if return_failed:
-        failed = (head & ~found & (tgt >= g)).sum().to(torch.int32)
+        failed = (head & ~found & (tgt >= g)).sum(-1).to(torch.int32)
         return out, failed
     return out
 
@@ -481,16 +519,18 @@ def evict_far(m: MapState, origin, max_distance: float, voxel_size: float,
     """RemovePointsFarFromLocation: drop blocks whose FIRST point is
     farther than ``max_distance`` (strict) from ``origin``; killed slots
     reset to the empty pattern.  ``enable`` (scalar bool) gates the whole
-    eviction."""
+    eviction.  Batched: (B, 3) origins and a (B,) ``enable``, one per
+    sequence's table."""
     k = m.block_size
-    s = _slots(m)                                                # (B, G, R)
+    s = _slots(m)                                         # (..., NB, G, R)
     fpt = unpack_offsets(s[..., 0], s[..., k + 1], s[..., k + 2],
                          s[..., k + 3], voxel_size)
-    dx, dy, dz = fpt.x - origin[0], fpt.y - origin[1], fpt.z - origin[2]
+    ox, oy, oz = (per_row(origin[..., i], 2) for i in range(3))
+    dx, dy, dz = fpt.x - ox, fpt.y - oy, fpt.z - oz
     d2 = dx * dx + dy * dy + dz * dz
     kill = (s[..., k] != 0) & (d2 > max_distance * max_distance)
     if enable is not None:
-        kill = kill & enable
+        kill = kill & per_row(enable, 2)
     lane = torch.arange(s.shape[-1], device=s.device)
     reset = torch.where(lane < k, PACKED_SENTINEL, 0).to(torch.int32)
     table = torch.where(kill[..., None], reset, s)
@@ -503,14 +543,16 @@ def update(m: MapState, p: P3, mask, pose, voxel_size: float,
     """VoxelHashMap::Update: transform by pose, insert, evict far blocks.
 
     ``enable`` False returns the map byte-identical (folded into the insert
-    mask and the eviction kill mask).
+    mask and the eviction kill mask).  Batched: (B, 4, 4) poses and a (B,)
+    ``enable``.
     """
     world = transform(pose, p)
     if enable is not None:
-        mask = mask & enable
+        mask = mask & per_row(enable)
     m, failed = insert(m, world, mask, voxel_size, max_probes,
                        max_extent=max_extent, return_failed=True)
-    m = evict_far(m, pose[:3, 3], max_distance, voxel_size, enable=enable)
+    m = evict_far(m, pose[..., :3, 3], max_distance, voxel_size,
+                  enable=enable)
     if return_failed:
         return m, failed
     return m

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import se3
-from .points import P3
+from .points import P3, per_row
 
 _SMALL = 1e-6
 
@@ -23,7 +23,8 @@ def _cross(ax, ay, az, b: P3) -> P3:
 
 
 def deskew(p: P3, timestamps, relative_motion, enable) -> P3:
-    """Constant-velocity motion compensation, anchored at scan end."""
+    """Constant-velocity motion compensation, anchored at scan end.
+    Batched: (B, N) planes and stamps, (B, 4, 4) motion, (B,) enable."""
     return deskew_from_twist(p, timestamps, se3.se3_log(relative_motion),
                              enable)
 
@@ -37,14 +38,16 @@ def deskew_from_twist(p: P3, timestamps, xi, enable) -> P3:
       R(a_i) p = p cos a_i + (k x p) sin a_i + k (k . p)(1 - cos a_i)
       t_i      = s_i [v + ((1-cos a_i)/a_i)(k x v) + ((a_i - sin a_i)/a_i)(k x (k x v))]
     """
-    v = xi[:3]
-    w = xi[3:]
-    theta = torch.sqrt(torch.sum(w * w))
+    w = xi[..., 3:]
+    theta = torch.sqrt(torch.sum(w * w, dim=-1))
     rot_small = theta < _SMALL
     safe_theta = torch.where(rot_small, 1.0, theta)
-    kx_, ky_, kz_ = w[0] / safe_theta, w[1] / safe_theta, w[2] / safe_theta
+    kx_, ky_, kz_ = (per_row(w[..., i] / safe_theta) for i in range(3))
+    v = [per_row(xi[..., i]) for i in range(3)]
+    theta, rot_small = per_row(theta), per_row(rot_small)
 
-    s = torch.where(enable, timestamps - 1.0, torch.zeros_like(timestamps))
+    s = torch.where(per_row(enable), timestamps - 1.0,
+                    torch.zeros_like(timestamps))
     a = s * theta
     sin_a = torch.sin(a)
     cos_a = torch.cos(a)

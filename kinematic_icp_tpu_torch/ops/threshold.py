@@ -10,8 +10,8 @@ from . import se3
 
 
 class ThresholdState(NamedTuple):
-    odom_sse: torch.Tensor     # scalar
-    num_samples: torch.Tensor  # scalar
+    odom_sse: torch.Tensor     # scalar, (B,) in a batch
+    num_samples: torch.Tensor  # scalar, (B,) in a batch
 
 
 def init_state(dtype=torch.float32, device=None) -> ThresholdState:
@@ -26,8 +26,7 @@ def compute_threshold(state: ThresholdState, *, map_discretization_error: float,
                       use_adaptive: bool, fixed_threshold: float):
     """tau = 3 * (sigma_map + sigma_odom)  (CorrespondenceThreshold.cpp:27-35)."""
     if not use_adaptive:
-        return torch.full((), fixed_threshold, dtype=state.odom_sse.dtype,
-                          device=state.odom_sse.device)
+        return torch.full_like(state.odom_sse, fixed_threshold)
     sigma_odom = torch.sqrt(state.odom_sse / state.num_samples)
     return 3.0 * (map_discretization_error + sigma_odom)
 

@@ -7,6 +7,12 @@ static shapes, bit-equal to the JAX package's.  torch has no unsigned
 an int64 holding the same value (0 .. 2^32 - 1); JAX's multi-operand sorts
 become one composed int64 key (or successive stable sorts), which keeps
 "first point wins".
+
+Every function takes a leading batch axis: (B, N) planes are B independent
+frames, each sorted, rebased and truncated on its own row (sorts along the
+last axis, per-row minima), which is what ``jax.vmap`` of the JAX version
+computes.  The batch index is never folded into the packed keys: they
+already use the whole int64.
 """
 
 from __future__ import annotations
@@ -32,31 +38,38 @@ def voxel_coords_planar(p: P3, voxel_size: float):
 
 
 def lexsort(keys):
-    """Stable lexicographic sort order; ``keys`` most significant first.
+    """Stable lexicographic sort order along the last axis; ``keys`` most
+    significant first.
 
     Successive stable sorts from the least significant key: equal keys keep
     input order, as ``jax.lax.sort(..., is_stable=True)`` does.
     """
-    order = torch.sort(keys[-1], stable=True).indices
+    order = torch.sort(keys[-1], dim=-1, stable=True).indices
     for k in reversed(keys[:-1]):
-        order = order[torch.sort(k[order], stable=True).indices]
+        order = order.gather(-1, torch.sort(k.gather(-1, order), dim=-1,
+                                            stable=True).indices)
     return order
 
 
 def roll_heads(key):
-    """``key != roll(key, 1)`` with the first row forced to a head."""
-    head = key != torch.roll(key, 1)
-    head[0] = True
+    """``key != roll(key, 1)`` along the last axis with the first element
+    of each row forced to a head."""
+    head = key != torch.roll(key, 1, dims=-1)
+    head[..., 0] = True
     return head
+
+
+def rebase_minima(cx, cy, cz, mask):
+    """Per-row minima of the valid voxel coords, each (..., 1)."""
+    big = 1 << 30
+    return tuple(torch.where(mask, c, big).amin(-1, keepdim=True)
+                 for c in (cx, cy, cz))
 
 
 def pack_rebased_keys(cx, cy, cz, mask):
     """Voxel coord planes -> one u32 key (10 bits per axis, rebased to the
     frame's per-axis minimum), as int64; invalid points get the sentinel."""
-    big = 1 << 30
-    mx = torch.where(mask, cx, big).amin()
-    my = torch.where(mask, cy, big).amin()
-    mz = torch.where(mask, cz, big).amin()
+    mx, my, mz = rebase_minima(cx, cy, cz, mask)
     rx, ry, rz = cx - mx, cy - my, cz - mz
     # A point past the static extent bound drops for this frame instead of
     # corrupting the bit-packed grouping.
@@ -77,8 +90,9 @@ def _packed_downsample_core(p: P3, mask, voxel_size: float,
                             tiebreak: str = "first"):
     """Grouping + compaction of the packed-word path.
 
-    Returns (fkey (N,), fword (N,), (mnx, mny, mnz), num_heads): the first
-    ``num_heads`` rows are the surviving voxels in voxel-lex order.
+    Returns (fkey (..., N), fword (..., N), (mnx, mny, mnz) each (..., 1),
+    num_heads (...)): the first ``num_heads`` of each row are its surviving
+    voxels in voxel-lex order.
     """
     cx, cy, cz = voxel_coords_planar(p, voxel_size)
     inv = 1.0 / voxel_size
@@ -89,22 +103,19 @@ def _packed_downsample_core(p: P3, mask, voxel_size: float,
     word = torch.where(mask, (wx << 20) | (wy << 10) | wz, 0)
     if tiebreak == "first":
         # stable on the key alone = (key, input index)
-        order = torch.sort(key, stable=True).indices
+        order = torch.sort(key, dim=-1, stable=True).indices
     elif tiebreak == "min":
         # representative = smallest quantized offset; word < 2^30
-        order = torch.sort((key << 30) | word, stable=True).indices
+        order = torch.sort((key << 30) | word, dim=-1, stable=True).indices
     else:
         raise ValueError(f"tiebreak {tiebreak!r}")
-    key, word = key[order], word[order]
+    key, word = key.gather(-1, order), word.gather(-1, order)
     valid = key != PACKED_KEY_SENTINEL
     head = roll_heads(key) & valid
     key2 = torch.where(head, key, PACKED_KEY_SENTINEL)
-    order = torch.sort(key2, stable=True).indices
-    big = 1 << 30
-    mins = (torch.where(mask, cx, big).amin(),
-            torch.where(mask, cy, big).amin(),
-            torch.where(mask, cz, big).amin())
-    return key2[order], word[order], mins, head.sum()
+    order = torch.sort(key2, dim=-1, stable=True).indices
+    return (key2.gather(-1, order), word.gather(-1, order),
+            rebase_minima(cx, cy, cz, mask), head.sum(-1))
 
 
 def _reconstruct_packed(fkey, fword, mins, voxel_size: float):
@@ -120,11 +131,12 @@ def _reconstruct_packed(fkey, fword, mins, voxel_size: float):
 
 
 def _truncate(planes: P3, n: int, out_size: int):
+    """The first ``out_size`` of each row, zero-padded past ``n``."""
     if out_size <= n:
-        return P3(planes.x[:out_size], planes.y[:out_size],
-                  planes.z[:out_size])
+        return P3(planes.x[..., :out_size], planes.y[..., :out_size],
+                  planes.z[..., :out_size])
     pad = out_size - n
-    return P3(*(torch.cat([a, a.new_zeros(pad)])
+    return P3(*(torch.cat([a, a.new_zeros(a.shape[:-1] + (pad,))], dim=-1)
                 for a in (planes.x, planes.y, planes.z)))
 
 
@@ -133,14 +145,15 @@ def voxel_downsample(p: P3, mask, voxel_size: float, out_size: int,
                      tiebreak: str = "first"):
     """Keep the first (in input order) point of each occupied voxel.
 
-    Returns (P3 of (out_size,), out_mask (out_size,), num_dropped int32):
-    output in voxel-lexicographic order; voxels past ``out_size`` are
-    dropped and counted.  At widths >= ``PACKED_WORD_MIN_N`` with a packable
-    span the payload is one 10/10/10-bit in-voxel word and survivors are
-    reconstructed at bin centres (at most voxel_size/2048 per axis off).
+    Returns (P3 of (..., out_size), out_mask (..., out_size), num_dropped
+    (...) int32): output in voxel-lexicographic order; voxels past
+    ``out_size`` are dropped and counted, row by row.  At widths >=
+    ``PACKED_WORD_MIN_N`` with a packable span the payload is one
+    10/10/10-bit in-voxel word and survivors are reconstructed at bin
+    centres (at most voxel_size/2048 per axis off).
     """
     cx, cy, cz = voxel_coords_planar(p, voxel_size)
-    n = cx.shape[0]
+    n = cx.shape[-1]
 
     if packable_span(voxel_size, max_extent) and n >= PACKED_WORD_MIN_N:
         fkey, fword, mins, num_heads = _packed_downsample_core(
@@ -150,8 +163,8 @@ def voxel_downsample(p: P3, mask, voxel_size: float, out_size: int,
     else:
         if packable_span(voxel_size, max_extent):
             key = pack_rebased_keys(cx, cy, cz, mask)
-            order = torch.sort(key, stable=True).indices
-            key = key[order]
+            order = torch.sort(key, dim=-1, stable=True).indices
+            key = key.gather(-1, order)
             valid = key != PACKED_KEY_SENTINEL
             head = roll_heads(key)
         else:
@@ -159,20 +172,20 @@ def voxel_downsample(p: P3, mask, voxel_size: float, out_size: int,
             cy = torch.where(mask, cy, SENTINEL)
             cz = torch.where(mask, cz, SENTINEL)
             order = lexsort([cx, cy, cz])
-            cx, cy, cz = cx[order], cy[order], cz[order]
+            cx, cy, cz = (c.gather(-1, order) for c in (cx, cy, cz))
             valid = cx != SENTINEL
             head = roll_heads(cx) | roll_heads(cy) | roll_heads(cz)
-        sx, sy, sz = p.x[order], p.y[order], p.z[order]
         head = head & valid
         # Compact heads to the front; the key is the sorted position for
         # heads (unique), so head order is kept.
         pos = torch.where(head, torch.arange(n, dtype=torch.int32,
                                              device=head.device), n)
-        order = torch.sort(pos, stable=True).indices
-        out = _truncate(P3(sx[order], sy[order], sz[order]), n, out_size)
-        num_heads = head.sum()
+        order = order.gather(-1, torch.sort(pos, dim=-1, stable=True).indices)
+        out = _truncate(p.take(order), n, out_size)
+        num_heads = head.sum(-1)
     num_kept = torch.clamp(num_heads, max=out_size)
-    out_mask = torch.arange(out_size, device=num_kept.device) < num_kept
+    out_mask = (torch.arange(out_size, device=num_kept.device)
+                < num_kept[..., None])
     return out, out_mask, (num_heads - num_kept).to(torch.int32)
 
 
@@ -183,7 +196,8 @@ def double_downsample(p: P3, mask, voxel_size: float, *,
     """KISS-ICP's double downsample (reference KinematicICP.cpp:38-44).
 
     Returns (source, source_mask, frame_downsample, frame_downsample_mask,
-    dropped (2,) int32 = [frame_downsample, source] capacity overflows).
+    dropped (..., 2) int32 = [frame_downsample, source] capacity
+    overflows).
     """
     frame_ds, frame_ds_mask, drop_ds = voxel_downsample(
         p, mask, voxel_size * 0.5, max_downsampled, max_extent=max_extent,
@@ -192,4 +206,4 @@ def double_downsample(p: P3, mask, voxel_size: float, *,
         frame_ds, frame_ds_mask, voxel_size * 1.5, max_source,
         max_extent=max_extent)
     return (source, source_mask, frame_ds, frame_ds_mask,
-            torch.stack([drop_ds, drop_src]))
+            torch.stack([drop_ds, drop_src], dim=-1))

@@ -34,13 +34,14 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("offline", "convert", "ops.gn", "ops.cuda_build",
                  "models.pipeline", "utils.synthetic", "utils.evaluation",
                  "server", "online", "utils.packing", "utils.checkpoint",
-                 "utils.io.messages"):
+                 "utils.io.messages", "parallel", "parallel.batched"):
         assert f"kinematic_icp_tpu_torch.{name}" in res["modules"]
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/profile_torch_main_path.py",
-                                    "tools/gn_kernel_pace.py"])
+                                    "tools/gn_kernel_pace.py",
+                                    "tools/gn_kernel_parity.py"])
 def test_card_scripts_import_no_jax(script):
     """The card's scripts run where JAX is not installed: read their import
     statements (at any depth, without running them)."""
@@ -58,6 +59,9 @@ def test_card_scripts_import_no_jax(script):
 
 @pytest.mark.parametrize("entry", ["run_offline", "init_state",
                                    "make_sequence_runner",
+                                   "make_batched_sequence_runner",
+                                   "init_batched_state",
+                                   "BatchedOdometryRunner",
                                    "LidarOdometryServer",
                                    "OnlineOdometryNode", "load_state"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
@@ -67,6 +71,7 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
     from kinematic_icp_tpu_torch import offline
     from kinematic_icp_tpu_torch.models import pipeline
     from kinematic_icp_tpu_torch.online import OnlineOdometryNode
+    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
     from kinematic_icp_tpu_torch.server import LidarOdometryServer
     from kinematic_icp_tpu_torch.utils import checkpoint
 
@@ -79,6 +84,10 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
             [np.zeros((8, 3), np.float32)], [np.eye(4)], cfg),
         "init_state": lambda: pipeline.init_state(cfg),
         "make_sequence_runner": lambda: offline.make_sequence_runner(cfg),
+        "make_batched_sequence_runner":
+            lambda: offline.make_batched_sequence_runner(cfg),
+        "init_batched_state": lambda: offline.init_batched_state(cfg, 2),
+        "BatchedOdometryRunner": lambda: BatchedOdometryRunner(cfg, 2),
         "LidarOdometryServer": lambda: LidarOdometryServer(cfg),
         "OnlineOdometryNode": lambda: OnlineOdometryNode(cfg),
         "load_state": lambda: checkpoint.load_state(path),

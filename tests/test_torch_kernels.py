@@ -194,6 +194,84 @@ def test_gn_kernel_spreads_over_ctas(card):
     assert 1 < gn.LAST_CTAS <= 8192 // 32
 
 
+def _batch(dev, b, n, v=10):
+    """B problems of one N, each with its own map, sources and guess,
+    stacked into one batched call's arguments (and the single ones)."""
+    singles = [_problem(dev, v, n=n, nmap=12000, extent=4.0, seed=100 + i,
+                        guess=_guess(dev, 0.02 + 0.03 * i, -0.01 * i,
+                                     0.01 + 0.004 * i))
+               for i in range(b)]
+    cand = hashmap.CandidateSet(*(torch.stack(t) for t in
+                                  zip(*(p[0] for p in singles))))
+    source = P3(*(torch.stack(t) for t in zip(*(p[1] for p in singles))))
+    return (cand, source, torch.stack([p[2] for p in singles]),
+            torch.stack([p[3] for p in singles])), singles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("n", [1024, 8192])
+def test_gn_kernel_batch_bit_equal_to_single_launches(card, n, b):
+    """B frames in one launch, each bit-equal to its own launch: a frame's
+    sums run in an order set by its N alone (at N=8192 and B=8 the 2,048
+    tiles outnumber the co-resident CTAs, so CTAs walk several tiles)."""
+    (cand, source, mask, guess), singles = _batch(card, b, n)
+    tau = torch.full((b,), 0.5, device=card)
+    before = (gn.LAUNCHES, gn.FRAMES)
+    out = gn.gn_solve(cand, source, mask, guess, tau, **SOLVE)
+    assert (gn.LAUNCHES, gn.FRAMES) == (before[0] + 1, before[1] + b)
+    assert out[0].shape == (b, 4, 4) and out[1].shape == (b,)
+    plain = gn.gn_solve(cand, source, mask, guess, tau, backend="torch",
+                        **SOLVE)
+    for i, (c, s, m, g) in enumerate(singles):
+        one = gn.gn_solve(c, s, m, g, 0.5, **SOLVE)
+        for x, y in zip(out, one):
+            assert torch.equal(x[i].reshape(-1).view(torch.uint8),
+                               y.reshape(-1).view(torch.uint8))
+        for j in (1, 2, 4):
+            assert int(out[j][i]) == int(plain[j][i])
+    np.testing.assert_allclose(out[0].cpu().numpy(), plain[0].cpu().numpy(),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_gn_kernel_refuses_more_frames_than_resident_ctas(card):
+    (cand, source, mask, guess), _ = _batch(card, 1, 32)
+    big = 4096  # above the CTAs an H100 holds at once (132 SMs x 8)
+    expand = [t.expand(big, *t.shape[1:]).contiguous() for t in
+              (*cand, *source, mask, guess)]
+    with pytest.raises(ValueError, match="split the batch"):
+        gn.gn_solve(hashmap.CandidateSet(*expand[:5]), P3(*expand[5:8]),
+                    expand[8], expand[9], 0.5, **SOLVE)
+
+
+@pytest.mark.cuda
+def test_batched_drive_equals_one_run_per_sequence(card):
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import (init_batched_state,
+                                                 make_batched_sequence_runner,
+                                                 pad_batch, run_offline)
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 13, max_range=60.0, deskew=True)
+    seqs = [synthetic.make_sequence(5, world_seed=s, traj_seed=s + 10,
+                                    noise_seed=s + 20) for s in range(3)]
+    arrays = [torch.from_numpy(a).to(card) for a in pad_batch(seqs, cfg)]
+    before = (gn.LAUNCHES, gn.FRAMES)
+    _, poses, overflow, _ = make_batched_sequence_runner(cfg, card)(
+        init_batched_state(cfg, 3, device=card), *arrays[:4],
+        torch.eye(4, device=card), arrays[4])
+    assert (gn.LAUNCHES, gn.FRAMES) == (before[0] + 5, before[1] + 15)
+    for i, s in enumerate(seqs):
+        single, _, stats = run_offline(s["frames"], s["rel_odometry"], cfg,
+                                       return_stats=True)
+        np.testing.assert_array_equal(
+            poses[:, i].cpu().numpy().astype(np.float64), single)
+        np.testing.assert_array_equal(overflow[i].cpu().numpy(),
+                                      stats["overflow"])
+
+
 def _motion(dev, scene, guess, tau, **kw):
     m, source, mask = scene
     return registration.compute_robot_motion(

@@ -3,7 +3,7 @@
 Usage (on a machine with a CUDA card):
 
     python3 tools/profile_torch_main_path.py [--frames 20]
-        [--config headline|stock|exact] [--out FILE]
+        [--config headline|stock|exact] [--batch B] [--out FILE]
 
 Runs ``kinematic_icp_tpu_torch.offline.run_offline`` at the headline shape
 of ``chip_smoke.py`` (``--config stock``: its stock ``Config``, 8,192 ICP
@@ -14,6 +14,11 @@ time per frame, device kernel time per frame, the device's busy and idle
 share of the wall time, kernel launches per frame, and the ops that take
 the most device time.  Where the profiler records no device activity the
 device fields are null.
+
+With ``--batch B`` the profiled run is ``offline.make_batched_sequence_
+runner`` advancing B copies of the drive in lock-step (inputs padded and
+uploaded as ``run_offline`` does); "a frame" is then a batched frame of B
+sequences, and the line adds the sequences' aggregate frames per second.
 
 With ``--config exact`` a second, unprofiled pass over the same frames
 times each registration (``compute_robot_motion``, synchronised before and
@@ -85,14 +90,19 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--config", choices=("headline", "stock", "exact"),
                     default="headline")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile the batched runner over this many copies "
+                         "of the drive (0: run_offline)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import EXACT, HEADLINE, STOCK, nvidia_smi_line
+    from chip_smoke import (EXACT, HEADLINE, STOCK, nvidia_smi_line,
+                            run_batched)
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import run_offline
     from kinematic_icp_tpu_torch.utils import synthetic
@@ -107,13 +117,21 @@ def main(argv=None):
                                   lidar=synthetic.realistic_lidar(),
                                   clear_path_margin=3.0)
     frames, rels = seq["frames"], seq["rel_odometry"]
-    run_offline(frames[:3], rels[:3], cfg, extrinsic=seq["extrinsic"])
+
+    def drive(count):
+        if args.batch:
+            run_batched(torch, np, [seq] * args.batch, cfg, count)
+        else:
+            run_offline(frames[:count], rels[:count], cfg,
+                        extrinsic=seq["extrinsic"])
+
+    drive(3)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_offline(frames, rels, cfg, extrinsic=seq["extrinsic"])
+        drive(len(frames))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -134,7 +152,8 @@ def main(argv=None):
     row = {
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": nvidia_smi_line(), "frames": f,
-        "config": config_kw,
+        "config": config_kw, "batch": args.batch,
+        "sequence_frames_per_s": max(args.batch, 1) * f / wall_us * 1e6,
         "wall_ms_per_frame": wall_us / f / 1e3,
         "device_kernel_ms_per_frame": kernel_us / f / 1e3 if measured
         else None,
@@ -146,7 +165,7 @@ def main(argv=None):
             {"name": name, "ms_per_frame": us / f / 1e3,
              "launches_per_frame": n / f} for name, (us, n) in top],
     }
-    if args.config == "exact":
+    if args.config == "exact" and not args.batch:
         row["registration_wall_ms"] = _registration_times(
             torch, frames, rels, cfg, seq["extrinsic"])
     line = json.dumps(row)
