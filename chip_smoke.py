@@ -45,6 +45,8 @@ last line.  Phases:
      2, 8, 16; and
      ``parallel.BatchedOdometryRunner`` (``run`` against ``run_device``,
      a stationary gate other than 1e-3, the raise on too many sequences);
+     and a batch one frame larger than the card's co-resident CTAs (two
+     launches, every frame bit-equal to its own single launch);
  10. serve: ``server.LidarOdometryServer`` over the 60 headline frames,
      one JSON line per sub-phase: blocking (per-frame latency p50/p90/p99,
      frames/s, one GN launch per registered frame, zero overflow, better
@@ -53,10 +55,26 @@ last line.  Phases:
      and ``"scan"`` (within 1e-6 of "steps"), 8 frames a chunk; the ``u16``
      upload codec (ATE < 0.02 m against the f32 server); a checkpoint
      saved at frame 30 and resumed by a fresh server (bit-equal to the
-     uninterrupted run); and ``online.OnlineOdometryNode`` over 20 frames
+     uninterrupted run); ``online.OnlineOdometryNode`` over 20 frames
      of in-memory messages (PointCloud2 with per-point stamps, ``/tf``
-     wheel odometry, ``/tf_static`` extrinsic);
- 11. the ``kernels`` summary line, the card's name and power limit, and
+     wheel odometry, ``/tf_static`` extrinsic); and a float64 server over
+     20 frames (one GN launch per registered frame, within 5 mm of the
+     float32 server);
+ 11. cli: ``run_odometry.main`` (the offline CLI) over the 60 headline
+     frames written to an uncompressed mcap by the port's writer (one GN
+     launch per registered frame, the native ingestion library loaded,
+     better than dead reckoning, within the 0.0251 m self-divergence floor
+     of ``run_offline``'s poses, ``evaluate`` against a ground-truth TUM,
+     frames/s and the wall split into read/decode, register and write),
+     then 20 frames of the 2D LaserScan topic through ``--use-2d-lidar``;
+ 12. oracle: ``run_offline`` on the card against the port's float64
+     ``OracleKinematicICP`` over tests/test_differential.py's drive and
+     bounds, and the native C++ baseline (built here from
+     ``native/kicp_baseline.cpp``) over the 60 headline frames, within
+     tests/test_differential.py:137's bound of this drive's own
+     self-divergence (the baseline against itself with 1 um of noise and
+     on two permutations of the points);
+ 13. the ``kernels`` summary line, the card's name and power limit, and
      the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
@@ -117,9 +135,32 @@ SWEEP_BATCHES = (1, 2, 8, 16)
 SWEEP_FRAMES = 20
 PROFILED_FRAMES = 5
 RUNNER_FRAMES = 20
+#: the float64 served drive's frames
+FLOAT64_FRAMES = 20
+#: the cli phase: the 2D drive's frames, its LaserScan topic and point
+#: capacity (tests/test_aux.py:38-41), and the self-divergence floor of the
+#: reference on the JAX bench's headline drive (PARITY.md:98), which bounds
+#: the CLI against run_offline
+CLI_2D_FRAMES = 20
+SCAN_2D_TOPIC = "/front_scan"
+CLI_2D_MAX_POINTS = 4096
+FLOOR_M = 0.0251
+#: the oracle phase: tests/test_differential.py's configuration, frames and
+#: bounds
+DIFF = dict(max_points=8192, max_downsampled=8192, max_source=4096,
+            map_capacity=1 << 15, voxel_size=1.0, max_range=60.0, deskew=True)
+DIFF_FRAMES = 15
+DIFF_ATE_M = 0.02
+DIFF_FRAME_M = 0.05
+
+
+#: the script's start, for each phase line's ``elapsed_s``
+T0 = time.perf_counter()
 
 
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -796,6 +837,46 @@ def batched_runner_phase(torch, np, seqs):
     return row
 
 
+def batched_capacity_phase(torch, np, seq):
+    """A batch of the card's co-resident CTA count plus one frame (four
+    distinct problems, cycled) at the main shape: ceil(B / capacity) = 2
+    launches, every frame bit-equal to its own single launch."""
+    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.ops.hashmap import CandidateSet
+    from kinematic_icp_tpu_torch.ops.points import P3
+
+    dev = torch.device("cuda")
+    capacity = gn.capacity(dev, False)
+    b = capacity + 1
+    problems = [gn_problem(torch, np, seq, 10, 1024, False, seed=i)
+                for i in range(4)]
+    args, kw = stack_frames(torch, problems), problems[0][1]
+    pick = torch.arange(b, device=dev) % 4
+    cand = CandidateSet(*(t[pick].contiguous() for t in args[0]))
+    source = P3(*(t[pick].contiguous() for t in args[1]))
+    batch = (cand, source, *(t[pick].contiguous() for t in args[2:]))
+    gn.LAUNCHES = 0
+    gn.FRAMES = 0
+    out = gn.gn_solve(*batch, backend="cuda", **kw)
+    torch.cuda.synchronize()
+    launched = (gn.LAUNCHES, gn.FRAMES)
+    singles = [gn.gn_solve(*p[0], backend="cuda", **kw) for p in problems]
+    equal = sum(all(bits_equal(torch, x[i], y)
+                    for x, y in zip(out, singles[i % 4])) for i in range(b))
+    ms = median_ms(lambda: gn.gn_solve(*batch, backend="cuda", **kw),
+                   runs=5, calls=2)
+    row = {"phase": "batched_capacity", "capacity": capacity, "B": b,
+           "V": 10, "N": 1024, "launches": launched[0],
+           "frames_solved": launched[1], "frames_bit_equal": equal,
+           "ms": ms, "ms_per_frame": ms / b}
+    row["checks"] = {"two_launches": launched == (2, b),
+                     "bit_equal_to_single_launches": equal == b}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"batched_capacity failed: {row['checks']}")
+    return row
+
+
 def batched_phase(torch, np, seq, card):
     """The batched multi-sequence path: the kernel on B frames a launch,
     BATCH drives through the batched runner, the B sweep and
@@ -805,6 +886,7 @@ def batched_phase(torch, np, seq, card):
     drive, seqs = batched_drive_phase(torch, np)
     sweep = batched_sweep_phase(torch, np, seq, card)
     runner = batched_runner_phase(torch, np, seqs)
+    capacity = batched_capacity_phase(torch, np, seq)
     row = {"phase": "batched", "B": BATCH,
            "kernel_frames_bit_equal_to_single_launch": {
                str(k["N"]): k["frames_bit_equal_to_single_launch"]
@@ -831,7 +913,9 @@ def batched_phase(torch, np, seq, card):
                       **{"drive_" + c: v for c, v in drive["checks"].items()},
                       **{"sweep_" + c: v for c, v in sweep["checks"].items()},
                       **{"runner_" + c: v
-                         for c, v in runner["checks"].items()}}}
+                         for c, v in runner["checks"].items()},
+                      **{"capacity_" + c: v
+                         for c, v in capacity["checks"].items()}}}
     emit(row)
     return kernels[0], drive
 
@@ -1072,7 +1156,243 @@ def serve_phase(torch, np, seq, main_poses):
                      "kernel_every_registered_frame":
                          gn.LAUNCHES == srv.frames_registered}},
                 "serve_online")
+
+    # 7. a float64 state: the kernel solves its frames in float32, as its
+    #    plain version does, and the poses come back in float64
+    n = FLOAT64_FRAMES
+    wide = server(dtype=torch.float64)
+    gn.LAUNCHES = 0
+    _, total = serve_frames(wide, seq, range(n))
+    got = stamped_poses(np, wide)
+    ate64 = ate_rmse(poses[:n], got, align=False)
+    serve_check({"phase": "serve_float64", "frames": n,
+                 "frames_registered": wide.frames_registered,
+                 "gn_launches": gn.LAUNCHES, "frames_per_s": n / total,
+                 "ate_vs_f32_server_m": ate64,
+                 "checks": {
+                     "float64_state": wide.state.pose.dtype == torch.float64,
+                     "finite": bool(np.isfinite(got).all()),
+                     "registered_every_active_frame":
+                         wide.frames_registered == n - 1,
+                     "kernel_every_registered_frame":
+                         gn.LAUNCHES == wide.frames_registered,
+                     "within_5mm_of_f32": ate64 < 5e-3}},
+                "serve_float64")
     return launches
+
+
+def cli_drive(np, bag, out_dir, argv):
+    """``run_odometry.main`` over ``bag`` on the card, with the GN launch
+    count set to 0 just before and read just after.  Returns (TUM path,
+    stamps, poses, the CLI's timings, GN launches, wall seconds)."""
+    from kinematic_icp_tpu_torch import run_odometry
+    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.utils.io.tum import read_tum
+
+    timings = {}
+    gn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = run_odometry.main([bag, "--no-progress", "--output-dir", out_dir,
+                             *argv], timings=timings)
+    seconds = time.perf_counter() - t0
+    launches = gn.LAUNCHES
+    stamps, poses = read_tum(out)
+    return out, np.asarray(stamps), np.asarray(poses), timings, launches, \
+        seconds
+
+
+def cli_checks(np, seq, poses, timings, launches, count):
+    """The checks both CLI drives share, and the ATEs they rest on."""
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+    from kinematic_icp_tpu_torch.utils.io import native
+
+    gt = seq["gt_poses"][:count]
+    ate = ate_rmse(gt, poses, align=False)
+    ate_dead = ate_rmse(gt, dead_reckoning(np, seq["rel_odometry"][:count]),
+                        align=False)
+    checks = {"tum_row_every_frame": len(poses) == timings["frames"] == count,
+              "finite": bool(np.isfinite(poses).all()),
+              "kernel_every_registered_frame":
+                  launches == timings["registered"] == count - 1,
+              "native_library_loaded": native.get_lib() is not None,
+              "beats_dead_reckoning": ate < ate_dead}
+    return checks, ate, ate_dead
+
+
+def cli_phase(torch, np, seq, main_poses, card):
+    """The offline CLI on the card: the headline drive as a bag, then its
+    LaserScan topic.  Returns the 3D drive's GN launches."""
+    import os
+    import tempfile
+
+    from kinematic_icp_tpu_torch import Config, evaluate
+    from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+    from kinematic_icp_tpu_torch.utils.io.tum import write_tum
+
+    count = MAIN_FRAMES
+    with tempfile.TemporaryDirectory(prefix="kicp_cli_") as tmp:
+        bag = os.path.join(tmp, "headline.mcap")
+        t0 = time.perf_counter()
+        synthetic.write_sequence_to_mcap(seq, bag)
+        write_s = time.perf_counter() - t0
+        argv = ["--max-points", str(HEADLINE["max_points"]), "--visualize"]
+        try:
+            import yaml
+        except ImportError:
+            yaml = None
+        if yaml is not None:
+            params = os.path.join(tmp, "params.yaml")
+            with open(params, "w") as f:
+                yaml.safe_dump({"kinematic_icp_offline_node": {
+                    "ros__parameters": HEADLINE}}, f)
+            argv += ["--config", params]
+            reference = main_poses
+        else:
+            # the CLI's own default configuration, held to run_offline's
+            # drive under the same configuration
+            reference, _, _, _ = run_drive(
+                torch, seq, Config(deskew=True,
+                                   max_points=HEADLINE["max_points"]), count)
+        out, stamps, poses, timings, launches, seconds = cli_drive(
+            np, bag, tmp, argv)
+        checks, ate, ate_dead = cli_checks(np, seq, poses, timings, launches,
+                                           count)
+        ate_offline = ate_rmse(reference, poses, align=False)
+        checks["run_offline_within_floor"] = ate_offline < FLOOR_M
+        checks["viewer_written"] = os.path.exists(os.path.join(
+            tmp, "headline_kinematic_icp_view.html"))
+        gt_tum = os.path.join(tmp, "gt.txt")
+        write_tum(gt_tum, list(zip(stamps, seq["gt_poses"][:count])))
+        scores = evaluate.evaluate_files(out, gt_tum, align=False)
+        row = {"phase": "cli", "frames": count, "nvidia_smi": card,
+               "config": "yaml: headline" if yaml is not None
+               else "default Config(deskew=True)",
+               "bag_bytes": os.path.getsize(bag), "bag_write_s": write_s,
+               "frames_registered": timings["registered"],
+               "gn_launches": launches, "seconds": seconds,
+               "frames_per_s": count / seconds,
+               "wall_s": {k: timings[k] for k in
+                          ("read_s", "register_s", "write_s")},
+               "ms_per_frame": {k[:-2]: timings[k] * 1e3 / count for k in
+                                ("read_s", "register_s", "write_s")},
+               "ate_vs_gt_m": ate, "ate_dead_reckoning_m": ate_dead,
+               "ate_vs_run_offline_m": ate_offline,
+               "evaluate_vs_gt": scores, "checks": checks}
+        serve_check(row, "cli")
+
+        # the 2D LaserScan topic of the first frames of the same world
+        n = CLI_2D_FRAMES
+        sub = dict(seq, frames=seq["frames"][:n],
+                   rel_odometry=seq["rel_odometry"][:n],
+                   gt_poses=seq["gt_poses"][:n])
+        bag2d = os.path.join(tmp, "planar.mcap")
+        synthetic.write_sequence_to_mcap(sub, bag2d,
+                                         scan_2d_topic=SCAN_2D_TOPIC)
+        _, _, poses2d, timings2d, launches2d, seconds2d = cli_drive(
+            np, bag2d, tmp, ["--use-2d-lidar", "--lidar-topic",
+                             SCAN_2D_TOPIC, "--max-points",
+                             str(CLI_2D_MAX_POINTS)])
+        checks2d, ate2d, dead2d = cli_checks(np, sub, poses2d, timings2d,
+                                             launches2d, n)
+        serve_check({"phase": "cli_2d", "frames": n,
+                     "frames_registered": timings2d["registered"],
+                     "gn_launches": launches2d,
+                     "frames_per_s": n / seconds2d,
+                     "ms_per_frame": {k[:-2]: timings2d[k] * 1e3 / n for k in
+                                      ("read_s", "register_s", "write_s")},
+                     "ate_vs_gt_m": ate2d, "ate_dead_reckoning_m": dead2d,
+                     "checks": checks2d}, "cli_2d")
+    return launches
+
+
+def oracle_phase(torch, np, seq, main_poses):
+    """The card's drive held to the two differential oracles: the port's
+    float64 ``OracleKinematicICP`` over tests/test_differential.py's drive
+    and bounds, and the native C++ baseline over the headline frames."""
+    from kinematic_icp_tpu_torch import Config, baseline_native
+    from kinematic_icp_tpu_torch.oracle import OracleKinematicICP
+    from kinematic_icp_tpu_torch.oracle.reference import se3_log
+    from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    small = synthetic.make_sequence(DIFF_FRAMES)
+    cfg = Config(**DIFF)
+    card_poses, _, _, _ = run_drive(torch, small, cfg, DIFF_FRAMES)
+    oracle = OracleKinematicICP(cfg)
+    oracle_poses = []
+    t0 = time.perf_counter()
+    for (pts, ts), rel in zip(small["frames"], small["rel_odometry"]):
+        # behind the server's stationary gate, as the card's runner
+        if np.linalg.norm(se3_log(rel)) > 1e-3:
+            oracle.register_frame(pts.astype(np.float64),
+                                  ts.astype(np.float64), small["extrinsic"],
+                                  rel)
+        oracle_poses.append(oracle.last_pose.copy())
+    oracle_s = time.perf_counter() - t0
+    gt = small["gt_poses"]
+    dead = ate_rmse(gt, dead_reckoning(np, small["rel_odometry"]),
+                    align=False)
+    ate = ate_rmse(oracle_poses, card_poses, align=False)
+    per_frame = [float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+                 for a, b in zip(oracle_poses, card_poses)]
+    ate_oracle_gt = ate_rmse(gt, oracle_poses, align=False)
+    ate_card_gt = ate_rmse(gt, card_poses, align=False)
+
+    count = MAIN_FRAMES
+    frames, rels = seq["frames"][:count], seq["rel_odometry"][:count]
+    t0 = time.perf_counter()
+    base, stats = baseline_native.run_baseline(Config(**HEADLINE), frames,
+                                               rels, seq["extrinsic"])
+    baseline_s = time.perf_counter() - t0
+    base_vs_card = ate_rmse(base, main_poses, align=False)
+    floors = chaos_floors(np, seq, base, count)
+    # tests/test_differential.py:137: within the larger of 0.05 m and 3.5
+    # times this drive's own self-divergence
+    bound = max(0.05, 3.5 * max(floors))
+    row = {"phase": "oracle", "frames": DIFF_FRAMES, "config": DIFF,
+           "oracle_seconds": oracle_s,
+           "ate_card_vs_oracle_m": ate,
+           "max_frame_divergence_m": max(per_frame),
+           "ate_oracle_vs_gt_m": ate_oracle_gt,
+           "ate_card_vs_gt_m": ate_card_gt, "ate_dead_reckoning_m": dead,
+           "baseline": {"frames": count, "config": HEADLINE,
+                        "seconds": baseline_s, "threads": stats["threads"],
+                        "frames_per_s": stats["fps"],
+                        "ate_vs_card_run_offline_m": base_vs_card,
+                        "self_divergence_m": floors,
+                        "bound_m": bound,
+                        "headline_floor_m": FLOOR_M,
+                        "ate_vs_gt_m": ate_rmse(seq["gt_poses"][:count], base,
+                                                align=False)}}
+    row["checks"] = {"card_within_ate_of_oracle": ate < DIFF_ATE_M,
+                     "every_frame_within_bound": max(per_frame)
+                     < DIFF_FRAME_M,
+                     "oracle_beats_dead_reckoning": ate_oracle_gt < dead,
+                     "card_beats_dead_reckoning": ate_card_gt < dead,
+                     "baseline_finite": bool(np.isfinite(base).all()),
+                     "baseline_within_self_divergence_bound":
+                         base_vs_card <= bound}
+    serve_check(row, "oracle")
+
+
+def chaos_floors(np, seq, exact, count):
+    """The baseline's own divergence on this drive (tests/test_differential
+    .py:91-115): its ATE against itself on the same frames with 1 um of
+    noise, and on two permutations of each frame's points."""
+    from kinematic_icp_tpu_torch import Config, baseline_native
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    frames, rels = seq["frames"][:count], seq["rel_odometry"][:count]
+    rng = np.random.default_rng(7)
+    draws = [[(p + rng.normal(0, 1e-6, p.shape), t) for p, t in frames]]
+    for d in range(2):
+        rng = np.random.default_rng(777 + d)
+        perms = [rng.permutation(len(p)) for p, _ in frames]
+        draws.append([(p[i], t[i]) for (p, t), i in zip(frames, perms)])
+    return [ate_rmse(list(exact), list(baseline_native.run_baseline(
+        Config(**HEADLINE), d, rels, seq["extrinsic"])[0]), align=False)
+        for d in draws]
 
 
 def spills(log):
@@ -1088,8 +1408,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
+
     from kinematic_icp_tpu_torch.ops import cuda_build
     from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils.io import native
 
     card = nvidia_smi_line()
     emit({"phase": "environment", "device": torch.cuda.get_device_name(0),
@@ -1097,7 +1420,14 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
-    built = cuda_build.build("gn_solve")
+    # the host C++ (the ingestion library, the baseline) builds beside nvcc
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.build, "kicp_io", "kicp_baseline")
+        built = cuda_build.build("gn_solve")
+        host_built = host.result()
+    emit({"phase": "build_host", "targets": {
+        name: {"seconds": b["seconds"], "path": b["path"]}
+        for name, b in host_built.items()}})
     # one template instance per check_crossing value, each with a line
     spill = {name: spills(b["log"]) for name, b in built.items()}
     emit({"phase": "build", "kernels": {
@@ -1123,6 +1453,8 @@ def main():
     pruned_phase(torch, np, seq)
     batched_kernel, batched_drive = batched_phase(torch, np, seq, card)
     serve_launches = serve_phase(torch, np, seq, main_poses)
+    cli_launches = cli_phase(torch, np, seq, main_poses, card)
+    oracle_phase(torch, np, seq, main_poses)
 
     emit({"kernels": [{
         "name": "gn_solve", "route": "cuda",
@@ -1131,6 +1463,7 @@ def main():
         "launches": main_row["gn_launches"],
         "launches_exact_mode_check_crossing": exact_launches,
         "launches_serve_blocking": serve_launches,
+        "launches_cli": cli_launches,
         "launches_batched": batched_drive["gn_launches"],
         "frames_per_launch_batched": batched_drive["frames_per_launch"],
         "batched_ms": batched_kernel["ms"],

@@ -7,8 +7,8 @@ map, with the per-frame Gauss-Newton solve as a hand-written CUDA kernel
 the caller passes ``device="cpu"``.
 """
 
-from .config import Config, ServerConfig
+from .config import Config, ServerConfig, load_yaml_config
 
 __version__ = "0.1.0"
 
-__all__ = ["Config", "ServerConfig", "__version__"]
+__all__ = ["Config", "ServerConfig", "load_yaml_config", "__version__"]

@@ -29,7 +29,10 @@
 //   * Persistent cooperative grid over (frame, tile).  Each frame gets
 //     Gb = min(tiles, co_resident / B) CTAs (co_resident = occupancy x SM
 //     count): CTA blockIdx.x = b * Gb + j walks the tiles j, j + Gb, ... of
-//     frame b in a fixed assignment.  B > co_resident is refused.
+//     frame b in a fixed assignment.  A launch takes B <= co_resident
+//     frames; the wrapper splits a larger batch into launches of at most
+//     co_resident frames (kicp_gn_capacity reports the count), which
+//     changes no bit (see the next point).
 //   * Bits that depend only on the frame's N.  Per pass, warp 0 reduces
 //     each tile's 7 sums (lane terms, then warp shuffles) into that TILE's
 //     slot, partials[pass & 1][b][tile]; after the frame's barrier every
@@ -84,7 +87,7 @@
 //   * A cooperative launch larger than the co-resident count is refused:
 //     the entry point computes Gb from the occupancy API, reports the
 //     capacity, and returns the launch's error code, on which the wrapper
-//     raises.
+//     raises; the wrapper never asks for more frames than the capacity.
 //   * Masked and ragged queries (mask 0, q >= N) add nothing, but their
 //     lanes take part in every shuffle, __syncthreads and barrier; the tile
 //     loop's trip count is the same for all threads of a CTA.
@@ -673,4 +676,17 @@ extern "C" int kicp_gn_solve(const float* guess, const float* tau,
                           voxel_size, max_range, ctas_out, capacity_out, st);
   const cudaError_t last = cudaGetLastError();  // clears a launch error
   return (int)(e != cudaSuccess ? e : last);
+}
+
+// Writes to *capacity_out the co-resident CTA count of the instance that
+// kicp_gn_solve launches for `check_crossing` on the current device: the
+// most frames one launch takes (one CTA a frame at least).  Returns the
+// CUDA error code of the query.
+extern "C" int kicp_gn_capacity(int check_crossing, int* capacity_out) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = check_crossing ? co_resident<true>(device, capacity_out)
+                       : co_resident<false>(device, capacity_out);
+  return (int)e;
 }

@@ -135,9 +135,11 @@ def pad_sequence(frames, rel_odometry, config: Config, timestamps=None):
     """Pack ragged frames into (F, N, ...) numpy arrays.
 
     frames: list of (points (N_i, 3), ts (N_i,)) tuples or plain arrays.
-    Scans longer than ``config.max_points`` are truncated, which removes an
-    angular sector of a spinning lidar and degrades registration, so it
-    warns with the total.
+    A frame is deskewed only with exactly one stamp per point, the rule of
+    the server's codec and of the float64 oracle (JAX's ``pad_sequence``
+    also takes more stamps than points).  Scans longer than
+    ``config.max_points`` are truncated, which removes an angular sector of
+    a spinning lidar and degrades registration, so it warns with the total.
     """
     f = len(frames)
     n = config.max_points
@@ -162,7 +164,7 @@ def pad_sequence(frames, rel_odometry, config: Config, timestamps=None):
             truncated_frames += 1
         pts[i, :k] = p[:k]
         mask[i, :k] = True
-        if t is not None and len(t) >= k:
+        if t is not None and len(t) == len(p):
             ts[i, :k] = np.asarray(t, np.float32)[:k]
             has_ts[i] = True
         if rel_odometry is not None and rel_odometry[i] is not None:

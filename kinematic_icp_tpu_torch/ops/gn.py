@@ -6,8 +6,11 @@ launch of the hand-written kernel ``csrc/gn_solve.cu`` (a persistent grid
 of CTAs with one barrier per frame and selection pass), the counterpart of
 the JAX package's Pallas kernel (``kinematic_icp_tpu/ops/pallas_gn.py:
 _kernel``).  Inputs with a leading batch axis of B frames (the batched
-sequence runner's) are solved in ONE launch; a single frame is B = 1 of
-the same kernel.  Per frame:
+sequence runner's) are solved in ONE launch, up to the card's co-resident
+CTA count (``capacity``; a larger batch takes ceil(B / capacity)
+launches); a single frame is B = 1 of the same kernel.  A float64 state's
+planes and guess are solved in float32, as the plain version solves them,
+and the pose comes back in the guess's dtype.  Per frame:
 
   * nearest-candidate re-selection per iteration among the per-frame cached
     candidates, with the packed-key tie-break of
@@ -301,6 +304,31 @@ def _kernel_entry():
     return fn
 
 
+#: (device index, check_crossing) -> frames one launch takes at most
+_CAPACITY: dict[tuple[int, bool], int] = {}
+
+
+def capacity(dev: torch.device, check_crossing: bool) -> int:
+    """The co-resident CTA count of the kernel's instance on ``dev``: the
+    most frames one cooperative launch solves (one CTA a frame at least).
+    Queried from the library once per device and instance."""
+    key = (dev.index if dev.index is not None else
+           torch.cuda.current_device(), bool(check_crossing))
+    if key not in _CAPACITY:
+        fn = cuda_build.load("gn_solve").kicp_gn_capacity
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            rc = fn(int(check_crossing), ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(
+                f"gn_solve kernel: no cooperative launch on {dev} (CUDA "
+                f"error {rc}, {out.value} co-resident CTAs)")
+        _CAPACITY[key] = out.value
+    return _CAPACITY[key]
+
+
 def _check(name, t, dtype, shape, dev):
     if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
@@ -315,10 +343,14 @@ def _gn_solve_cuda(cand, source, source_mask, guess, tau, *, voxel_size,
                    use_adaptive_regularization, fixed_regularization,
                    max_range, check_crossing):
     """One cooperative launch of the kernel for the B frames of a batched
-    call (B = 1 for an unbatched one) and no other device work but the
-    copies that make a strided input dense: the kernel reads ``guess``,
-    ``tau`` and the bool mask where they lie, and takes the scalars by
-    value."""
+    call (B = 1 for an unbatched one), or ceil(B / capacity) launches of at
+    most ``capacity(dev)`` frames each where B exceeds the card's
+    co-resident CTAs (a frame's bits depend on its N alone, so the split
+    changes none).  No other device work but the copies that make a strided
+    input dense or a float64 input float32, as the plain version casts: the
+    kernel reads ``guess``, ``tau`` and the bool mask where they lie, and
+    takes the scalars by value.  The pose comes back in the guess's
+    dtype."""
     global LAUNCHES, FRAMES, CROSSING_LAUNCHES, LAST_CTAS
     batched = cand.words.dim() == 4
     if not batched:
@@ -338,25 +370,37 @@ def _gn_solve_cuda(cand, source, source_mask, guess, tau, *, voxel_size,
     _check("rel", cand.rel, i32, (b, v, n), dev)
     for name in ("base_x", "base_y", "base_z"):
         _check(name, getattr(cand, name), i32, (b, n), dev)
-    # no-ops for dense planes (an unbatched frame's); copies of the rows of
-    # a batch's truncated (strided) source planes
-    sx, sy, sz = (t.contiguous() for t in source)
+    # no-ops for dense float32 planes (an unbatched frame's); copies of the
+    # rows of a batch's truncated (strided) source planes, or of float64
+    # planes and guess (a float64 state's)
+    sx, sy, sz = (t.to(f32).contiguous() for t in source)
     for name, t in zip("xyz", (sx, sy, sz)):
         _check(f"source.{name}", t, f32, (b, n), dev)
     _check("source_mask", source_mask, torch.bool, (b, n), dev)
-    _check("guess", guess, f32, (b, 4, 4), dev)
+    if guess.dtype not in (f32, torch.float64):
+        raise ValueError(f"gn_solve kernel: guess must be float32 or "
+                         f"float64; got {guess.dtype}")
+    guess32 = guess.to(f32).contiguous()
+    _check("guess", guess32, f32, (b, 4, 4), dev)
     if torch.is_tensor(tau):  # a no-op for the pipeline's f32 tau
         tau = tau.to(device=dev, dtype=f32).expand(b).contiguous()
     else:
         tau = torch.full((b,), tau, dtype=f32, device=dev)
+    per_launch = capacity(dev, check_crossing)
+    tiles = (n + 31) // 32
     pose16 = torch.empty((b, 16), dtype=f32, device=dev)
     stats = torch.empty((b, 3), dtype=i32, device=dev)
     err = torch.empty(b, dtype=f32, device=dev)
     # per pass parity, frame and 32-query tile 8 floats of slots, then 32
-    # words of barrier a frame
-    partials = torch.empty(2 * b * ((n + 31) // 32) * 8 + 32 * b, dtype=f32,
+    # words of barrier a frame, for the largest launch; the launches of a
+    # split run one after the other on the stream, and each zeroes its
+    # barrier words, so they share it
+    most = min(b, per_launch)
+    partials = torch.empty(2 * most * tiles * 8 + 32 * most, dtype=f32,
                            device=dev)
-    ctas, capacity = ctypes.c_int(0), ctypes.c_int(0)
+    ctas, cap = ctypes.c_int(0), ctypes.c_int(0)
+    frame_major = (guess32, tau, *cand, sx, sy, sz, source_mask, pose16,
+                   stats, err)
 
     fn = _kernel_entry()
     # tau, the source copies and the scratch may be freed on return while
@@ -364,32 +408,29 @@ def _gn_solve_cuda(cand, source, source_mask, guess, tau, *, voxel_size,
     # only to later work on this stream, which runs after the kernel
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(guess.data_ptr(), tau.data_ptr(), cand.words.data_ptr(),
-                cand.rel.data_ptr(), cand.base_x.data_ptr(),
-                cand.base_y.data_ptr(), cand.base_z.data_ptr(),
-                sx.data_ptr(), sy.data_ptr(), sz.data_ptr(),
-                source_mask.data_ptr(),
-                pose16.data_ptr(), stats.data_ptr(), err.data_ptr(),
-                partials.data_ptr(), b, v, k, n, max_num_iterations,
-                convergence_criterion, int(use_adaptive_regularization),
-                fixed_regularization, voxel_size, max_range,
-                int(check_crossing), ctypes.byref(ctas),
-                ctypes.byref(capacity), stream)
-    if rc != 0:
-        if b > capacity.value > 0:
-            raise ValueError(
-                f"gn_solve kernel: a batch of {b} frames needs at least one "
-                f"CTA a frame, but the card holds {capacity.value} CTAs of "
-                f"the kernel at once; split the batch")
-        raise RuntimeError(f"gn_solve kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    FRAMES += b
-    CROSSING_LAUNCHES += int(check_crossing)
-    LAST_CTAS = ctas.value
+        for first in range(0, b, per_launch):
+            frames = min(per_launch, b - first)
+            # frame `first` of each dense (B, ...) tensor
+            ptrs = [t.data_ptr() + first * t.stride(0) * t.element_size()
+                    for t in frame_major]
+            rc = fn(*ptrs, partials.data_ptr(), frames, v,
+                    k, n, max_num_iterations, convergence_criterion,
+                    int(use_adaptive_regularization), fixed_regularization,
+                    voxel_size, max_range, int(check_crossing),
+                    ctypes.byref(ctas), ctypes.byref(cap), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"gn_solve kernel launch of {frames} frames failed: "
+                    f"CUDA error {rc} (co-resident CTAs {cap.value})")
+            LAUNCHES += 1
+            FRAMES += frames
+            CROSSING_LAUNCHES += int(check_crossing)
+            LAST_CTAS = ctas.value
     # stats[:, 2] is 0 or 1; its low byte (little-endian) read as a bool is
     # `crossed` without a comparison kernel
     crossed = stats.view(torch.bool)[:, 8]
-    out = (pose16.view(b, 4, 4), stats[:, 0], stats[:, 1], err, crossed)
+    out = (pose16.view(b, 4, 4).to(guess.dtype), stats[:, 0], stats[:, 1],
+           err, crossed)
     return out if batched else tuple(t[0] for t in out)
 
 
@@ -410,7 +451,8 @@ def gn_solve(cand: CandidateSet, source, source_mask, guess, tau, *,
     tensors on the input's device.  With a leading batch axis (``cand``
     (B, V, K, N) words and (B, V, N) rel, (B, N) bases, sources and mask,
     ``guess`` (B, 4, 4), ``tau`` (B,)) each output gains it, and the
-    kernel solves the B frames in one launch.
+    kernel solves the B frames in one launch (ceil(B / capacity) where B
+    exceeds the card's co-resident CTAs).
 
     ``backend``: ``"torch"`` runs the plain version on any device (the
     comparison baseline); ``"auto"`` and ``"cuda"`` launch the kernel for

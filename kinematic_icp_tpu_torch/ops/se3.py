@@ -48,6 +48,19 @@ def _rodrigues(wx, wy, wz, A, B):
     return r00, r01, r02, r10, r11, r12, r20, r21, r22
 
 
+def hat(w):
+    """(..., 3) -> (..., 3, 3) skew-symmetric matrix."""
+    zero = torch.zeros_like(w[..., 0])
+    return _mat([[zero, -w[..., 2], w[..., 1]],
+                 [w[..., 2], zero, -w[..., 0]],
+                 [-w[..., 1], w[..., 0], zero]])
+
+
+def vee(W):
+    """(..., 3, 3) skew -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _mat(rows):
     """Nested lists of same-shape planes -> (..., len(rows), len(row))."""
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
@@ -209,3 +222,47 @@ def rotation_angle(T):
     """|theta| of the rotation part."""
     trace = T[..., 0, 0] + T[..., 1, 1] + T[..., 2, 2]
     return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+
+
+def from_rt(R, t):
+    """(..., 3, 3), (..., 3) -> (..., 4, 4)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
+
+
+def identity(dtype=torch.float32, batch_shape=(), device=None):
+    return torch.eye(4, dtype=dtype, device=device).expand(
+        tuple(batch_shape) + (4, 4))
+
+
+def compose(A, B):
+    return A @ B
+
+
+def apply(T, points):
+    """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
+    return points @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+def to_quaternion(T):
+    """(..., 4, 4) -> (..., 4) quaternion (qx, qy, qz, qw), TUM order."""
+    return torch.stack(_quat_components(T[..., :3, :3]), dim=-1)
+
+
+def from_quaternion(q, t=None):
+    """(qx, qy, qz, qw) [+ translation] -> (..., 4, 4)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = _mat([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+               2 * (x * z + y * w)],
+              [2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+               2 * (y * z - x * w)],
+              [2 * (x * z - y * w), 2 * (y * z + x * w),
+               1 - 2 * (x * x + y * y)]])
+    if t is None:
+        t = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype, device=q.device)
+    return from_rt(R, t)

@@ -1,1 +1,5 @@
-"""Float64 numpy helpers shared with the reference oracle."""
+"""CPU float64 oracle of the reference algorithm (for tests and baselines)."""
+
+from .reference import OracleKinematicICP
+
+__all__ = ["OracleKinematicICP"]

@@ -71,7 +71,9 @@ class BatchedOdometryRunner:
           frames: list of up to B (N_i, 3) arrays (None or missing =
             sequence finished: a stationary empty frame).
           rel_odometry: list of B (4, 4) deltas (None = identity).
-          timestamps: optional list of B (N_i,) normalized times.
+          timestamps: optional list of B (N_i,) normalized times; a frame
+            is deskewed only with exactly one stamp per point (as
+            ``offline.pad_sequence`` and the server's codec rule).
 
         Returns (B, 4, 4) numpy poses after the step.
         """
@@ -98,8 +100,10 @@ class BatchedOdometryRunner:
             k = min(len(f), n)
             pts[i, :k] = f[:k]
             mask[i, :k] = True
-            if timestamps is not None and timestamps[i] is not None:
-                ts[i, :k] = np.asarray(timestamps[i], np.float32)[:k]
+            t = (timestamps[i] if timestamps is not None
+                 and i < len(timestamps) else None)
+            if t is not None and len(t) == len(f):
+                ts[i, :k] = np.asarray(t, np.float32)[:k]
                 has_ts[i] = True
 
         self.state, _ = pipeline.register_frame(

@@ -15,16 +15,29 @@ from .messages import LaserScan, PointCloud2, PointFieldType
 
 
 def project_laser(scan: LaserScan) -> PointCloud2:
-    """Valid-range beams -> planar cloud with a FLOAT32 ``stamps`` field
-    (numpy projection)."""
-    n = len(scan.ranges)
-    angles = scan.angle_min + np.arange(n) * scan.angle_increment
-    r = np.asarray(scan.ranges, np.float64)
-    valid = np.isfinite(r) & (r >= scan.range_min) & (r <= scan.range_max)
-    xs = (r * np.cos(angles))[valid].astype(np.float32)
-    ys = (r * np.sin(angles))[valid].astype(np.float32)
-    zs = np.zeros_like(xs)
-    stamps = (np.arange(n) * scan.time_increment)[valid].astype(np.float32)
+    """Valid-range beams -> planar cloud with a FLOAT32 ``stamps`` field.
+
+    Uses the native projection loop (``native/kicp_io.cpp``) where it
+    builds; the numpy projection otherwise.
+    """
+    from . import native
+    nat = native.project_laserscan(
+        scan.ranges, scan.angle_min, scan.angle_increment,
+        scan.time_increment, scan.range_min, scan.range_max)
+    if nat is not None:
+        xs, ys, stamps = nat
+        zs = np.zeros_like(xs)
+    else:
+        n = len(scan.ranges)
+        angles = scan.angle_min + np.arange(n) * scan.angle_increment
+        r = np.asarray(scan.ranges, np.float64)
+        valid = (np.isfinite(r) & (r >= scan.range_min)
+                 & (r <= scan.range_max))
+        xs = (r * np.cos(angles))[valid].astype(np.float32)
+        ys = (r * np.sin(angles))[valid].astype(np.float32)
+        zs = np.zeros_like(xs)
+        stamps = (np.arange(n) * scan.time_increment)[valid].astype(
+            np.float32)
     pts = np.stack([xs, ys, zs], axis=-1)
     return PointCloud2.from_xyz(
         pts, stamp=scan.header.stamp.to_sec(),

@@ -154,8 +154,20 @@ class PointCloud2:
         return raw[idx].copy().view(dt).reshape(n)
 
     def xyz(self) -> np.ndarray:
-        """(N, 3) float32 positions — PointCloud2ToEigen equivalent
-        (numpy strided extraction)."""
+        """(N, 3) float32 positions — PointCloud2ToEigen equivalent.
+
+        Uses the native extraction loop (``native/kicp_io.cpp``) where it
+        builds; numpy strided extraction otherwise.
+        """
+        fx, fy, fz = self.field("x"), self.field("y"), self.field("z")
+        if (fx and fy and fz and not self.is_bigendian
+                and fx.datatype == fy.datatype == fz.datatype):
+            from . import native
+            out = native.extract_pointcloud(
+                self.data, self.height * self.width, self.point_step,
+                fx.offset, fy.offset, fz.offset, fx.datatype)
+            if out is not None:
+                return out[0]
         return np.stack([self.field_array("x"), self.field_array("y"),
                          self.field_array("z")], axis=-1).astype(np.float32)
 

@@ -318,3 +318,87 @@ def sequence_messages(seq, *, base_frame="base_link", odom_frame="odom",
             timestamps=np.asarray(taus, np.float32) * scan_dur,
             timestamp_field="t", timestamp_type=PointFieldType.FLOAT32)))
     return out
+
+
+def render_2d_scan(world: SyntheticWorld, pose, *, num_beams=360,
+                   scan_duration=0.1, range_max=40.0, noise_sigma=0.01,
+                   rng=None):
+    """Planar LaserScan ranges from a pose (for the 2D ingestion path)."""
+    rng = rng or np.random.default_rng(0)
+    x, y = pose[0, 3], pose[1, 3]
+    yaw = math.atan2(pose[1, 0], pose[0, 0])
+    angle_min, angle_max = -np.pi, np.pi
+    inc = 2 * np.pi / num_beams
+    beam_angles = angle_min + np.arange(num_beams) * inc
+    origins = np.tile([[x, y]], (num_beams, 1))
+    d = world.raycast(origins, yaw + beam_angles)
+    d = d + rng.normal(0, noise_sigma, num_beams)
+    d = np.where(np.isfinite(d) & (d < range_max), d, np.inf)
+    return dict(angle_min=angle_min, angle_max=angle_max,
+                angle_increment=inc,
+                time_increment=scan_duration / num_beams,
+                scan_time=scan_duration, range_min=0.05, range_max=range_max,
+                ranges=d.astype(np.float32))
+
+
+def write_sequence_to_mcap(seq, path, *, lidar_topic="/lidar_points",
+                           base_frame="base_link", odom_frame="odom",
+                           lidar_frame="lidar", rate_hz=10.0,
+                           start_time=1700000000.0,
+                           scan_2d_topic=None):
+    """Serialize a synthetic sequence as a ROS2-style mcap bag.
+
+    Publishes the scans on ``lidar_topic`` (PointCloud2, begin-of-scan
+    header stamping with a float32 ``t`` field of scan-relative seconds —
+    the convention the reference's stamp heuristic classifies robustly;
+    end-of-scan absolute stamping cannot satisfy its 1e-8 equality check in
+    float64 at epoch magnitudes), the NOISY integrated wheel odometry on
+    ``/tf`` (odom -> base_link), and the static extrinsic on ``/tf_static``
+    — the exact input surface the reference offline node consumes.  With
+    ``scan_2d_topic``, each frame also carries a LaserScan of the same
+    world on that topic.  The same arguments give the same bytes as the JAX
+    package's writer.
+    """
+    from .io.mcap import McapWriter
+    from .io.messages import (Header, LaserScan, PointCloud2, PointFieldType,
+                              TFMessage, Time, TransformStamped)
+
+    dt = 1.0 / rate_hz
+    scan_dur = seq.get("scan_duration", 0.1)
+    rng2d = np.random.default_rng(99)
+    writer = McapWriter(path)
+    # static extrinsic
+    static = TFMessage([TransformStamped.from_matrix(
+        seq["extrinsic"], start_time, base_frame, lidar_frame)])
+    writer.write_message("/tf_static", "tf2_msgs/msg/TFMessage",
+                         static.encode(), int(start_time * 1e9))
+    odom_pose = np.eye(4)
+    num_frames = len(seq["frames"])
+    for k in range(num_frames):
+        stamp = start_time + k * dt  # end-of-scan stamp
+        odom_pose = odom_pose @ seq["rel_odometry"][k]
+        tf_msg = TFMessage([TransformStamped.from_matrix(
+            odom_pose, stamp, odom_frame, base_frame)])
+        writer.write_message("/tf", "tf2_msgs/msg/TFMessage",
+                             tf_msg.encode(), int(stamp * 1e9))
+        pts, taus = seq["frames"][k]
+        # begin-stamped: header at scan start, per-point times relative; the
+        # TimeStampHandler extends the end stamp by the scan duration.
+        rel_ts = np.asarray(taus, np.float32) * scan_dur
+        cloud = PointCloud2.from_xyz(
+            pts, stamp=stamp - scan_dur, frame_id=lidar_frame,
+            timestamps=rel_ts, timestamp_field="t",
+            timestamp_type=PointFieldType.FLOAT32)
+        writer.write_message(lidar_topic, "sensor_msgs/msg/PointCloud2",
+                             cloud.encode(), int(stamp * 1e9))
+        if scan_2d_topic:
+            gt_sensor = seq["gt_poses"][k] @ seq["extrinsic"]
+            kw = render_2d_scan(seq["world"], gt_sensor,
+                                scan_duration=scan_dur, rng=rng2d)
+            scan = LaserScan(header=Header(Time.from_sec(stamp - scan_dur),
+                                           lidar_frame),
+                             intensities=np.zeros(0, np.float32), **kw)
+            writer.write_message(scan_2d_topic, "sensor_msgs/msg/LaserScan",
+                                 scan.encode(), int(stamp * 1e9))
+    writer.close()
+    return path

@@ -34,7 +34,12 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("offline", "convert", "ops.gn", "ops.cuda_build",
                  "models.pipeline", "utils.synthetic", "utils.evaluation",
                  "server", "online", "utils.packing", "utils.checkpoint",
-                 "utils.io.messages", "parallel", "parallel.batched"):
+                 "utils.io.messages", "parallel", "parallel.batched",
+                 "run_odometry", "evaluate", "baseline_native",
+                 "oracle.reference", "utils.io.lz4f", "utils.io.mcap",
+                 "utils.io.sqlite_bag", "utils.io.bag", "utils.io.native",
+                 "utils.progress", "utils.viewer", "utils.visualization",
+                 "utils.profiling"):
         assert f"kinematic_icp_tpu_torch.{name}" in res["modules"]
 
 
@@ -63,12 +68,13 @@ def test_card_scripts_import_no_jax(script):
                                    "init_batched_state",
                                    "BatchedOdometryRunner",
                                    "LidarOdometryServer",
-                                   "OnlineOdometryNode", "load_state"])
+                                   "OnlineOdometryNode", "load_state",
+                                   "run_odometry"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA card")
     from kinematic_icp_tpu_torch import Config
-    from kinematic_icp_tpu_torch import offline
+    from kinematic_icp_tpu_torch import offline, run_odometry
     from kinematic_icp_tpu_torch.models import pipeline
     from kinematic_icp_tpu_torch.online import OnlineOdometryNode
     from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
@@ -91,6 +97,40 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "LidarOdometryServer": lambda: LidarOdometryServer(cfg),
         "OnlineOdometryNode": lambda: OnlineOdometryNode(cfg),
         "load_state": lambda: checkpoint.load_state(path),
+        # no --device: the CLI's default is the card
+        "run_odometry": lambda: run_odometry.main(
+            [str(tmp_path / "drive.mcap"), "--no-progress"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+def test_native_build_writes_only_into_the_package(tmp_path):
+    """The port builds ``native/``'s sources into its own ``_build/`` and
+    writes nothing under ``native/`` (where a tracked binary lives): the
+    build runs in a copy of the package and the sources."""
+    import shutil
+
+    shutil.copytree(os.path.join(REPO, "kinematic_icp_tpu_torch"),
+                    tmp_path / "kinematic_icp_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    (tmp_path / "native").mkdir()
+    for name in ("kicp_io.cpp", "kicp_baseline.cpp", "Makefile"):
+        shutil.copy(os.path.join(REPO, "native", name), tmp_path / "native")
+
+    def snapshot():
+        return {p.name: p.read_bytes() for p in (tmp_path / "native").iterdir()}
+
+    before = snapshot()
+    probe = ("import json; from kinematic_icp_tpu_torch.utils.io import "
+             "native; print(json.dumps({k: v['path'] for k, v in "
+             "native.build('kicp_io', 'kicp_baseline').items()}))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    built = json.loads(out.stdout.strip().splitlines()[-1])
+    assert snapshot() == before
+    for path in built.values():
+        assert os.path.dirname(path) == str(
+            tmp_path / "kinematic_icp_tpu_torch" / "_build")
+        assert os.path.getsize(path) > 0

@@ -235,14 +235,29 @@ def test_gn_kernel_batch_bit_equal_to_single_launches(card, n, b):
 
 
 @pytest.mark.cuda
-def test_gn_kernel_refuses_more_frames_than_resident_ctas(card):
-    (cand, source, mask, guess), _ = _batch(card, 1, 32)
-    big = 4096  # above the CTAs an H100 holds at once (132 SMs x 8)
-    expand = [t.expand(big, *t.shape[1:]).contiguous() for t in
-              (*cand, *source, mask, guess)]
-    with pytest.raises(ValueError, match="split the batch"):
-        gn.gn_solve(hashmap.CandidateSet(*expand[:5]), P3(*expand[5:8]),
-                    expand[8], expand[9], 0.5, **SOLVE)
+@pytest.mark.parametrize("crossing", [False, True])
+def test_gn_kernel_splits_more_frames_than_resident_ctas(card, crossing):
+    """B = capacity + 1 frames at N = 1024: two launches (capacity frames,
+    then one), each frame bit-equal to its own single launch."""
+    cap = gn.capacity(card, crossing)
+    (cand, source, mask, guess), singles = _batch(card, 4, 1024)
+    b = cap + 1
+    pick = torch.arange(b, device=card) % 4  # four distinct problems
+    args = [t[pick].contiguous() for t in (*cand, *source, mask, guess)]
+    tau = torch.full((b,), 0.5, device=card)
+    before = (gn.LAUNCHES, gn.FRAMES)
+    out = gn.gn_solve(hashmap.CandidateSet(*args[:5]), P3(*args[5:8]),
+                      args[8], args[9], tau, check_crossing=crossing,
+                      **SOLVE)
+    torch.cuda.synchronize()
+    assert (gn.LAUNCHES, gn.FRAMES) == (before[0] + 2, before[1] + b)
+    assert out[0].shape == (b, 4, 4)
+    ones = [gn.gn_solve(c, s, m, g, 0.5, check_crossing=crossing, **SOLVE)
+            for c, s, m, g in singles]
+    for i in range(b):
+        for x, y in zip(out, ones[i % 4]):
+            assert torch.equal(x[i].reshape(-1).view(torch.uint8),
+                               y.reshape(-1).view(torch.uint8)), i
 
 
 @pytest.mark.cuda
@@ -353,7 +368,7 @@ def test_pruned_exact_corner_voxel_falls_back(card):
 def test_gn_kernel_rejects_bad_input(card):
     cand, source, mask, guess = _problem(card, 10, n=64, nmap=300)
     with pytest.raises(ValueError):
-        gn.gn_solve(cand, source, mask, guess.double(), 0.5, **SOLVE)
+        gn.gn_solve(cand, source, mask, guess.half(), 0.5, **SOLVE)
     with pytest.raises(ValueError):
         gn.gn_solve(cand._replace(words=cand.words.transpose(1, 2)), source,
                     mask, guess, 0.5, **SOLVE)
@@ -435,3 +450,66 @@ def test_served_frame_launches_gn_kernel_once(card):
                            seq["rel_odometry"][1], stamp=0.1)
     assert res["registered"] and np.isfinite(res["pose"]).all()
     assert gn.LAUNCHES == before + 1
+
+
+#: the headline shape (chip_smoke.py's HEADLINE)
+HEADLINE = dict(max_points=65536, max_downsampled=8192, max_source=1024,
+                map_capacity=5 << 14, max_probes=5, voxel_size=1.0,
+                max_range=60.0, deskew=True)
+
+
+@pytest.mark.cuda
+def test_float64_server_registers_every_frame_on_the_kernel(card):
+    """A float64 state's frames go through the kernel (cast to float32, as
+    its plain version casts), one launch each, within 5 mm ATE of the
+    float32 server."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+    from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    seq = synthetic.make_sequence(20, lidar=synthetic.realistic_lidar(),
+                                  clear_path_margin=3.0)
+    poses = {}
+    for dtype in (torch.float32, torch.float64):
+        s = LidarOdometryServer(Config(**HEADLINE), extrinsic=seq["extrinsic"],
+                                dtype=dtype, device=card)
+        before = gn.LAUNCHES
+        for i, (p, t) in enumerate(seq["frames"]):
+            s.register_frame(p, t, seq["rel_odometry"][i], stamp=0.1 * i)
+        assert s.frames_registered == 19
+        assert gn.LAUNCHES - before == s.frames_registered
+        assert s.state.pose.dtype == dtype
+        poses[dtype] = np.asarray([p for _, p in s.poses_with_stamps])
+    assert np.isfinite(poses[torch.float64]).all()
+    assert ate_rmse(list(poses[torch.float32]), list(poses[torch.float64]),
+                    align=False) < 5e-3
+
+
+@pytest.mark.cuda
+def test_cli_drive_launches_gn_once_a_frame(card, tmp_path):
+    from kinematic_icp_tpu_torch import run_odometry
+    from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils.io.tum import read_tum
+
+    seq = synthetic.make_sequence(10)
+    bag = str(tmp_path / "drive.mcap")
+    synthetic.write_sequence_to_mcap(seq, bag)
+    timings = {}
+    before = gn.LAUNCHES
+    out = run_odometry.main([bag, "--max-points", "8192", "--no-progress"],
+                            timings=timings)
+    stamps, poses = read_tum(out)
+    assert len(poses) == timings["frames"] == 10
+    assert np.isfinite(np.asarray(poses)).all()
+    # frame 0 is stationary (identity odometry): 9 registered frames
+    assert gn.LAUNCHES - before == 9
+
+
+@pytest.mark.cuda
+def test_native_library_loads_on_the_card_host(card):
+    from kinematic_icp_tpu_torch import baseline_native
+    from kinematic_icp_tpu_torch.utils.io import native
+
+    assert native.get_lib() is not None
+    assert baseline_native.available()

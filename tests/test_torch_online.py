@@ -23,6 +23,7 @@ from kinematic_icp_tpu_torch.utils import synthetic
 from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 from kinematic_icp_tpu_torch.utils.io import laserscan as tlaser
 from kinematic_icp_tpu_torch.utils.io import messages as tmsg
+from kinematic_icp_tpu_torch.utils.io import native as tnative
 from kinematic_icp_tpu_torch.utils.io import tf as ttf
 from kinematic_icp_tpu_torch.utils.io import timestamps as tts
 from kinematic_icp_tpu_torch.utils.io import tum as ttum
@@ -151,7 +152,10 @@ def test_transform_buffer_matches_jax():
 
 
 def test_project_laser_matches_jax_numpy_path(monkeypatch):
+    """Both packages' numpy paths (each also has a native one, held to
+    JAX's in tests/test_torch_io.py)."""
     monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    monkeypatch.setattr(tnative, "get_lib", lambda: None)
     jcloud = jlaser.project_laser(_scan(jmsg))
     tcloud = tlaser.project_laser(_scan(tmsg))
     assert tcloud.encode() == jcloud.encode()

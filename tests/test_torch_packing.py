@@ -132,3 +132,87 @@ def test_unpack_rejects_a_wrong_buffer():
         tpk.unpack_frame(buf.to(torch.int32), 64, "f32")
     with pytest.raises(ValueError):
         tpk.packed_words(64, "f16")
+
+
+#: tests/test_torch_server.py's configuration, four frames of its drive
+#: (frame 0 is stationary, frames 1-3 register)
+RULE_CFG = dict(max_points=4096, max_downsampled=4096, max_source=1024,
+                map_capacity=1 << 13, max_range=60.0, deskew=True)
+RULE_FRAMES = 4
+
+
+def _stamp_rule_drives(stamps):
+    """The drive's poses through ``run_offline``, the server and
+    ``BatchedOdometryRunner.step``, each scan carrying ``stamps(t)`` in
+    place of its own per-point stamps t (None: no stamps)."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import run_offline
+    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    seq = synthetic.make_sequence(RULE_FRAMES)
+    cfg, ext, rels = Config(**RULE_CFG), seq["extrinsic"], seq["rel_odometry"]
+    frames = [(p, None if stamps is None else stamps(t))
+              for p, t in seq["frames"]]
+    offline, _ = run_offline(frames, rels, cfg, extrinsic=ext, device="cpu")
+    server = LidarOdometryServer(cfg, extrinsic=ext, device="cpu")
+    for i, (p, t) in enumerate(frames):
+        server.register_frame(p, t, rels[i], stamp=0.1 * (i + 1))
+    served = np.asarray([p for _, p in server.poses_with_stamps])
+    stepped = np.asarray(BatchedOdometryRunner(
+        cfg, 1, extrinsic=ext, device="cpu").run(
+            [{"frames": frames, "rel_odometry": rels}])[0])
+    return {"run_offline": offline, "server": served, "step": stepped}
+
+
+@pytest.fixture(scope="module")
+def stamp_rule_reference():
+    return {"none": _stamp_rule_drives(None),
+            "per_point": _stamp_rule_drives(lambda t: t)}
+
+
+@pytest.mark.parametrize("extra", [1, -1], ids=["one_more", "one_fewer"])
+def test_every_entry_point_deskews_only_one_stamp_per_point(
+        stamp_rule_reference, extra):
+    """One rule on every entry point (ROADMAP C, fixed): a scan whose stamps
+    are not one per point runs without deskew, bit-equal to the same scan
+    without stamps, through ``run_offline``, the server and
+    ``BatchedOdometryRunner.step`` alike (one stamp fewer used to raise a
+    broadcast error in ``step``; one more used to deskew in
+    ``run_offline`` and ``step`` and not in the server)."""
+    def off_by_one(t):
+        return (np.concatenate([t, [0.5]]).astype(np.float32) if extra > 0
+                else t[:-1])
+
+    got = _stamp_rule_drives(off_by_one)
+    none, per_point = (stamp_rule_reference[k] for k in ("none", "per_point"))
+    for path, poses in got.items():
+        assert poses.shape == (RULE_FRAMES, 4, 4)
+        np.testing.assert_array_equal(poses, none[path], err_msg=path)
+        # the deskew moves the drive: the rule decides the poses
+        assert np.abs(per_point[path] - none[path]).max() > 1e-4, path
+    for path in ("server", "step"):
+        np.testing.assert_allclose(got[path], got["run_offline"], atol=1e-5,
+                                   rtol=0, err_msg=path)
+
+
+def test_pad_sequence_differs_from_jax_on_extra_stamps():
+    """The deliberate difference from JAX, pinned: JAX's ``pad_sequence``
+    (and its batched ``step``) enables deskew for at least as many stamps
+    as points; the port only for exactly one stamp per point."""
+    from kinematic_icp_tpu import Config as JConfig
+    from kinematic_icp_tpu.offline import pad_sequence as jpad
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import pad_sequence as tpad
+
+    pts, ts, rel = _frame(10, seed=5)
+    frames = [(pts, np.concatenate([ts, [0.5]]).astype(np.float32)),
+              (pts, ts)]
+    j = jpad(frames, [rel, rel], JConfig(max_points=16))
+    t = tpad(frames, [rel, rel], Config(max_points=16))
+    assert j[3].tolist() == [True, True]
+    assert t[3].tolist() == [False, True]
+    for i in (0, 2, 4):  # points, mask, odometry
+        np.testing.assert_array_equal(j[i], t[i])
+    np.testing.assert_array_equal(j[1][1], t[1][1])  # the per-point stamps
