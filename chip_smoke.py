@@ -47,7 +47,25 @@ last line.  Phases:
      a stationary gate other than 1e-3, the raise on too many sequences);
      and a batch one frame larger than the card's co-resident CTAs (two
      launches, every frame bit-equal to its own single launch);
- 10. serve: ``server.LidarOdometryServer`` over the 60 headline frames,
+ 10. batched_exact: 4 of those drives, 20 frames, under the exact
+     configuration through the batched runner (one ``check_crossing``
+     launch a batched frame, the full-27 loop on the batched frames where
+     some row's certificate failed, zero overflow, each drive within 5 mm
+     of its own ``run_offline``, fallback counts beside that drive's own,
+     aggregate frames/s); 2 drives, 10 frames, pruned exact, bit-equal to
+     the batched full-27 loop;
+ 11. sharded_1rank: a one-rank NCCL group and a (1, 1) mesh,
+     ``parallel.BatchedOdometryRunner(mesh=...)`` over 2 of the drives, 20
+     frames (``run`` within 1e-5 of ``run_device``, bit-equal to the
+     unsharded runner's loop lowering, each drive within 5 mm of its
+     ``run_offline``, no GN launch: the sharded path runs none, by
+     design; ms and collectives a frame);
+ 12. sharded_2rank: this script again as two worker processes on the one
+     card (``--sharded-worker RANK PORT DIR``; gloo, a (1, 2) mesh, a wall
+     limit each): gloo's CUDA int32 MIN and float32 SUM, each drive within
+     5 mm of the one-rank run, zero overflow, every stored voxel on its
+     owner's rank, each shard's voxel count, ms a frame;
+ 13. serve: ``server.LidarOdometryServer`` over the 60 headline frames,
      one JSON line per sub-phase: blocking (per-frame latency p50/p90/p99,
      frames/s, one GN launch per registered frame, zero overflow, better
      than dead reckoning, within 5 mm of the main path's ``run_offline``
@@ -60,21 +78,21 @@ last line.  Phases:
      wheel odometry, ``/tf_static`` extrinsic); and a float64 server over
      20 frames (one GN launch per registered frame, within 5 mm of the
      float32 server);
- 11. cli: ``run_odometry.main`` (the offline CLI) over the 60 headline
+ 14. cli: ``run_odometry.main`` (the offline CLI) over the 60 headline
      frames written to an uncompressed mcap by the port's writer (one GN
      launch per registered frame, the native ingestion library loaded,
      better than dead reckoning, within the 0.0251 m self-divergence floor
      of ``run_offline``'s poses, ``evaluate`` against a ground-truth TUM,
      frames/s and the wall split into read/decode, register and write),
      then 20 frames of the 2D LaserScan topic through ``--use-2d-lidar``;
- 12. oracle: ``run_offline`` on the card against the port's float64
+ 15. oracle: ``run_offline`` on the card against the port's float64
      ``OracleKinematicICP`` over tests/test_differential.py's drive and
      bounds, and the native C++ baseline (built here from
      ``native/kicp_baseline.cpp``) over the 60 headline frames, within
      tests/test_differential.py:137's bound of this drive's own
      self-divergence (the baseline against itself with 1 um of noise and
      on two permutations of the points);
- 13. the ``kernels`` summary line, the card's name and power limit, and
+ 16. the ``kernels`` summary line, the card's name and power limit, and
      the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
@@ -83,6 +101,7 @@ It imports nothing of JAX; it needs one card and exits non-zero without one.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -135,6 +154,17 @@ SWEEP_BATCHES = (1, 2, 8, 16)
 SWEEP_FRAMES = 20
 PROFILED_FRAMES = 5
 RUNNER_FRAMES = 20
+#: the batched exact phase: distinct headline drives and their frames
+#: under EXACT, then the pruned drives and frames
+EXACT_BATCH = 4
+EXACT_BATCH_FRAMES = 20
+PRUNED_BATCH = 2
+PRUNED_BATCH_FRAMES = 10
+#: the sharded phases: headline drives and frames, and each two-rank
+#: worker's wall limit (s)
+SHARD_BATCH = 2
+SHARD_FRAMES = 20
+SHARD_WORKER_TIMEOUT_S = 300
 #: the float64 served drive's frames
 FLOAT64_FRAMES = 20
 #: the cli phase: the 2D drive's frames, its LaserScan topic and point
@@ -612,7 +642,8 @@ def run_batched(torch, np, seqs, config, count, profile=False):
     (poses (F, B, 4, 4), overflow (B, 3), {"pad_s", "upload_s", "run_s",
     "seconds"}: host seconds of the numpy padding, of the uploads (to their
     end) and of the runner with the readback, and their sum, device
-    launches a frame with ``profile``, else None)."""
+    launches a frame with ``profile``, else None, exact-mode fallback
+    frames (B,))."""
     from kinematic_icp_tpu_torch.offline import (init_batched_state,
                                                  make_batched_sequence_runner,
                                                  pad_batch)
@@ -648,7 +679,17 @@ def run_batched(torch, np, seqs, config, count, profile=False):
     t3 = time.perf_counter()
     stages = {"pad_s": t1 - t0, "upload_s": t2 - t1, "run_s": t3 - t2,
               "seconds": t3 - t0}
-    return poses, overflow, stages, launches
+    return poses, overflow, stages, launches, out[3].cpu().numpy()
+
+
+def headline_drive(s):
+    """Distinct headline drive ``s`` (MAIN_FRAMES frames)."""
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    return synthetic.make_sequence(MAIN_FRAMES, world_seed=s,
+                                   traj_seed=s + 10, noise_seed=s + 20,
+                                   lidar=synthetic.realistic_lidar(),
+                                   clear_path_margin=3.0)
 
 
 def batched_drive_phase(torch, np):
@@ -657,16 +698,11 @@ def batched_drive_phase(torch, np):
     the card.  Returns (row, the drives)."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.ops import gn
-    from kinematic_icp_tpu_torch.utils import synthetic
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = Config(**HEADLINE)
     count = MAIN_FRAMES
-    seqs = [synthetic.make_sequence(count, world_seed=s, traj_seed=s + 10,
-                                    noise_seed=s + 20,
-                                    lidar=synthetic.realistic_lidar(),
-                                    clear_path_margin=3.0)
-            for s in range(BATCH)]
+    seqs = [headline_drive(s) for s in range(BATCH)]
     last = seqs[-1]
     seqs[-1] = dict(last, frames=last["frames"][:BATCH_SHORT],
                     rel_odometry=last["rel_odometry"][:BATCH_SHORT],
@@ -675,7 +711,7 @@ def batched_drive_phase(torch, np):
     torch.cuda.reset_peak_memory_stats()
     gn.LAUNCHES = 0
     gn.FRAMES = 0
-    poses, overflow, stages, _ = run_batched(torch, np, seqs, cfg, count)
+    poses, overflow, stages, _, _ = run_batched(torch, np, seqs, cfg, count)
     seconds = stages["seconds"]
     launches, frames = gn.LAUNCHES, gn.FRAMES
     peak = torch.cuda.max_memory_allocated()
@@ -742,11 +778,11 @@ def batched_sweep_phase(torch, np, seq, card):
         seqs = [seq] * b
         run_batched(torch, np, seqs, cfg, 3)  # warm-up
         torch.cuda.reset_peak_memory_stats()
-        _, overflow, stages, _ = run_batched(torch, np, seqs, cfg, count)
+        _, overflow, stages, _, _ = run_batched(torch, np, seqs, cfg, count)
         seconds = stages["seconds"]
         peak = torch.cuda.max_memory_allocated()
-        _, _, _, launches = run_batched(torch, np, seqs, cfg,
-                                        PROFILED_FRAMES, profile=True)
+        _, _, _, launches, _ = run_batched(torch, np, seqs, cfg,
+                                           PROFILED_FRAMES, profile=True)
         rows[b] = {"aggregate_frames_per_s": b * count / seconds,
                    "batched_frames_per_s": count / seconds,
                    # a batched frame's wall ms, split by stage
@@ -917,7 +953,315 @@ def batched_phase(torch, np, seq, card):
                       **{"capacity_" + c: v
                          for c, v in capacity["checks"].items()}}}
     emit(row)
-    return kernels[0], drive
+    return kernels[0], drive, seqs
+
+
+def batched_exact_phase(torch, np, seqs):
+    """EXACT_BATCH distinct headline drives under the reference-exact
+    configuration through the batched sequence runner: one launch of the
+    kernel's ``check_crossing`` instance a batched frame, and the full-27
+    loop on the batched frames where some row's certificate failed; each
+    drive against its own ``run_offline``.  Then PRUNED_BATCH drives in
+    pruned exact, bit-equal to the batched full-27 loop.  The counts are
+    set to 0 just before the batched run and read just after."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.ops import gn, registration
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = Config(**EXACT)
+    count = EXACT_BATCH_FRAMES
+    drives = seqs[:EXACT_BATCH]
+    run_batched(torch, np, drives, cfg, 3)  # warm-up
+    gn.LAUNCHES = 0
+    gn.CROSSING_LAUNCHES = 0
+    registration.FALLBACK_LOOPS = 0
+    poses, overflow, stages, _, fallbacks = run_batched(torch, np, drives,
+                                                        cfg, count)
+    launches, crossing = gn.LAUNCHES, gn.CROSSING_LAUNCHES
+    loops = registration.FALLBACK_LOOPS
+    per_seq = []
+    for i, s in enumerate(drives):
+        single, single_s, single_overflow, stats = run_drive(torch, s, cfg,
+                                                             count)
+        got = poses[:, i]
+        per_seq.append({
+            "ate_vs_run_offline_m": ate_rmse(single, got, align=False),
+            "frames_bit_equal_to_run_offline": sum(
+                bool(np.array_equal(a, b)) for a, b in zip(got, single)),
+            "exact_fallback_frames": int(fallbacks[i]),
+            "run_offline_exact_fallback_frames":
+                stats["exact_fallback_frames"],
+            "run_offline_frames_per_s": count / single_s,
+            "run_offline_overflow": single_overflow or [0, 0, 0]})
+
+    pcfg = Config(**PRUNED)
+    two = drives[:PRUNED_BATCH]
+    pruned, p_overflow, p_stages, _, p_fallbacks = run_batched(
+        torch, np, two, pcfg, PRUNED_BATCH_FRAMES)
+    full, f_overflow, f_stages, _, _ = run_batched(
+        torch, np, two, pcfg.replace(exact_prune_candidates=0),
+        PRUNED_BATCH_FRAMES)
+    equal = sum(bool(np.array_equal(a, b)) for a, b in zip(pruned, full))
+    seconds = stages["seconds"]
+    row = {"phase": "batched_exact", "B": EXACT_BATCH, "frames": count,
+           "config": EXACT, "gn_launches": launches,
+           "gn_check_crossing_launches": crossing,
+           "fallback_loops": loops,
+           "exact_fallback_frames": fallbacks.tolist(),
+           "overflow": overflow.tolist(), "seconds": seconds,
+           "stages_s": stages,
+           "aggregate_frames_per_s": EXACT_BATCH * count / seconds,
+           "sequences": per_seq,
+           "pruned": {"B": PRUNED_BATCH, "frames": PRUNED_BATCH_FRAMES,
+                      "config": PRUNED,
+                      "exact_fallback_frames": p_fallbacks.tolist(),
+                      "batched_frames_bit_equal_to_full_27": equal,
+                      "aggregate_frames_per_s": PRUNED_BATCH
+                      * PRUNED_BATCH_FRAMES / p_stages["seconds"],
+                      "full_27_aggregate_frames_per_s": PRUNED_BATCH
+                      * PRUNED_BATCH_FRAMES / f_stages["seconds"]}}
+    row["checks"] = {
+        "finite": bool(np.isfinite(poses).all()),
+        "one_check_crossing_launch_per_batched_frame":
+            crossing == launches == count,
+        # the loop runs on a batched frame where some row crossed
+        # (stationary frames included, which the counts leave out)
+        "fallback_loop_where_a_row_fell_back": (
+            loops <= count and (loops > 0 or not fallbacks.any())),
+        "zero_overflow": not overflow.any() and not any(
+            any(p["run_offline_overflow"]) for p in per_seq),
+        "each_within_5mm_of_run_offline": all(
+            p["ate_vs_run_offline_m"] < 5e-3 for p in per_seq),
+        "pruned_bit_equal_to_full_27": equal == PRUNED_BATCH_FRAMES,
+        "pruned_zero_overflow": not p_overflow.any() and not f_overflow.any()}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"batched_exact failed: {row['checks']}")
+    return row
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_drives(seqs):
+    return [{"frames": s["frames"][:SHARD_FRAMES],
+             "rel_odometry": s["rel_odometry"][:SHARD_FRAMES]}
+            for s in seqs[:SHARD_BATCH]]
+
+
+def sharded_runner(torch, np, mesh, drives, ext, how="run_device"):
+    """``BatchedOdometryRunner`` on ``mesh`` over ``drives`` (headline
+    config) by ``how``, the collective count set to 0 just before and read
+    just after.  Returns (poses (B, F, 4, 4), seconds, collectives,
+    overflow warnings, the runner)."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner, sharded
+
+    runner = BatchedOdometryRunner(Config(**HEADLINE), len(drives),
+                                   mesh=mesh, extrinsic=ext)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        sharded.COLLECTIVES = 0
+        t0 = time.perf_counter()
+        poses = getattr(runner, how)(drives)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        collectives = sharded.COLLECTIVES
+    overflow = [str(w.message) for w in caught
+                if "capacity overflow" in str(w.message)]
+    return np.asarray(poses), seconds, collectives, overflow, runner
+
+
+def sharded_1rank_phase(torch, np, seqs):
+    """The map-sharded path on a one-rank NCCL group and a (1, 1) mesh:
+    ``BatchedOdometryRunner(mesh=...)`` over SHARD_BATCH headline drives
+    (``run_device`` timed; ``run`` within 1e-5 of it), bit-equal to the
+    unsharded runner's loop lowering (the sharded path runs no GN kernel,
+    by design), each drive within 5 mm of its ``run_offline`` (which runs
+    the kernel).  Returns (row, the run_device poses (B, F, 4, 4))."""
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.ops import gn, hashmap
+    from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
+                                                  initialize_distributed,
+                                                  make_mesh)
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    drives = sharded_drives(seqs)
+    ext = seqs[0]["extrinsic"]
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh(1, 1)
+        sharded_runner(torch, np, mesh, [{k: v[:3] for k, v in d.items()}
+                                         for d in drives], ext)  # warm-up
+        gn.LAUNCHES = 0
+        device, seconds, collectives, overflow, runner = sharded_runner(
+            torch, np, mesh, drives, ext)
+        launches = gn.LAUNCHES
+        stepped, step_s, _, step_overflow, _ = sharded_runner(
+            torch, np, mesh, drives, ext, how="run")
+        voxels = hashmap.num_voxels(runner.state.map).tolist()
+    finally:
+        dist.destroy_process_group()
+    loop = np.asarray(BatchedOdometryRunner(
+        Config(**HEADLINE, gn_backend="torch"), SHARD_BATCH,
+        extrinsic=ext).run_device(drives))
+    bits = sum(bool(np.array_equal(device[:, f], loop[:, f]))
+               for f in range(SHARD_FRAMES))
+    ate = [ate_rmse(run_drive(torch, s, Config(**HEADLINE), SHARD_FRAMES)[0],
+                    device[i], align=False)
+           for i, s in enumerate(seqs[:SHARD_BATCH])]
+    step_diff = float(np.abs(stepped - device).max())
+    row = {"phase": "sharded_1rank", "backend": backend, "mesh": [1, 1],
+           "B": SHARD_BATCH, "frames": SHARD_FRAMES, "config": HEADLINE,
+           "seconds": seconds, "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
+           "run_ms_per_frame": step_s * 1e3 / SHARD_FRAMES,
+           "collectives_per_frame": collectives / SHARD_FRAMES,
+           "gn_launches": launches,
+           "frames_bit_equal_to_unsharded_loop": bits,
+           "run_vs_run_device_max_abs": step_diff,
+           "ate_vs_run_offline_m": ate, "voxels": voxels,
+           "overflow": overflow or [0, 0, 0]}
+    row["checks"] = {
+        "finite": bool(np.isfinite(device).all()),
+        "run_within_1e-5_of_run_device": step_diff <= 1e-5,
+        "bit_equal_to_unsharded_loop": bits == SHARD_FRAMES,
+        "each_within_5mm_of_run_offline": max(ate) < 5e-3,
+        "zero_overflow": not overflow and not step_overflow,
+        # collectives cannot run inside a kernel
+        "no_gn_kernel_by_design": launches == 0}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"sharded_1rank failed: {row['checks']}")
+    return row, device
+
+
+def sharded_worker(rank, port, out_dir):
+    """One rank of the two-rank phase (``chip_smoke.py --sharded-worker
+    RANK PORT DIR``): a gloo group of two processes on the one card, a
+    (1, 2) mesh, the sharded runner over the SHARD_BATCH headline drives;
+    writes its poses and counts to DIR."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.ops import hashmap
+    from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
+                                                  make_mesh, sharded)
+
+    rank = int(rank)
+    initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    try:
+        mesh = make_mesh(1, 2)
+        group = mesh.get_group("map")
+        dev = sharded.mesh_device(mesh)
+        # gloo reduces CUDA tensors through host memory: int32 MIN and
+        # float32 SUM, the sharded path's two reductions
+        least = torch.tensor([rank + 1, 4 - rank], dtype=torch.int32,
+                             device=dev)
+        dist.all_reduce(least, op=dist.ReduceOp.MIN, group=group)
+        sums = torch.full((3,), rank + 0.25, device=dev)
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+        gloo_cuda = (least.is_cuda and least.tolist() == [1, 3]
+                     and sums.tolist() == [1.5] * 3)
+        seqs = [headline_drive(s) for s in range(SHARD_BATCH)]
+        drives = sharded_drives(seqs)
+        ext = seqs[0]["extrinsic"]
+        sharded_runner(torch, np, mesh, [{k: v[:3] for k, v in d.items()}
+                                         for d in drives], ext)  # warm-up
+        poses, seconds, collectives, overflow, runner = sharded_runner(
+            torch, np, mesh, drives, ext)
+        m = runner.state.map
+        k = m.block_size
+        slots = m.table.view(*m.table.shape[:-1], m.bucket_slots, k + 4)
+        keys = slots[..., k + 1:][slots[..., k] != 0]
+        owner = sharded._owner_of(keys[:, 0], keys[:, 1], keys[:, 2], 2)
+        meta = {"rank": rank, "backend": dist.get_backend(),
+                "device": str(dev), "gloo_cuda_int32_min_f32_sum": gloo_cuda,
+                "seconds": seconds, "collectives": collectives,
+                "overflow": overflow or [0, 0, 0],
+                "voxels": hashmap.num_voxels(m).tolist(),
+                "every_voxel_on_its_owner": bool(
+                    (owner == mesh.get_local_rank("map")).all())}
+    finally:
+        dist.destroy_process_group()
+    np.save(os.path.join(out_dir, f"poses{rank}.npy"), poses)
+    with open(os.path.join(out_dir, f"meta{rank}.json"), "w") as f:
+        json.dump(meta, f)
+    print(f"sharded worker {rank}: OK", flush=True)
+    return 0
+
+
+def sharded_2rank_phase(torch, np, one_rank):
+    """Two ranks on the one card: this script as two worker processes
+    (gloo, a (1, 2) mesh: each sequence's map split over the two), each
+    under a wall limit; each drive within 5 mm of the one-rank run, every
+    stored voxel on its owner's rank."""
+    import tempfile
+
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    with tempfile.TemporaryDirectory(prefix="kicp_sharded_") as tmp:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-worker",
+             str(r), str(port), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SHARD_WORKER_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"sharded_2rank: a worker ran past "
+                             f"{SHARD_WORKER_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0 or f"sharded worker {r}: OK" not in log:
+                print(log[-4000:], file=sys.stderr)
+                raise SystemExit(f"sharded_2rank: worker {r} failed "
+                                 f"(exit {p.returncode})")
+        poses = [np.load(os.path.join(tmp, f"poses{r}.npy")) for r in (0, 1)]
+        meta = []
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"meta{r}.json")) as f:
+                meta.append(json.load(f))
+    ate = [ate_rmse(one_rank[i], poses[0][i], align=False)
+           for i in range(SHARD_BATCH)]
+    seconds = max(m["seconds"] for m in meta)
+    row = {"phase": "sharded_2rank", "backend": meta[0]["backend"],
+           "mesh": [1, 2], "B": SHARD_BATCH, "frames": SHARD_FRAMES,
+           "devices": [m["device"] for m in meta], "seconds": seconds,
+           "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
+           "collectives_per_frame": meta[0]["collectives"] / SHARD_FRAMES,
+           "ate_vs_one_rank_m": ate,
+           "max_abs_vs_one_rank": float(np.abs(poses[0] - one_rank).max()),
+           "voxels_per_shard": [m["voxels"] for m in meta],
+           "overflow": [m["overflow"] for m in meta]}
+    row["checks"] = {
+        "gloo_takes_cuda_int32_min_and_f32_sum": all(
+            m["gloo_cuda_int32_min_f32_sum"] for m in meta),
+        "finite": all(bool(np.isfinite(p).all()) for p in poses),
+        "ranks_agree": bool(np.array_equal(poses[0], poses[1])),
+        "each_within_5mm_of_one_rank": max(ate) < 5e-3,
+        "zero_overflow": all(m["overflow"] == [0, 0, 0] for m in meta),
+        "every_voxel_on_its_owner": all(m["every_voxel_on_its_owner"]
+                                        for m in meta),
+        "both_shards_hold_voxels": all(min(m["voxels"]) > 0 for m in meta)}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"sharded_2rank failed: {row['checks']}")
+    return row
 
 
 def stamped_poses(np, server):
@@ -1451,7 +1795,11 @@ def main():
     exact_launches = exact_phase(torch, np, seq, main_poses)
     fallback_phase(torch, np)
     pruned_phase(torch, np, seq)
-    batched_kernel, batched_drive = batched_phase(torch, np, seq, card)
+    batched_kernel, batched_drive, drives = batched_phase(torch, np, seq,
+                                                          card)
+    batched_exact = batched_exact_phase(torch, np, drives)
+    _, one_rank = sharded_1rank_phase(torch, np, drives)
+    sharded_2rank_phase(torch, np, one_rank)
     serve_launches = serve_phase(torch, np, seq, main_poses)
     cli_launches = cli_phase(torch, np, seq, main_poses, card)
     oracle_phase(torch, np, seq, main_poses)
@@ -1465,6 +1813,7 @@ def main():
         "launches_serve_blocking": serve_launches,
         "launches_cli": cli_launches,
         "launches_batched": batched_drive["gn_launches"],
+        "launches_batched_exact": batched_exact["gn_check_crossing_launches"],
         "frames_per_launch_batched": batched_drive["frames_per_launch"],
         "batched_ms": batched_kernel["ms"],
         "batched_bound_ms": batched_kernel["bound_ms"],
@@ -1480,4 +1829,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(*sys.argv[2:5]))
     sys.exit(main())

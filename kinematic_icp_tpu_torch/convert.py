@@ -6,7 +6,8 @@ as numpy arrays (e.g. from the JAX package's ``OdometryState``), they
 become this package's state, and back.  The table's u32 words are stored as
 int32 bits, so the round trip is bit-exact.  A batched state (the batched
 sequence runner's, or JAX's ``init_batched_state``) carries the same arrays
-with a leading batch axis.
+with a leading batch axis; a map-sharded state is one slice of such a
+batched state a rank (``sharded_state_from_jax`` and its inverse).
 """
 
 from __future__ import annotations
@@ -69,3 +70,39 @@ def state_to_numpy(state: OdometryState):
             state.map.table.detach().cpu().numpy().view(np.uint32),
             state.threshold.odom_sse.detach().cpu().numpy(),
             state.threshold.num_samples.detach().cpu().numpy())
+
+
+def sharded_state_from_jax(np_state, data: int, map: int, rank: int):
+    """A whole batched state's arrays -> rank ``rank``'s slice of them on a
+    (data, map) mesh, as ``state_to_numpy`` orders them.
+
+    ``np_state``: (pose (B, 4, 4), table (B, NB, G*R) uint32, odom_sse (B,),
+    num_samples (B,)), e.g. the JAX package's ``init_sharded_state`` or
+    sharded runner's state read back whole.  Rank (d, j) (``rank = d * map
+    + j``, the mesh's row-major order) takes rows ``d*B_l:(d+1)*B_l`` and
+    buckets ``j*NB/map:(j+1)*NB/map``, JAX's ``P('data', 'map')`` layout;
+    ``state_from_numpy`` makes the rank's state of them."""
+    pose, table = np.asarray(np_state[0]), np.asarray(np_state[1])
+    b, nb = table.shape[:2]
+    if b % data or nb % map or not 0 <= rank < data * map:
+        raise ValueError(f"a table of {b} rows and {nb} buckets on a "
+                         f"{data}x{map} mesh, rank {rank}")
+    d, j = divmod(rank, map)
+    rows = slice(d * b // data, (d + 1) * b // data)
+    buckets = slice(j * nb // map, (j + 1) * nb // map)
+    return (pose[rows], np.ascontiguousarray(table[rows, buckets]),
+            *(np.asarray(a)[rows] for a in np_state[2:]))
+
+
+def sharded_state_to_jax(rank_arrays, data: int, map: int):
+    """The inverse of ``sharded_state_from_jax``: every rank's arrays (a
+    list in rank order, each as ``state_to_numpy`` returns them) -> the
+    whole batched state's arrays.  The pose and accumulators of the map
+    ranks of a data row are the same; the first's are taken."""
+    if len(rank_arrays) != data * map:
+        raise ValueError(f"{len(rank_arrays)} ranks for a {data}x{map} mesh")
+    rows = [rank_arrays[d * map:(d + 1) * map] for d in range(data)]
+    table = np.concatenate([np.concatenate([r[1] for r in row], axis=1)
+                            for row in rows])
+    return (np.concatenate([row[0][0] for row in rows]), table,
+            *(np.concatenate([row[0][i] for row in rows]) for i in (2, 3)))

@@ -7,7 +7,10 @@ threshold accumulators) become an explicit ``OdometryState``, and
 outputs)``.  Under the default registration the step reads nothing back to
 the host, so a frame can later be captured as a CUDA graph; the exact modes
 (``exact_gn_reassociation``) read their fallback flag once a frame, which
-blocks such a graph.
+blocks such a graph.  ``register_frame`` is ``prepare_frame``, the
+registration and map update, then ``finish_frame``; the map-sharded step
+(``parallel.sharded``) runs the same first and last parts around its own
+middle.
 """
 
 from __future__ import annotations
@@ -71,6 +74,18 @@ def set_pose(state: OdometryState, pose, config: Config) -> OdometryState:
     )
 
 
+class PreparedFrame(NamedTuple):
+    """A frame up to its registration (each with a leading B in a batch)."""
+    frame: P3                   # (N,) planes — deskewed frame in base coords
+    frame_mask: torch.Tensor    # (N,)
+    source: P3                  # (S,) planes — ICP keypoints (base frame)
+    source_mask: torch.Tensor   # (S,)
+    frame_ds: P3                # (D,) planes — the map-update cloud
+    frame_ds_mask: torch.Tensor  # (D,)
+    ds_dropped: torch.Tensor    # (2,) int32 downsample capacity overflows
+    tau: torch.Tensor           # correspondence threshold
+
+
 def register_frame(state: OdometryState, points, timestamps, mask,
                    has_timestamps, lidar_to_base, relative_odometry,
                    config: Config, active=None, rel_twist_in_lidar=None
@@ -97,6 +112,39 @@ def register_frame(state: OdometryState, points, timestamps, mask,
       rel_twist_in_lidar: optional precomputed (6,)
         ``se3_log(lidar_to_base^-1 @ relative_odometry @ lidar_to_base)``.
     """
+    prep = prepare_frame(state, points, timestamps, mask, has_timestamps,
+                         lidar_to_base, relative_odometry, config,
+                         rel_twist_in_lidar)
+    new_pose, debug = registration.compute_robot_motion(
+        state.map, prep.source, prep.source_mask, state.pose,
+        relative_odometry, prep.tau,
+        voxel_size=config.voxel_size, max_probes=config.max_probes,
+        max_num_iterations=config.max_num_iterations,
+        convergence_criterion=config.convergence_criterion,
+        use_adaptive_odometry_regularization=(
+            config.use_adaptive_odometry_regularization),
+        fixed_regularization=config.fixed_regularization,
+        num_candidate_voxels=config.neighbor_candidates,
+        exact_gn_reassociation=config.exact_gn_reassociation,
+        exact_prune_candidates=config.exact_prune_candidates,
+        gn_candidates_per_voxel=config.gn_candidates_per_voxel,
+        gn_backend=config.gn_backend,
+        threshold_max_range=config.max_range)
+    new_map, insert_failed = hashmap.update(
+        state.map, prep.frame_ds, prep.frame_ds_mask, new_pose,
+        config.voxel_size, config.max_range, config.max_probes,
+        enable=active, max_extent=2.0 * config.max_range,
+        return_failed=True)
+    return finish_frame(state, prep, relative_odometry, new_pose, debug,
+                        new_map, insert_failed, config, active)
+
+
+def prepare_frame(state: OdometryState, points, timestamps, mask,
+                  has_timestamps, lidar_to_base, relative_odometry,
+                  config: Config, rel_twist_in_lidar=None) -> PreparedFrame:
+    """A frame's steps before its registration (``register_frame``'s
+    arguments): deskew and range filter, the double downsample and the
+    correspondence threshold."""
     dtype = state.pose.dtype
     p = P3.from_array(points).astype(dtype)
 
@@ -131,22 +179,18 @@ def register_frame(state: OdometryState, points, timestamps, mask,
         map_discretization_error=config.map_resolution(),
         use_adaptive=config.use_adaptive_threshold,
         fixed_threshold=config.fixed_threshold)
+    return PreparedFrame(frame_in_base, frame_mask, source, source_mask,
+                         frame_ds, frame_ds_mask, ds_dropped, tau)
 
-    new_pose, debug = registration.compute_robot_motion(
-        state.map, source, source_mask, state.pose, relative_odometry, tau,
-        voxel_size=config.voxel_size, max_probes=config.max_probes,
-        max_num_iterations=config.max_num_iterations,
-        convergence_criterion=config.convergence_criterion,
-        use_adaptive_odometry_regularization=(
-            config.use_adaptive_odometry_regularization),
-        fixed_regularization=config.fixed_regularization,
-        num_candidate_voxels=config.neighbor_candidates,
-        exact_gn_reassociation=config.exact_gn_reassociation,
-        exact_prune_candidates=config.exact_prune_candidates,
-        gn_candidates_per_voxel=config.gn_candidates_per_voxel,
-        gn_backend=config.gn_backend,
-        threshold_max_range=config.max_range)
 
+def finish_frame(state: OdometryState, prep: PreparedFrame,
+                 relative_odometry, new_pose, debug, new_map, insert_failed,
+                 config: Config, active=None
+                 ) -> tuple[OdometryState, FrameOutputs]:
+    """A frame's steps after its registration and map update: the
+    threshold update, the stationary gate (``active`` False keeps the
+    state's pose and threshold; the map update takes it as ``enable``) and
+    the outputs."""
     if debug.odometry_error_pt is not None:
         # The kernel branches return the point-space error of
         # guess^-1 @ new_pose (KinematicICP.cpp:75 +
@@ -162,12 +206,6 @@ def register_frame(state: OdometryState, points, timestamps, mask,
             state.threshold, odometry_error, max_range=config.max_range,
             use_adaptive=config.use_adaptive_threshold)
 
-    new_map, insert_failed = hashmap.update(
-        state.map, frame_ds, frame_ds_mask, new_pose,
-        config.voxel_size, config.max_range, config.max_probes,
-        enable=active, max_extent=2.0 * config.max_range,
-        return_failed=True)
-
     if active is not None:
         new_pose = torch.where(per_row(active, 2), new_pose, state.pose)
         new_threshold = threshold.ThresholdState(
@@ -177,9 +215,9 @@ def register_frame(state: OdometryState, points, timestamps, mask,
     new_state = OdometryState(pose=new_pose, map=new_map,
                               threshold=new_threshold)
     outputs = FrameOutputs(
-        frame=frame_in_base, frame_mask=frame_mask,
-        source=source, source_mask=source_mask,
+        frame=prep.frame, frame_mask=prep.frame_mask,
+        source=prep.source, source_mask=prep.source_mask,
         pose=new_pose, debug=debug,
-        overflow=torch.cat([ds_dropped, insert_failed[..., None]],
+        overflow=torch.cat([prep.ds_dropped, insert_failed[..., None]],
                            dim=-1).to(torch.int32))
     return new_state, outputs

@@ -75,8 +75,9 @@ def make_batched_sequence_runner(config: Config, device=None,
     the batch's pads with identity odometry: its frames past the end are
     stationary and leave its state as it was.  ``stationary_gate`` is the
     |log(rel)| below which a frame is stationary (JAX's ``run_device``
-    fixes it at 1e-3).  Only the candidate-cached registration takes a
-    batch; the exact modes raise ``NotImplementedError``.
+    fixes it at 1e-3).  Under an exact mode a batched frame reads its (B,)
+    fallback flags back once, and ``fallbacks`` counts each sequence's
+    fallback frames.
     """
     return _runner(config, resolve_device(device), stationary_gate,
                    batched=True)
@@ -97,7 +98,10 @@ def init_batched_state(config: Config, batch: int, dtype=torch.float32,
             *(t.expand(batch).clone() for t in state.threshold)))
 
 
-def _runner(config: Config, dev, stationary_gate: float, batched: bool):
+def _runner(config: Config, dev, stationary_gate: float, batched: bool,
+            register=pipeline.register_frame):
+    """The frame loop over ``register`` (``register_frame``'s signature;
+    the map-sharded runner passes its own step)."""
     def run(state, pts, ts, mask, has_ts, extrinsic, rels):
         for t in (pts, ts, mask, has_ts, extrinsic, rels, state.pose):
             if t.device.type != dev.type:
@@ -117,7 +121,7 @@ def _runner(config: Config, dev, stationary_gate: float, batched: bool):
         overflow = torch.zeros(lead + (3,), dtype=torch.int32, device=dev)
         fallbacks = torch.zeros(lead, dtype=torch.int32, device=dev)
         for f in range(pts.shape[0]):
-            state, out = pipeline.register_frame(
+            state, out = register(
                 state, pts[f], ts[f], mask[f], has_ts[f], extrinsic, rels[f],
                 config, active=active[f],
                 rel_twist_in_lidar=None if twists is None else twists[f])

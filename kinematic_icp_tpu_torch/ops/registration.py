@@ -19,11 +19,13 @@ on CPU tensors); the loop branches are ``run_gn``, plain torch ops.  With
 no correspondences the update is forced to zero and the guess comes back,
 matching the reference's early return for an empty map (cpp:157).
 
-The candidate-cached branch also takes a batch of B sequences: (B, NB,
-G*R) tables, (B, N) sources, (B, 4, 4) poses and (B,) taus, every solve of
-the batch in one kernel launch (or, with ``gn_backend="torch"``, the loop
-with a (B,) convergence mask).  The exact modes take no batch axis yet
-(ROADMAP A15).
+Every branch also takes a batch of B sequences: (B, NB, G*R) tables, (B,
+N) sources, (B, 4, 4) poses and (B,) taus, every solve of the batch in one
+kernel launch (or, on the loop branches, the loop with a (B,) convergence
+mask).  Where JAX's ``vmap`` turns a ``lax.cond`` of the exact modes into
+a per-row select, the port reads the (B,) fallback flags back once and,
+if any row is set, runs the full-27 loop on the whole batch and takes its
+rows where the flag is set.
 """
 
 from __future__ import annotations
@@ -38,6 +40,10 @@ from .points import P3, per_row, transform
 #: the reference uses DBL_MIN; a float32-safe tiny value serves the same purpose
 _EPSILON = 1e-30
 
+#: full-27 fallback loops run by the exact modes so far (one a frame, or a
+#: batched frame, whose certificate failed in some row; a plain count)
+FALLBACK_LOOPS = 0
+
 
 class RegistrationDebug(NamedTuple):
     iterations: torch.Tensor           # int32 — GN iterations executed
@@ -49,9 +55,9 @@ class RegistrationDebug(NamedTuple):
     #: branches; None on the loop branches, where the pipeline computes it
     #: from the returned pose
     odometry_error_pt: torch.Tensor | None = None
-    #: scalar bool — an exact mode's certificate failed this frame and the
-    #: full-27 loop recomputed the solve; None outside the certified and
-    #: pruned-exact branches
+    #: scalar bool ((B,) in a batch) — an exact mode's certificate failed
+    #: this frame and the full-27 loop recomputed the solve; None outside
+    #: the certified and pruned-exact branches
     exact_fallback: torch.Tensor | None = None
 
 
@@ -156,7 +162,7 @@ def compute_perturbation(source: P3, targets: P3, corr_mask, pose, beta):
 def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
            convergence_criterion: float,
            use_adaptive_odometry_regularization: bool,
-           fixed_regularization: float):
+           fixed_regularization: float, reduce=None):
     """The reference GN loop over ``associate(pose) -> (targets, corr_mask,
     violation or None)``.  Returns (pose, iterations, num_correspondences,
     any violation or None).
@@ -169,11 +175,17 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
     violation counts only from an association the while loop would have
     made.  With a batch of (B, 4, 4) guesses each sequence keeps its own
     convergence mask.
+
+    ``reduce`` (the map-sharded path's sum over the shards) is applied to
+    the residual sums, each trip's normal-equation sums and the final
+    correspondence count; every call issues it the same number of times,
+    whatever the data.
     """
+    total = reduce if reduce is not None else (lambda sums: sums)
     targets, corr_mask, viol = associate(guess)
     if use_adaptive_odometry_regularization:
-        beta = compute_odometry_regularization(source, targets, corr_mask,
-                                               guess)
+        beta = regularization_from_sums(total(partial_residual_sse(
+            source, targets, corr_mask, guess)))
     else:
         beta = torch.full(guess.shape[:-2], fixed_regularization,
                           dtype=source.x.dtype, device=source.x.device)
@@ -183,7 +195,8 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
                        device=guess.device)
     for trip in range(max_num_iterations):
         live = ~conv  # the while loop would still run this trip
-        dx = compute_perturbation(source, targets, corr_mask, pose, beta)
+        dx = solve_normal_equations(total(partial_normal_equations(
+            source, targets, corr_mask, pose)), beta)
         new_pose = se3.compose44(pose, motion_model.motion_model(dx))
         new_conv = torch.linalg.vector_norm(dx, dim=-1) < convergence_criterion
         if trip + 1 < max_num_iterations:
@@ -197,7 +210,7 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
         pose = torch.where(per_row(live, 2), new_pose, pose)
         it = torch.where(live, it + 1, it)
         conv = conv | (live & new_conv)
-    return pose, it, corr_mask.sum(-1).to(torch.int32), viol
+    return pose, it, total(corr_mask.sum(-1).to(torch.int32)), viol
 
 
 def _resolve_backend(gn_backend: str, device) -> str:
@@ -240,14 +253,17 @@ def compute_robot_motion(m: hashmap.MapState, source: P3, source_mask,
         equals the full loop bit for bit;
       * "torch" otherwise: the full-27 loop.
 
-    The exact modes read the one-byte fallback flag back to the host once
-    a frame, and run the full-27 loop only on frames that set it (eager
-    PyTorch has no device-side branch).  The default branch reads nothing
-    back.  Returns (new_pose (4, 4), RegistrationDebug).
+    The exact modes read the fallback flag back to the host once a frame,
+    and run the full-27 loop only on frames that set it (eager PyTorch has
+    no device-side branch).  The default branch reads nothing back.
+    Returns (new_pose (4, 4), RegistrationDebug).
 
-    The candidate-cached branch takes a batch: (B, NB, G*R) table, (B, N)
-    sources, (B, 4, 4) poses and odometry, (B,) tau; it returns (B, 4, 4)
-    poses and (B,) debug values.  The exact modes raise on a batch.
+    Every branch takes a batch: (B, NB, G*R) table, (B, N) sources, (B, 4,
+    4) poses and odometry, (B,) tau; it returns (B, 4, 4) poses and (B,)
+    debug values.  An exact mode reads its (B,) flags back once a batched
+    frame; where any is set, the full-27 loop runs on the batch and each
+    row whose flag is set takes the loop's result, so every row equals its
+    own unbatched solve.
     """
     backend = _resolve_backend(gn_backend, source.x.device)
     # a no-op for the 0-d float32 tau of the pipeline
@@ -304,34 +320,38 @@ def compute_robot_motion(m: hashmap.MapState, source: P3, source_mask,
         return pose, RegistrationDebug(iterations=iters,
                                        num_correspondences=ncorr)
 
-    if source.x.dim() > 1:
-        raise NotImplementedError(
-            "the exact modes (exact_gn_reassociation) take no batch axis "
-            "yet: ROADMAP A15 (batched exact modes) will port them")
+    def fall_back_where(flag, *solved):
+        """``solved`` (pose, iterations, correspondences[, point-space
+        error]) with the full-27 loop's values in each row whose ``flag``
+        is set, as JAX's vmapped ``lax.cond`` selects them; the loop runs
+        only when some row is set (one sync a frame)."""
+        global FALLBACK_LOOPS
+        if not bool(flag.any()):
+            return solved
+        FALLBACK_LOOPS += 1
+        looped = full_loop()
+        if len(solved) == 4:
+            looped += (_point_error(looped[0], guess, threshold_max_range),)
+        return tuple(torch.where(per_row(flag, a.dim() - flag.dim()), a, b)
+                     for a, b in zip(looped, solved))
+
     if backend == "cuda":
         # Certified solve: while the window-margin certificate holds, the
         # cached re-selection IS the reference's re-gather (frozen map,
         # sufficient margin); a violating frame re-solves through the loop.
         cand = hashmap.gather_candidates(m, transform(guess, source),
                                          voxel_size, max_probes, 27)
-        pose, iters, ncorr, err, crossed = gn.gn_solve(
+        *solved, crossed = gn.gn_solve(
             cand, source, source_mask, guess, max_correspondence_distance,
             check_crossing=True, **kernel)
-        if bool(crossed):  # one sync a frame
-            pose, iters, ncorr = full_loop()
-            # the kernel's point-space error formula (rotations preserve
-            # norms; trace(Rg^T R) is the Frobenius product)
-            dt = torch.linalg.vector_norm(pose[:3, 3] - guess[:3, 3])
-            frob = torch.sum(pose[:3, :3] * guess[:3, :3])
-            c = torch.clamp((frob - 1.0) * 0.5, -1.0, 1.0)
-            err = (dt + 2.0 * threshold_max_range * torch.sqrt(
-                torch.clamp((1.0 - c) * 0.5, min=0.0))).to(torch.float32)
+        pose, iters, ncorr, err = fall_back_where(crossed, *solved)
         return pose, RegistrationDebug(
             iterations=iters, num_correspondences=ncorr,
             odometry_error_pt=err, exact_fallback=crossed)
 
     if 0 < exact_prune_candidates < 27:
-        tau2 = max_correspondence_distance * max_correspondence_distance
+        tau = per_row(max_correspondence_distance)
+        tau2 = tau * tau
 
         def associate_pruned(pose):
             world = transform(pose, source)
@@ -347,20 +367,29 @@ def compute_robot_motion(m: hashmap.MapState, source: P3, source_mask,
             # (offset id, lane), so the threshold is raised to the top of
             # the NEXT 10-bit bucket (which also absorbs the sqrt round
             # trip); the comparison stays in float32.
-            d_cap = torch.minimum(dist, max_correspondence_distance)
+            d_cap = torch.minimum(dist, tau)
             d2 = torch.minimum(d_cap * d_cap, tau2)
             thresh = ((d2.to(torch.float32).view(torch.int32) | 0x3FF)
                       + 0x400).view(torch.float32)
-            viol = torch.any(source_mask & (skip_lb_d2 <= thresh))
-            return t, source_mask & (dist < max_correspondence_distance), viol
+            viol = (source_mask & (skip_lb_d2 <= thresh)).any(-1)
+            return t, source_mask & (dist < tau), viol
 
-        pose, iters, ncorr, fallback = run_gn(associate_pruned, source, guess,
-                                              **loop)
-        if bool(fallback):  # one sync a frame
-            pose, iters, ncorr = full_loop()
+        *solved, fallback = run_gn(associate_pruned, source, guess, **loop)
+        pose, iters, ncorr = fall_back_where(fallback, *solved)
         return pose, RegistrationDebug(iterations=iters,
                                        num_correspondences=ncorr,
                                        exact_fallback=fallback)
 
     pose, iters, ncorr = full_loop()
     return pose, RegistrationDebug(iterations=iters, num_correspondences=ncorr)
+
+
+def _point_error(pose, guess, max_range: float):
+    """The kernel's point-space odometry error of guess^-1 @ pose, float32
+    (rotations preserve norms; trace(Rg^T R) is the Frobenius product)."""
+    dt = torch.linalg.vector_norm(pose[..., :3, 3] - guess[..., :3, 3],
+                                  dim=-1)
+    frob = torch.sum(pose[..., :3, :3] * guess[..., :3, :3], dim=(-2, -1))
+    c = torch.clamp((frob - 1.0) * 0.5, -1.0, 1.0)
+    return (dt + 2.0 * max_range * torch.sqrt(
+        torch.clamp((1.0 - c) * 0.5, min=0.0))).to(torch.float32)

@@ -1,4 +1,5 @@
-"""Voxel-grid utilities: point->voxel coords and first-point downsampling.
+"""Voxel-grid utilities: point->voxel coords, the KISS-ICP spatial hash (the
+map sharding's ownership rule) and first-point downsampling.
 
 Equivalent of ``kiss_icp::VoxelDownsample`` (KISS-ICP v1.2.0): "keep the
 first point per voxel" becomes a stable sort + run-head compaction under
@@ -28,6 +29,12 @@ PACKED_KEY_SENTINEL = 0xFFFFFFFF
 #: width at which the packed-word (quantized-payload) downsample engages
 PACKED_WORD_MIN_N = 32768
 
+# KISS-ICP spatial hash constants (VoxelHashMap.cpp, v1.2.0)
+_HX = 73856093
+_HY = 19349669
+_HZ = 83492791
+_U32 = 0xFFFFFFFF
+
 
 def voxel_coords_planar(p: P3, voxel_size: float):
     """floor(p / voxel_size) planes as int32, per KISS-ICP PointToVoxel."""
@@ -35,6 +42,25 @@ def voxel_coords_planar(p: P3, voxel_size: float):
     return (torch.floor(p.x * inv).to(torch.int32),
             torch.floor(p.y * inv).to(torch.int32),
             torch.floor(p.z * inv).to(torch.int32))
+
+
+def voxel_coords(points, voxel_size: float):
+    """(..., 3) array form of ``voxel_coords_planar``."""
+    return torch.floor(points / voxel_size).to(torch.int32)
+
+
+def spatial_hash_planar(bx, by, bz):
+    """Voxel coord planes -> (...,) u32 hash (KISS-ICP constants), as int64.
+
+    Each u32 product is an int64 product masked to 32 bits: its low 32 bits
+    are those of the u32 product, negative coordinates included."""
+    return (((bx.to(torch.int64) * _HX) ^ (by.to(torch.int64) * _HY)
+             ^ (bz.to(torch.int64) * _HZ)) & _U32)
+
+
+def spatial_hash(coords):
+    """(..., 3) int32 voxel coords -> (...,) u32 hash, as int64."""
+    return spatial_hash_planar(coords[..., 0], coords[..., 1], coords[..., 2])
 
 
 def lexsort(keys):

@@ -1,5 +1,12 @@
-"""Many sequences on one card: B drives advancing in lock-step."""
+"""Many sequences at once: batched lock-step on one card, and map-sharded
+steps over a (data, map) mesh of ``torch.distributed`` ranks."""
 
 from .batched import BatchedOdometryRunner
+from .mesh import initialize_distributed, make_mesh
+from .sharded import (init_sharded_state, make_sharded_step,
+                      sharded_register_frame)
 
-__all__ = ["BatchedOdometryRunner"]
+__all__ = [
+    "BatchedOdometryRunner", "init_sharded_state", "initialize_distributed",
+    "make_mesh", "make_sharded_step", "sharded_register_frame",
+]

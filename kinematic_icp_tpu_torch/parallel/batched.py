@@ -1,11 +1,11 @@
-"""Host-side runner for batches of independent sequences on one card.
+"""Host-side runner for batches of independent sequences.
 
 The answer to "process many bags": instead of the reference's one bag at a
 time (offline_node.cpp), B sequences advance in lock-step, padded to shared
 static shapes, every frame of the batch in the launches of one frame
-(``offline.make_batched_sequence_runner``).  The JAX package also shards
-each sequence's map over a device mesh; that is not ported yet (ROADMAP
-A13), so ``mesh`` must be ``None``.
+(``offline.make_batched_sequence_runner``).  Given a (data, map) mesh, the
+sequences are split over the data ranks and each sequence's map over the
+map ranks (``parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -21,33 +21,40 @@ from ..offline import (STATIONARY_GATE, init_batched_state,
                        make_batched_sequence_runner, pad_batch)
 from ..oracle.reference import se3_log
 from ..runtime import resolve_device
+from . import sharded
 
 
 class BatchedOdometryRunner:
-    """Lock-step batched odometry of ``batch`` sequences on one card.
+    """Lock-step batched odometry of ``batch`` sequences.
 
     ``stationary_gate``: a frame whose odometry |log(rel)| is at most this
     is stationary and leaves its sequence's state as it was, in ``step``
     (gated on the host in float64) and in ``run_device`` (on the device)
-    alike.  ``device`` ``None`` means CUDA (raises if absent).
+    alike.  ``mesh`` ``None`` runs the batch on ``device`` (``None`` means
+    CUDA; raises if absent).  With a (data, map) mesh (``parallel.
+    make_mesh``) every rank makes the same calls with the whole batch; the
+    rank keeps its rows of the state (``init_sharded_state``) on the
+    mesh's device, and the poses returned are the whole batch's.
     """
 
     def __init__(self, config: Config, batch: int, mesh=None,
                  extrinsic=None, stationary_gate: float = STATIONARY_GATE,
                  dtype=torch.float32, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (sequences and maps sharded over cards) is "
-                "not ported yet: ROADMAP A13 (map sharding); pass mesh=None "
-                "for one card")
         self.config = config
         self.batch = batch
-        self.device = resolve_device(device)
+        self.mesh = mesh
         self.dtype = dtype
         self.extrinsic = (np.eye(4) if extrinsic is None
                           else np.asarray(extrinsic, np.float64))
         self.stationary_gate = stationary_gate
-        self.state = init_batched_state(config, batch, dtype, self.device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.state = init_batched_state(config, batch, dtype, self.device)
+        else:
+            self.device = sharded.mesh_device(mesh)
+            self.state = sharded.init_sharded_state(config, mesh, batch,
+                                                    dtype)
+            self._step = sharded.make_sharded_step(config, mesh)
         self._seq_runner = None
         self.poses = [[] for _ in range(batch)]
 
@@ -106,12 +113,17 @@ class BatchedOdometryRunner:
                 ts[i, :k] = np.asarray(t, np.float32)[:k]
                 has_ts[i] = True
 
-        self.state, _ = pipeline.register_frame(
-            self.state, self._tensor(pts), self._tensor(ts),
-            self._tensor(mask), self._tensor(has_ts), self._ext(),
-            self._tensor(rel).to(self.dtype), self.config,
-            active=self._tensor(active))
-        poses = self.state.pose.cpu().numpy().astype(np.float64)
+        args = (self._tensor(pts), self._tensor(ts), self._tensor(mask),
+                self._tensor(has_ts), self._ext(),
+                self._tensor(rel).to(self.dtype))
+        if self.mesh is None:
+            self.state, _ = pipeline.register_frame(
+                self.state, *args, self.config, active=self._tensor(active))
+            poses = self.state.pose
+        else:
+            self.state, poses, _ = self._step(self.state, *args,
+                                              self._tensor(active))
+        poses = poses.cpu().numpy().astype(np.float64)
         for i in range(b):
             self.poses[i].append(poses[i])
         return poses
@@ -132,12 +144,16 @@ class BatchedOdometryRunner:
         pts, ts, mask, has_ts, rels = pad_batch(sequences, self.config, b)
         num_frames = pts.shape[0]
         if self._seq_runner is None:
-            self._seq_runner = make_batched_sequence_runner(
-                self.config, self.device, self.stationary_gate)
-        self.state, poses, overflow, _ = self._seq_runner(
+            self._seq_runner = (
+                make_batched_sequence_runner(self.config, self.device,
+                                             self.stationary_gate)
+                if self.mesh is None else
+                sharded.make_sharded_sequence_runner(
+                    self.config, self.mesh, self.stationary_gate))
+        self.state, poses, overflow = self._seq_runner(
             self.state, self._tensor(pts), self._tensor(ts),
             self._tensor(mask), self._tensor(has_ts), self._ext(),
-            self._tensor(rels).to(self.dtype))
+            self._tensor(rels).to(self.dtype))[:3]
         poses = poses.cpu().numpy().astype(np.float64)
         overflow = overflow.cpu().numpy()
         for i in range(b):

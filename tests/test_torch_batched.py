@@ -273,17 +273,42 @@ def test_gather_candidates_batched(v):
 
 
 def test_exact_modes_raise_on_a_batch():
-    cfg = Config(max_points=256, max_downsampled=256, max_source=128,
-                 map_capacity=1024, neighbor_candidates=27,
+    """The exact modes no longer raise on a batch: one batched
+    ``register_frame`` per exact mode (certified, full-27 loop, pruned) on
+    a batch of two maps gives, in each row, the unbatched call's result on
+    that row's inputs, debug values included (tests/test_torch_batched_
+    exact.py holds whole drives)."""
+    rng = np.random.default_rng(6)
+    cfg = Config(max_points=512, max_downsampled=512, max_source=256,
+                 map_capacity=2048, max_range=15.0, neighbor_candidates=27,
                  exact_gn_reassociation=True)
-    state = toffline.init_batched_state(cfg, 2, device=CPU)
-    pts = torch.from_numpy(np.random.default_rng(5).uniform(
-        -5, 5, (2, 256, 3)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="A15"):
-        tpipe.register_frame(state, pts, torch.zeros(2, 256),
-                             torch.ones(2, 256, dtype=torch.bool),
-                             torch.zeros(2, dtype=torch.bool), torch.eye(4),
-                             torch.eye(4).expand(2, 4, 4), cfg)
+    pts = rng.uniform(-6, 6, (2, 2, 512, 3)).astype(np.float32)
+    pts[1] = pts[0] + rng.normal(0, 0.02, pts[0].shape).astype(np.float32)
+    rel = np.tile(np.eye(4, dtype=np.float32), (2, 2, 1, 1))
+    rel[1, :, 0, 3] = (0.1, 0.3)
+    rel[1, :, 1, 3] = (0.05, -0.2)
+    for mode in (dict(gn_backend="cuda"), dict(gn_backend="torch"),
+                 dict(gn_backend="torch", exact_prune_candidates=14)):
+        c = cfg.replace(**mode)
+        state = toffline.init_batched_state(c, 2, device=CPU)
+        rows = [tpipe.init_state(c, device=CPU) for _ in range(2)]
+        for f in range(2):
+            args = (torch.zeros(2, 512), torch.ones(2, 512, dtype=torch.bool),
+                    torch.zeros(2, dtype=torch.bool), torch.eye(4))
+            state, out = tpipe.register_frame(
+                state, torch.from_numpy(pts[f]), *args,
+                torch.from_numpy(rel[f]), c)
+            for i in range(2):
+                rows[i], one = tpipe.register_frame(
+                    rows[i], torch.from_numpy(pts[f, i]),
+                    *(a[i] for a in args[:3]), args[3],
+                    torch.from_numpy(rel[f, i]), c)
+                assert torch.equal(state.pose[i], rows[i].pose), mode
+                assert torch.equal(state.map.table[i], rows[i].map.table)
+                for a, b in zip(out.debug, one.debug):
+                    assert (a is None) == (b is None)
+                    if a is not None:
+                        assert torch.equal(a[i], b), mode
 
 
 # --- (iii)-(iv) the batched sequence runner --------------------------------
@@ -412,8 +437,9 @@ def test_batched_odometry_runner_gate_and_limits(small_sequences):
     for call in (one.run, one.run_device):
         with pytest.raises(ValueError, match="2 sequences"):
             call(seqs)
-    with pytest.raises(NotImplementedError, match="A13"):
-        BatchedOdometryRunner(cfg, batch=1, mesh=object(), device=CPU)
+    with pytest.raises(ValueError, match="2 sequences"):
+        one.step([f for f, _ in seqs[0]["frames"][:2]],
+                 seqs[0]["rel_odometry"][:2])
 
 
 # --- (vi) batched states across packages -----------------------------------

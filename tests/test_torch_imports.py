@@ -39,14 +39,15 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "oracle.reference", "utils.io.lz4f", "utils.io.mcap",
                  "utils.io.sqlite_bag", "utils.io.bag", "utils.io.native",
                  "utils.progress", "utils.viewer", "utils.visualization",
-                 "utils.profiling"):
+                 "utils.profiling", "parallel.mesh", "parallel.sharded"):
         assert f"kinematic_icp_tpu_torch.{name}" in res["modules"]
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/profile_torch_main_path.py",
                                     "tools/gn_kernel_pace.py",
-                                    "tools/gn_kernel_parity.py"])
+                                    "tools/gn_kernel_parity.py",
+                                    "tools/sharded_scaling.py"])
 def test_card_scripts_import_no_jax(script):
     """The card's scripts run where JAX is not installed: read their import
     statements (at any depth, without running them)."""
@@ -69,7 +70,7 @@ def test_card_scripts_import_no_jax(script):
                                    "BatchedOdometryRunner",
                                    "LidarOdometryServer",
                                    "OnlineOdometryNode", "load_state",
-                                   "run_odometry"])
+                                   "run_odometry", "make_mesh"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA card")
@@ -77,7 +78,8 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
     from kinematic_icp_tpu_torch import offline, run_odometry
     from kinematic_icp_tpu_torch.models import pipeline
     from kinematic_icp_tpu_torch.online import OnlineOdometryNode
-    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
+    from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
+                                                  make_mesh)
     from kinematic_icp_tpu_torch.server import LidarOdometryServer
     from kinematic_icp_tpu_torch.utils import checkpoint
 
@@ -100,6 +102,8 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         # no --device: the CLI's default is the card
         "run_odometry": lambda: run_odometry.main(
             [str(tmp_path / "drive.mcap"), "--no-progress"]),
+        # before any process group is needed
+        "make_mesh": lambda: make_mesh(1, 1),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

@@ -287,6 +287,79 @@ def test_batched_drive_equals_one_run_per_sequence(card):
                                       stats["overflow"])
 
 
+@pytest.mark.cuda
+def test_batched_certified_exact_one_launch_a_frame(card):
+    """The certified exact mode under a batch: one launch of the
+    ``check_crossing`` instance a batched frame, the full-27 loop on the
+    batched frames where some row's certificate failed, each drive within
+    5 mm of its own ``run_offline``."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import (init_batched_state,
+                                                 make_batched_sequence_runner,
+                                                 pad_batch, run_offline)
+    from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 13, max_range=60.0, deskew=True,
+                 neighbor_candidates=27, exact_gn_reassociation=True)
+    seqs = [synthetic.make_sequence(6, world_seed=s, traj_seed=s + 10,
+                                    noise_seed=s + 20) for s in range(3)]
+    arrays = [torch.from_numpy(a).to(card) for a in pad_batch(seqs, cfg)]
+    before = (gn.LAUNCHES, gn.CROSSING_LAUNCHES, registration.FALLBACK_LOOPS)
+    _, poses, overflow, fallbacks = make_batched_sequence_runner(cfg, card)(
+        init_batched_state(cfg, 3, device=card), *arrays[:4],
+        torch.eye(4, device=card), arrays[4])
+    assert (gn.LAUNCHES, gn.CROSSING_LAUNCHES) == (before[0] + 6,
+                                                  before[1] + 6)
+    loops = registration.FALLBACK_LOOPS - before[2]
+    assert loops <= 6 and (loops > 0 or not fallbacks.any())
+    assert not overflow.any()
+    for i, s in enumerate(seqs):
+        single = run_offline(s["frames"], s["rel_odometry"], cfg)[0]
+        got = poses[:, i].cpu().numpy().astype(np.float64)
+        assert ate_rmse(list(single), list(got), align=False) < 5e-3
+
+
+@pytest.mark.cuda
+def test_sharded_one_rank_nccl_bit_equal_to_unsharded_loop(card):
+    """A one-rank NCCL group and a (1, 1) mesh on the card: the sharded
+    runner (no GN kernel, by design) bit-equal to the unsharded runner's
+    loop lowering."""
+    import socket
+
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
+                                                  initialize_distributed,
+                                                  make_mesh)
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 13, max_range=60.0, deskew=True)
+    runs = [{k: s[k] for k in ("frames", "rel_odometry")}
+            for s in (synthetic.make_sequence(5, world_seed=w,
+                                              traj_seed=w + 10,
+                                              noise_seed=w + 20)
+                      for w in range(2))]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        before = gn.LAUNCHES
+        got = BatchedOdometryRunner(cfg, 2, mesh=make_mesh(1, 1)).run_device(
+            runs)
+        assert gn.LAUNCHES == before
+    finally:
+        dist.destroy_process_group()
+    want = BatchedOdometryRunner(cfg.replace(gn_backend="torch"), 2,
+                                 device=card).run_device(runs)
+    for i in range(2):
+        np.testing.assert_array_equal(np.asarray(got[i]), np.asarray(want[i]))
+
+
 def _motion(dev, scene, guess, tau, **kw):
     m, source, mask = scene
     return registration.compute_robot_motion(

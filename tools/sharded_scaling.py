@@ -1,0 +1,216 @@
+"""The map-sharded path over every card of one host, one process a card.
+
+Usage (on a machine with CUDA cards; one rank a card, NCCL):
+
+    python3 tools/sharded_scaling.py [--frames 20]
+
+or, to rehearse the same program on the CPU (gloo, a small drive):
+
+    python3 tools/sharded_scaling.py --device cpu --world 4 [--frames 4]
+
+The script starts one worker process a rank (each under a wall limit) and
+drives ``parallel.BatchedOdometryRunner(mesh=...).run_device`` over
+``world`` distinct headline drives of ``chip_smoke.py`` on every (data,
+map) mesh of the world: (world, 1), the square-most split, and (1, world).
+Rank 0 also runs the same drives through the unsharded runner's loop
+lowering on its own card, the yardstick (the sharded path is that loop
+with collectives).  Rank 0 prints one JSON line a mesh: wall ms a batched
+frame, aggregate frames/s, collectives a frame, each drive's ATE and the
+largest pose difference from the unsharded run, and each shard's voxel
+count; then the unsharded run's line and the cards' ``nvidia-smi`` name
+and power limit (the first card's).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import warnings
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+#: a worker's wall limit (s); inside it a collective fails after
+#: ``parallel.mesh.TIMEOUT``
+WORKER_TIMEOUT_S = 600
+#: tests/test_torch_pipeline.py's drive configuration and sensor, for a CPU
+#: rehearsal
+SMALL = dict(max_points=1024, max_downsampled=1024, max_source=512,
+             map_capacity=4096, voxel_size=1.0, max_range=15.0, max_probes=4,
+             deskew=True)
+SMALL_LIDAR = dict(num_beams=256, num_rings=4,
+                   ring_angles_deg=(-10.0, -3.0, 0.0, 8.0))
+
+
+def meshes(world: int):
+    """(world, 1), the square-most (data, map) split, (1, world)."""
+    split = max(d for d in range(1, int(world ** 0.5) + 1) if world % d == 0)
+    return list(dict.fromkeys([(world, 1), (world // split, split),
+                               (1, world)]))
+
+
+def drives(args, world: int):
+    from chip_smoke import MAIN_FRAMES, headline_drive
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    if args.device == "cpu":
+        seqs = [synthetic.make_sequence(
+            args.frames, world_seed=s, traj_seed=s + 10, noise_seed=s + 20,
+            lidar=synthetic.LidarModel(**SMALL_LIDAR)) for s in range(world)]
+    else:
+        if args.frames > MAIN_FRAMES:
+            raise ValueError(f"at most {MAIN_FRAMES} frames")
+        seqs = [headline_drive(s) for s in range(world)]
+    runs = [{"frames": s["frames"][:args.frames],
+             "rel_odometry": s["rel_odometry"][:args.frames]} for s in seqs]
+    return runs, seqs[0]["extrinsic"]
+
+
+def timed(torch, runner, runs, sync):
+    """``runner.run_device(runs)``: (poses (B, F, 4, 4), seconds, overflow
+    warnings)."""
+    import numpy as np
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sync()
+        t0 = time.perf_counter()
+        poses = np.asarray(runner.run_device(runs))
+        sync()
+        seconds = time.perf_counter() - t0
+    return poses, seconds, [str(w.message) for w in caught
+                            if "capacity overflow" in str(w.message)]
+
+
+def worker(args):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import HEADLINE
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.ops import hashmap
+    from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
+                                                  initialize_distributed,
+                                                  make_mesh, sharded)
+    from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
+
+    torch.set_num_threads(1 if args.device == "cpu" else 4)
+    cfg = Config(**(SMALL if args.device == "cpu" else HEADLINE))
+    initialize_distributed(f"localhost:{args.port}", args.world, args.rank)
+    sync = (torch.cuda.synchronize if args.device == "cuda"
+            else (lambda: None))
+    runs, ext = drives(args, args.world)
+    warm = [{k: v[:3] for k, v in r.items()} for r in runs]
+    rows = []
+    try:
+        for data, m in meshes(args.world):
+            mesh = make_mesh(data, m, args.device)
+            BatchedOdometryRunner(cfg, args.world, mesh=mesh,
+                                  extrinsic=ext).run_device(warm)
+            runner = BatchedOdometryRunner(cfg, args.world, mesh=mesh,
+                                           extrinsic=ext)
+            sharded.COLLECTIVES = 0
+            poses, seconds, overflow = timed(torch, runner, runs, sync)
+            counts = hashmap.num_voxels(runner.state.map).to(torch.int64)
+            every = [torch.empty_like(counts) for _ in range(args.world)]
+            dist.all_gather(every, counts)
+            rows.append({"mesh": [data, m], "poses": poses,
+                         "seconds": seconds,
+                         "collectives": sharded.COLLECTIVES,
+                         "overflow": overflow,
+                         "voxels_by_rank": [c.tolist() for c in every]})
+    finally:
+        dist.destroy_process_group()
+    if args.rank:
+        return 0
+    dev = "cuda" if args.device == "cuda" else "cpu"
+    loop = BatchedOdometryRunner(cfg.replace(gn_backend="torch"), args.world,
+                                 extrinsic=ext, device=dev)
+    loop.run_device(warm)
+    loop = BatchedOdometryRunner(cfg.replace(gn_backend="torch"), args.world,
+                                 extrinsic=ext, device=dev)
+    want, want_s, want_overflow = timed(torch, loop, runs, sync)
+    f = args.frames
+    for row in rows:
+        poses = row.pop("poses")
+        row.update(
+            ms_per_batched_frame=row["seconds"] * 1e3 / f,
+            aggregate_frames_per_s=args.world * f / row["seconds"],
+            collectives_per_frame=row.pop("collectives") / f,
+            ate_vs_unsharded_m=[ate_rmse(want[i], poses[i], align=False)
+                                for i in range(args.world)],
+            max_abs_vs_unsharded=float(np.abs(poses - want).max()),
+            frames_bit_equal_to_unsharded=sum(
+                bool(np.array_equal(poses[:, k], want[:, k]))
+                for k in range(f)))
+        print(json.dumps({"sharded": row, "world": args.world,
+                          "device": args.device, "frames": f}), flush=True)
+    print(json.dumps({"unsharded_loop": {
+        "B": args.world, "frames": f, "seconds": want_s,
+        "ms_per_batched_frame": want_s * 1e3 / f,
+        "aggregate_frames_per_s": args.world * f / want_s,
+        "overflow": want_overflow}}), flush=True)
+    return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--world", type=int, default=0,
+                    help="ranks (default: every CUDA card)")
+    ap.add_argument("--rank", type=int, default=-1, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.rank >= 0:
+        return worker(args)
+
+    import socket
+
+    import torch
+
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            print("sharded_scaling: no CUDA card", file=sys.stderr)
+            return 1
+        args.world = args.world or torch.cuda.device_count()
+    if args.world < 1:
+        ap.error("--world is needed on the CPU")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    base = [sys.executable, os.path.abspath(__file__), "--frames",
+            str(args.frames), "--device", args.device, "--world",
+            str(args.world), "--port", str(port)]
+    procs = [subprocess.Popen(
+        base + ["--rank", str(r)],
+        stdout=None if r == 0 else subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for r in range(args.world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[1])
+    except subprocess.TimeoutExpired:
+        print(f"sharded_scaling: a worker ran past {WORKER_TIMEOUT_S} s",
+              file=sys.stderr)
+        return 1
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode]
+    for r in bad:
+        print(f"rank {r} exit {procs[r].returncode}:\n{errs[r][-3000:]}",
+              file=sys.stderr)
+    if args.device == "cuda":
+        from chip_smoke import nvidia_smi_line
+        print(nvidia_smi_line(), flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
