@@ -78,6 +78,13 @@ last line.  Phases:
      wheel odometry, ``/tf_static`` extrinsic); and a float64 server over
      20 frames (one GN launch per registered frame, within 5 mm of the
      float32 server);
+ 13b. graph: the headline drive (60 frames), the stock ``Config`` drive
+     (20), the batched drive of the 8 headline drives and the served
+     headline (blocking and ``"scan"``), each on the eager loop
+     (``eager=True``) and on its CUDA graph in one call: every frame
+     bit-equal, the same GN launches, frames/s, host calls a frame and
+     the device's idle share over 20 frames under ``torch.profiler``, the
+     capture's ms and the graph pool's bytes;
  14. cli: ``run_odometry.main`` (the offline CLI) over the 60 headline
      frames written to an uncompressed mcap by the port's writer (one GN
      launch per registered frame, the native ingestion library loaded,
@@ -94,6 +101,11 @@ last line.  Phases:
      on two permutations of the points);
  16. the ``kernels`` summary line, the card's name and power limit, and
      the final ``{"ok": true, ...}`` line.
+
+Every entry point on the card runs a frame of the default registration
+(and of its loop lowering) as one replay of a CUDA graph
+(``pipeline.Step``); the exact modes and the sharded phases run op by op,
+by configuration.  Each drive's line says which (``"path"``).
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
 """
@@ -154,6 +166,8 @@ SWEEP_BATCHES = (1, 2, 8, 16)
 SWEEP_FRAMES = 20
 PROFILED_FRAMES = 5
 RUNNER_FRAMES = 20
+#: the graph phase: frames a path profiled (eager and captured)
+GRAPH_PROFILED_FRAMES = 20
 #: the batched exact phase: distinct headline drives and their frames
 #: under EXACT, then the pruned drives and frames
 EXACT_BATCH = 4
@@ -407,7 +421,7 @@ def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt,
     poses_loop, seconds_loop, overflow_loop, stats_loop = run_drive(
         torch, seq, cfg.replace(gn_backend="torch"), count)
     ate_loop = ate_rmse(poses_loop, poses, align=False)
-    row = {"phase": phase, "frames": count,
+    row = {"phase": phase, "frames": count, "path": path_of(cfg),
            "mean_points": float(np.mean([len(f[0]) for f in frames])),
            "config": config_kw, "gn_launches": launches,
            "gn_check_crossing_launches": crossing,
@@ -541,6 +555,7 @@ def pruned_phase(torch, np, seq):
               "zero_overflow": not overflow and not overflow_full,
               "bit_equal_every_frame": equal == count}
     emit({"phase": "pruned_exact", "frames": count, "config": PRUNED,
+          "path": path_of(cfg),
           "exact_fallback_frames": stats["exact_fallback_frames"],
           "frames_bit_equal": equal, "frames_per_s": count / seconds,
           "full_27_frames_per_s": count / seconds_full, "checks": checks})
@@ -736,6 +751,7 @@ def batched_drive_phase(torch, np):
             "run_offline_overflow": single_overflow or [0, 0, 0]})
     padded = poses[BATCH_SHORT:, -1]
     row = {"phase": "batched_drive", "B": BATCH, "frames": count,
+           "path": path_of(cfg),
            "short_sequence_frames": BATCH_SHORT, "config": HEADLINE,
            "gn_launches": launches, "gn_frames_solved": frames,
            "frames_per_launch": frames / max(launches, 1),
@@ -795,6 +811,7 @@ def batched_sweep_phase(torch, np, seq, card):
     ratio = (rows[BATCH]["launches_per_batched_frame"]
              / rows[1]["launches_per_batched_frame"])
     row = {"phase": "batched_sweep", "frames": count, "nvidia_smi": card,
+           "path": path_of(cfg),
            "profiled_frames": PROFILED_FRAMES,
            "by_batch": {str(b): r for b, r in rows.items()},
            "run_offline_frames_per_s": count / single_s,
@@ -1004,6 +1021,7 @@ def batched_exact_phase(torch, np, seqs):
     equal = sum(bool(np.array_equal(a, b)) for a, b in zip(pruned, full))
     seconds = stages["seconds"]
     row = {"phase": "batched_exact", "B": EXACT_BATCH, "frames": count,
+           "path": path_of(cfg),
            "config": EXACT, "gn_launches": launches,
            "gn_check_crossing_launches": crossing,
            "fallback_loops": loops,
@@ -1121,6 +1139,8 @@ def sharded_1rank_phase(torch, np, seqs):
            for i, s in enumerate(seqs[:SHARD_BATCH])]
     step_diff = float(np.abs(stepped - device).max())
     row = {"phase": "sharded_1rank", "backend": backend, "mesh": [1, 1],
+           # collectives between the frame's launches: no graph, by design
+           "path": "eager",
            "B": SHARD_BATCH, "frames": SHARD_FRAMES, "config": HEADLINE,
            "seconds": seconds, "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
            "run_ms_per_frame": step_s * 1e3 / SHARD_FRAMES,
@@ -1240,6 +1260,7 @@ def sharded_2rank_phase(torch, np, one_rank):
            for i in range(SHARD_BATCH)]
     seconds = max(m["seconds"] for m in meta)
     row = {"phase": "sharded_2rank", "backend": meta[0]["backend"],
+           "path": "eager",
            "mesh": [1, 2], "B": SHARD_BATCH, "frames": SHARD_FRAMES,
            "devices": [m["device"] for m in meta], "seconds": seconds,
            "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
@@ -1370,7 +1391,7 @@ def serve_phase(torch, np, seq, main_poses):
                         align=False)
     ate_offline = ate_rmse(main_poses, poses, align=False)
     equal = sum(bool(np.array_equal(a, b)) for a, b in zip(poses, main_poses))
-    row = {"phase": "serve_blocking", "frames": count,
+    row = {"phase": "serve_blocking", "frames": count, "path": path_of(cfg),
            "frames_registered": registered,
            "frames_skipped": blocking.frames_skipped,
            "warmup_s": warmup_s,
@@ -1407,6 +1428,7 @@ def serve_phase(torch, np, seq, main_poses):
         got = stamped_poses(np, s)
         rows[mode] = got
         row = {"phase": f"serve_stream_{mode}", "frames": count,
+               "path": path_of(cfg),
                "stream_chunk": SERVE_CHUNK, "gn_launches": gn.LAUNCHES,
                "frames_registered": s.frames_registered,
                "frames_per_s": count / seconds, "seconds": seconds,
@@ -1525,6 +1547,238 @@ def serve_phase(torch, np, seq, main_poses):
     return launches
 
 
+def path_of(config):
+    """"graph" where the entry points replay a CUDA graph a frame under
+    ``config`` on the card, "eager" where the step refuses it (the exact
+    modes that read their fallback flags back every frame)."""
+    from kinematic_icp_tpu_torch.models import pipeline
+
+    return ("eager" if pipeline.capture_refusal(config, "cuda")
+            else "graph")
+
+
+def pool_bytes(torch, pool):
+    """Bytes the caching allocator holds in a graph memory pool."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def profiled(torch, run, frames, eager, frames_per_replay=1):
+    """``utils.profiling.device_profile`` of ``run()`` (``frames`` frames
+    that end in a readback) under ``torch.profiler``, a frame's host calls
+    counted between the first and the last GN launch (``eager``) or graph
+    replay (``frames_per_replay`` frames each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kinematic_icp_tpu_torch.utils.profiling import device_profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if eager:
+        return device_profile(prof, wall, frames,
+                              "cudaLaunchCooperativeKernel",
+                              kernel="gn_solve_kernel")
+    return device_profile(prof, wall, frames, "cudaGraphLaunch",
+                          frames_per_replay, kernel="gn_solve_kernel")
+
+
+def graph_drive(torch, np, seqs, config, count, eager):
+    """The sequence runner over one drive (a dict), or the batched runner
+    over a list of drives, ``count`` frames, on its graph or (``eager``)
+    on the eager loop: a 3-frame run first (it captures the graph), then
+    the timed run (the inputs padded and on the card before the clock, the
+    poses read back inside it), then GRAPH_PROFILED_FRAMES frames under
+    the profiler.  The GN launch count is set to 0 just before the timed
+    run and read just after."""
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import (
+        init_batched_state, make_batched_sequence_runner,
+        make_sequence_runner, pad_batch, pad_sequence)
+    from kinematic_icp_tpu_torch.ops import gn
+
+    dev = torch.device("cuda")
+    batched = isinstance(seqs, list)
+    first = seqs[0] if batched else seqs
+
+    def inputs(n):
+        if batched:
+            arrays = pad_batch([dict(s, frames=s["frames"][:n],
+                                     rel_odometry=s["rel_odometry"][:n])
+                                for s in seqs], config)
+        else:
+            arrays = pad_sequence(first["frames"][:n],
+                                  first["rel_odometry"][:n], config)
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    if batched:
+        runner = make_batched_sequence_runner(config, dev, eager=eager)
+    else:
+        runner = make_sequence_runner(config, dev, eager=eager)
+    ext = torch.tensor(np.asarray(first["extrinsic"], np.float32),
+                       device=dev)
+
+    def run(arrays):
+        state = (init_batched_state(config, len(seqs), device=dev)
+                 if batched else pipeline.init_state(config, device=dev))
+        out = runner(state, *arrays[:4], ext, arrays[4])
+        return out[1].cpu().numpy(), out[2].cpu().numpy()
+
+    run(inputs(3))
+    arrays = inputs(count)
+    torch.cuda.synchronize()
+    gn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    poses, overflow = run(arrays)
+    seconds = time.perf_counter() - t0
+    launches = gn.LAUNCHES
+    few = inputs(GRAPH_PROFILED_FRAMES)
+    prof = profiled(torch, lambda: run(few), GRAPH_PROFILED_FRAMES, eager)
+    step = runner.step
+    return {"poses": poses, "overflow": overflow, "seconds": seconds,
+            "gn_launches": launches, "profile": prof,
+            "capture_ms": None if step is None else [
+                c.capture_ms for c in step.calls],
+            "pool_bytes": None if step is None else pool_bytes(torch,
+                                                               step.pool)}
+
+
+def graph_serve(torch, np, seq, config, count, mode, eager):
+    """The headline through ``LidarOdometryServer``, blocking or streamed
+    in ``"scan"`` chunks, on its graphs or (``eager``) op by op: ``warmup``
+    (which captures), the timed ``count`` frames with the GN launch count
+    set to 0 just before and read just after, then a second server's first
+    GRAPH_PROFILED_FRAMES frames under the profiler."""
+    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+
+    blocking = mode == "blocking"
+
+    def served():
+        s = LidarOdometryServer(config, extrinsic=seq["extrinsic"],
+                                stream_mode="steps" if blocking else "scan",
+                                stream_chunk=SERVE_CHUNK, eager=eager)
+        s.warmup(HEADLINE["max_points"], streaming=not blocking)
+        return s
+
+    s = served()
+    torch.cuda.synchronize()
+    gn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    serve_frames(s, seq, range(count), blocking=blocking)
+    s.drain()
+    seconds = time.perf_counter() - t0
+    launches = gn.LAUNCHES
+    other = served()
+
+    def run():
+        serve_frames(other, seq, range(GRAPH_PROFILED_FRAMES),
+                     blocking=blocking)
+        other.drain()
+
+    # a chunk-scan replay runs SERVE_CHUNK frames
+    prof = profiled(torch, run, GRAPH_PROFILED_FRAMES, eager,
+                    1 if blocking else SERVE_CHUNK)
+    calls = [c for _, c in s._calls.values()]
+    return {"poses": stamped_poses(np, s), "seconds": seconds,
+            "gn_launches": launches, "frames_registered":
+                s.frames_registered, "overflow": s.overflow_stats,
+            "profile": prof,
+            "capture_ms": None if eager else [c.capture_ms for c in calls],
+            "pool_bytes": None if eager else pool_bytes(torch, s._pool)}
+
+
+def graph_phase(torch, np, seq, drives, card):
+    """Each default path twice in one call, on the eager loop and on its
+    CUDA graph (the path the entry points take): the 60-frame headline
+    drive, the 20-frame stock ``Config`` drive, the batched drive of the 8
+    headline drives, and the served headline, blocking and chunk-scan.
+    For each: every frame bit-equal, frames/s, host calls a frame and the
+    device's idle share over GRAPH_PROFILED_FRAMES frames under the
+    profiler, the capture's ms and the graph pool's bytes.  One line a
+    path, then a summary line."""
+    from kinematic_icp_tpu_torch import Config
+
+    headline, stock = Config(**HEADLINE), Config(**STOCK)
+    cases = [
+        ("headline", lambda e: graph_drive(torch, np, seq, headline,
+                                           MAIN_FRAMES, e), MAIN_FRAMES, 1),
+        ("stock_config", lambda e: graph_drive(torch, np, seq, stock,
+                                               STOCK_FRAMES, e),
+         STOCK_FRAMES, 1),
+        (f"batched_b{BATCH}", lambda e: graph_drive(
+            torch, np, drives, headline, MAIN_FRAMES, e), MAIN_FRAMES,
+         BATCH),
+        ("serve_blocking", lambda e: graph_serve(
+            torch, np, seq, headline, MAIN_FRAMES, "blocking", e),
+         MAIN_FRAMES, 1),
+        ("serve_scan", lambda e: graph_serve(
+            torch, np, seq, headline, MAIN_FRAMES, "scan", e),
+         MAIN_FRAMES, 1)]
+    summary = {}
+    for name, drive, count, b in cases:
+        eager, graph = drive(True), drive(False)
+        equal = sum(bool(np.array_equal(x, y))
+                    for x, y in zip(graph["poses"], eager["poses"]))
+        row = {"phase": f"graph_{name}", "frames": count, "B": b,
+               "nvidia_smi": card, "frames_bit_equal": equal,
+               "frames_per_s": {"eager": b * count / eager["seconds"],
+                                "graph": b * count / graph["seconds"]},
+               "gn_launches": {"eager": eager["gn_launches"],
+                               "graph": graph["gn_launches"]},
+               "profiled_frames": GRAPH_PROFILED_FRAMES,
+               "host_calls_per_frame": {
+                   "eager": eager["profile"]["host_calls_per_frame"],
+                   "graph": graph["profile"]["host_calls_per_frame"]},
+               "host_syncs_per_frame": {
+                   "eager": eager["profile"]["host_syncs_per_frame"],
+                   "graph": graph["profile"]["host_syncs_per_frame"]},
+               "device_idle_share": {
+                   "eager": eager["profile"]["device_idle_share"],
+                   "graph": graph["profile"]["device_idle_share"]},
+               "device_ops_per_frame": {
+                   "eager": eager["profile"]["device_ops_per_frame"],
+                   "graph": graph["profile"]["device_ops_per_frame"]},
+               "host_calls_by_name": {
+                   "eager": eager["profile"]["host_calls_by_name"],
+                   "graph": graph["profile"]["host_calls_by_name"]},
+               # the GN kernel's mean device ms, launched and replayed
+               "gn_kernel_ms": {"eager": eager["profile"]["kernel_ms"],
+                                "graph": graph["profile"]["kernel_ms"]},
+               "capture_ms": graph["capture_ms"],
+               "pool_bytes": graph["pool_bytes"]}
+        row["checks"] = {
+            "every_frame_bit_equal": equal == len(eager["poses"]) > 0,
+            "same_gn_launches": (graph["gn_launches"]
+                                 == eager["gn_launches"] > 0),
+            "overflow_equal": (
+                graph["overflow"] == eager["overflow"]
+                if isinstance(eager["overflow"], dict)
+                else np.array_equal(graph["overflow"], eager["overflow"])),
+            "captured": bool(graph["capture_ms"]) and None not in graph[
+                "capture_ms"],
+            # the frame's launches, the GN kernel's among them, are inside
+            # the replay
+            "gn_launch_inside_the_replay": "cudaLaunchCooperativeKernel"
+            not in graph["profile"]["host_calls_by_name"]}
+        if not name.startswith("serve"):
+            # a runner's frame loop never waits for the device (a server
+            # waits for its upload and its readback)
+            row["checks"]["no_host_sync_in_the_frame_loop"] = (
+                graph["profile"]["host_syncs_per_frame"] == 0)
+        row["checks"] = {k: bool(v) for k, v in row["checks"].items()}
+        emit(row)
+        if not all(row["checks"].values()):
+            raise SystemExit(f"graph_{name} failed: {row['checks']}")
+        summary[name] = {k: row[k] for k in (
+            "frames_per_s", "host_calls_per_frame", "host_syncs_per_frame",
+            "device_idle_share")}
+    emit({"phase": "graph", "nvidia_smi": card, "paths": summary})
+
+
 def cli_drive(np, bag, out_dir, argv):
     """``run_odometry.main`` over ``bag`` on the card, with the GN launch
     count set to 0 just before and read just after.  Returns (TUM path,
@@ -1610,6 +1864,7 @@ def cli_phase(torch, np, seq, main_poses, card):
         write_tum(gt_tum, list(zip(stamps, seq["gt_poses"][:count])))
         scores = evaluate.evaluate_files(out, gt_tum, align=False)
         row = {"phase": "cli", "frames": count, "nvidia_smi": card,
+               "path": path_of(Config(**HEADLINE)),
                "config": "yaml: headline" if yaml is not None
                else "default Config(deskew=True)",
                "bag_bytes": os.path.getsize(bag), "bag_write_s": write_s,
@@ -1801,6 +2056,7 @@ def main():
     _, one_rank = sharded_1rank_phase(torch, np, drives)
     sharded_2rank_phase(torch, np, one_rank)
     serve_launches = serve_phase(torch, np, seq, main_poses)
+    graph_phase(torch, np, seq, drives, card)
     cli_launches = cli_phase(torch, np, seq, main_poses, card)
     oracle_phase(torch, np, seq, main_poses)
 

@@ -1,9 +1,9 @@
 """Pipeline models: the per-frame odometry step and its state."""
 
-from .pipeline import (FrameOutputs, OdometryState, init_state,
-                       register_frame, set_pose)
+from .pipeline import (FrameOutputs, OdometryState, Step, init_state,
+                       make_step, register_frame, set_pose)
 
 __all__ = [
-    "FrameOutputs", "OdometryState", "init_state", "register_frame",
-    "set_pose",
+    "FrameOutputs", "OdometryState", "Step", "init_state", "make_step",
+    "register_frame", "set_pose",
 ]

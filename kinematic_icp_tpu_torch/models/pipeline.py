@@ -4,17 +4,25 @@ Functional equivalent of ``kinematic_icp::pipeline::KinematicICP``
 (KinematicICP.{hpp,cpp}): the C++ class's mutable members (pose, voxel map,
 threshold accumulators) become an explicit ``OdometryState``, and
 ``RegisterFrame`` becomes ``register_frame(state, inputs) -> (state',
-outputs)``.  Under the default registration the step reads nothing back to
-the host, so a frame can later be captured as a CUDA graph; the exact modes
-(``exact_gn_reassociation``) read their fallback flag once a frame, which
-blocks such a graph.  ``register_frame`` is ``prepare_frame``, the
-registration and map update, then ``finish_frame``; the map-sharded step
+outputs)``.  ``register_frame`` is ``prepare_frame``, the registration and
+map update, then ``finish_frame``; the map-sharded step
 (``parallel.sharded``) runs the same first and last parts around its own
 middle.
+
+``make_step`` is the counterpart of the JAX package's jitted, donated step:
+a ``Step`` keeps the state and the inputs in buffers of its own, and on a
+CUDA device runs the frame as one replay of a CUDA graph captured once per
+static shape (``utils.cuda_graph``).  Under the default registration the
+frame reads nothing back to the host, which the capture needs; the certified
+and pruned exact modes read their fallback flags back once a frame, so
+``make_step`` refuses them (``capture_refusal``) and their callers run
+``register_frame``.
 """
 
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -23,6 +31,7 @@ from ..config import Config
 from ..ops import hashmap, preprocessing, registration, se3, threshold, voxel
 from ..ops.points import P3, per_row, transform
 from ..runtime import resolve_device
+from ..utils.cuda_graph import StaticCall, refill
 
 
 class OdometryState(NamedTuple):
@@ -221,3 +230,194 @@ def finish_frame(state: OdometryState, prep: PreparedFrame,
         overflow=torch.cat([prep.ds_dropped, insert_failed[..., None]],
                            dim=-1).to(torch.int32))
     return new_state, outputs
+
+
+def capture_refusal(config: Config, device) -> str | None:
+    """Why a frame under ``config`` on ``device`` cannot run as a CUDA
+    graph, or None: the exact modes that read their fallback flags back
+    to the host every frame (``registration.compute_robot_motion``).  The
+    default branch, its loop lowering and the plain full-27 loop read
+    nothing back."""
+    if not config.exact_gn_reassociation:
+        return None
+    backend = registration._resolve_backend(config.gn_backend,
+                                            torch.device(device))
+    if backend == "cuda":
+        return ("the certified exact mode reads its (B,) certificate flags "
+                "back every frame to decide the full-27 fallback")
+    if 0 < config.exact_prune_candidates < 27:
+        return ("the pruned exact mode reads its (B,) certificate flags "
+                "back every frame to decide the full-27 fallback")
+    return None
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a state or an outputs tuple."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, hashmap.MapState):
+        return hashmap.MapState(fn(tree.table), tree.bucket_slots)
+    return type(tree)(*(_tree_map(fn, t) for t in tree))
+
+
+def clone_state(state: OdometryState) -> OdometryState:
+    """A copy of ``state`` in tensors of its own."""
+    return _tree_map(torch.clone, state)
+
+
+def state_tensors(state: OdometryState):
+    """The state's tensors, flat: pose, table, the two threshold sums."""
+    return (state.pose, state.map.table, *state.threshold)
+
+
+def state_of(tensors, bucket_slots: int) -> OdometryState:
+    """The state of ``state_tensors``' four tensors."""
+    pose, table, sse, n = tensors
+    return OdometryState(pose, hashmap.MapState(table, bucket_slots),
+                         threshold.ThresholdState(sse, n))
+
+
+class _Frame:
+    """A step's buffers and call for one static shape."""
+
+    def __init__(self, step: "Step", state: OdometryState, inputs):
+        slots = state.map.bucket_slots
+        self.state = state_of(tuple(torch.empty_like(t) for t in
+                                     state_tensors(state)), slots)
+        self.inputs = tuple(None if x is None else torch.zeros_like(x)
+                            for x in inputs)
+        #: (weak reference, version) of the tensor each input buffer last
+        #: took, so an unchanged input (the extrinsic) is not copied again
+        self._sources = [None] * len(inputs)
+        present = [i for i, x in enumerate(inputs) if x is not None]
+        config = step.config
+
+        def frame(*buffers):
+            state_in = state_of(buffers[:4], slots)
+            args = [None] * len(inputs)
+            for i, b in zip(present, buffers[4:]):
+                args[i] = b
+            new_state, out = register_frame(
+                state_in, *args[:6], config, active=args[6],
+                rel_twist_in_lidar=args[7])
+            refill(buffers[:4], state_tensors(new_state))
+            return out
+
+        self.call = StaticCall(
+            frame, (*state_tensors(self.state),
+                    *(self.inputs[i] for i in present)),
+            capture=step.device.type == "cuda", pool=step.pool)
+
+    def load(self, state: OdometryState):
+        if state is not self.state:
+            refill(state_tensors(self.state), state_tensors(state))
+
+    def fill(self, inputs):
+        for i, (buf, src) in enumerate(zip(self.inputs, inputs)):
+            if buf is None:
+                continue
+            last = self._sources[i]
+            if last is not None and last[0]() is src \
+                    and last[1] == src._version:
+                continue
+            buf.copy_(src)
+            self._sources[i] = (weakref.ref(src), src._version)
+
+
+class Step:
+    """``register_frame`` under ``config`` over buffers of its own: the
+    counterpart of the JAX package's jitted, donated step.
+
+    ``step(state, points, timestamps, mask, has_timestamps, lidar_to_base,
+    relative_odometry, active=None, rel_twist_in_lidar=None) -> (state,
+    outputs)`` takes ``register_frame``'s arguments (every per-frame value
+    a tensor on the step's device; a batched state and inputs as
+    ``register_frame`` takes them).  The first call of each static shape
+    (dtype, batch, point capacity, which optional inputs are given)
+    allocates the buffers; every call copies the state in (unless it is
+    the state the step last returned) and each input that changed, then
+    runs the frame over the buffers, writing the new state back into them.
+    On a CUDA device the frame is captured at that first call as a CUDA
+    graph and every call is one replay of it, with no host sync; on the
+    CPU it runs eagerly over the same buffers.
+
+    ``donate=True`` returns the step's own state (and on a card its
+    outputs): they hold this frame until the step's next call with the
+    same shapes, and the caller's old state must not be used again (JAX's
+    donation).
+    ``donate=False`` returns clones and leaves the input state as it was.
+    The configurations of ``capture_refusal`` raise ``NotImplementedError``.
+    """
+
+    def __init__(self, config: Config, donate: bool = True, device=None):
+        self.device = resolve_device(device)
+        reason = capture_refusal(config, self.device)
+        if reason is not None:
+            raise NotImplementedError(
+                f"make_step takes no configuration whose frame reads back "
+                f"to the host: {reason}; run register_frame instead")
+        self.config = config
+        self.donate = donate
+        #: the memory pool the step's graphs share (None on the CPU)
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.device.type == "cuda" else None)
+        self._frames: dict[tuple, _Frame] = {}
+
+    @property
+    def calls(self) -> list[StaticCall]:
+        """The step's static calls, one a static shape seen so far."""
+        return [f.call for f in self._frames.values()]
+
+    def _frame_for(self, state: OdometryState, inputs) -> _Frame:
+        """The buffers and call of this state's and inputs' static shape
+        (built at its first use)."""
+        key = (state.map.bucket_slots,
+               *((t.dtype, tuple(t.shape)) for t in state_tensors(state)),
+               *(None if x is None else (x.dtype, tuple(x.shape))
+                 for x in inputs))
+        frame = self._frames.get(key)
+        if frame is None:
+            for t in (*state_tensors(state),
+                      *(x for x in inputs if x is not None)):
+                if t.device.type != self.device.type:
+                    raise ValueError(f"step on {self.device}: got a tensor "
+                                     f"on {t.device}")
+            frame = self._frames[key] = _Frame(self, state, inputs)
+        return frame
+
+    def __call__(self, state: OdometryState, points, timestamps, mask,
+                 has_timestamps, lidar_to_base, relative_odometry,
+                 active=None, rel_twist_in_lidar=None
+                 ) -> tuple[OdometryState, FrameOutputs]:
+        inputs = tuple(
+            x if x is None or torch.is_tensor(x)
+            else torch.as_tensor(x, device=self.device)
+            for x in (points, timestamps, mask, has_timestamps, lidar_to_base,
+                      relative_odometry, active, rel_twist_in_lidar))
+        frame = self._frame_for(state, inputs)
+        frame.load(state)
+        frame.fill(inputs)
+        out = frame.call()
+        if self.donate:
+            return frame.state, out
+        return clone_state(frame.state), _tree_map(torch.clone, out)
+
+
+@functools.lru_cache(maxsize=32)
+def _cached_step(config: Config, donate: bool, device: torch.device) -> Step:
+    return Step(config, donate, device)
+
+
+def make_step(config: Config, donate: bool = True, device=None) -> Step:
+    """The step of ``config`` on ``device`` (``None`` = CUDA; raises if
+    absent): a ``Step``, cached per (config, donate, device) as JAX's
+    ``make_step`` is, each holding one captured graph per static shape.
+
+    The cached step is shared by every caller with the same arguments, so
+    with ``donate=True`` the returned state is valid until the next call
+    of that step; a caller that keeps state of its own between calls builds
+    its own ``Step`` (the runners, the batched runner and the server do).
+    """
+    return _cached_step(config, donate, resolve_device(device))

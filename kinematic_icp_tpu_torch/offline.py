@@ -11,6 +11,7 @@ answer to the reference OfflineNode's one bag at a time.
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -46,7 +47,7 @@ def _per_frame_constants(rels, extrinsic, config: Config,
     return active, twists
 
 
-def make_sequence_runner(config: Config, device=None):
+def make_sequence_runner(config: Config, device=None, eager: bool = False):
     """Build the sequence runner: ``run(state, pts, ts, mask, has_ts,
     extrinsic, rels) -> (final_state, poses (F, 4, 4), overflow (3,),
     fallbacks ())``.
@@ -56,31 +57,53 @@ def make_sequence_runner(config: Config, device=None):
     which an exact mode's certificate failed and the full-27 loop
     recomputed the solve.  ``device`` (``None`` = CUDA; raises if absent)
     is where the inputs must live.
+
+    Each frame runs through the runner's ``pipeline.Step``: on a CUDA
+    device one replay of a CUDA graph captured at the first frame of each
+    static shape, the state updated in place in the step's buffers and
+    returned as a copy at the end.  The runner is cached per (config,
+    device) as JAX's is, so a later sequence of the same shapes replays
+    the same graph.  ``eager=True`` runs ``register_frame`` op by op (the
+    baseline a replay is held to), as do the configurations that
+    ``pipeline.capture_refusal`` names (the certified and pruned exact
+    modes).
     """
-    return _runner(config, resolve_device(device), STATIONARY_GATE,
-                   batched=False)
+    return _make_runner(config, resolve_device(device), STATIONARY_GATE,
+                        False, eager)
 
 
 def make_batched_sequence_runner(config: Config, device=None,
-                                 stationary_gate: float = STATIONARY_GATE):
+                                 stationary_gate: float = STATIONARY_GATE,
+                                 eager: bool = False):
     """Build the runner of B independent sequences in lock-step:
     ``run(state, pts (F, B, N, 3), ts (F, B, N), mask (F, B, N), has_ts
     (F, B), extrinsic (4, 4) shared, rels (F, B, 4, 4)) -> (final_state,
     poses (F, B, 4, 4), overflow (B, 3), fallbacks (B,))``, with ``state``
     from ``init_batched_state``.
 
-    The same frame loop as ``make_sequence_runner`` with a batch axis on
-    every tensor: a frame of B sequences issues the launches of one frame,
-    the GN solves of all B in one kernel launch.  A sequence shorter than
-    the batch's pads with identity odometry: its frames past the end are
-    stationary and leave its state as it was.  ``stationary_gate`` is the
-    |log(rel)| below which a frame is stationary (JAX's ``run_device``
-    fixes it at 1e-3).  Under an exact mode a batched frame reads its (B,)
-    fallback flags back once, and ``fallbacks`` counts each sequence's
-    fallback frames.
+    The same frame loop as ``make_sequence_runner`` (and the same graph
+    replay a frame, and ``eager``) with a batch axis on every tensor: a
+    frame of B sequences issues the launches of one frame, the GN solves
+    of all B in one kernel launch.  A sequence shorter than the batch's
+    pads with identity odometry: its frames past the end are stationary
+    and leave its state as it was.  ``stationary_gate`` is the |log(rel)|
+    below which a frame is stationary (JAX's ``run_device`` fixes it at
+    1e-3).  Under an exact mode a batched frame reads its (B,) fallback
+    flags back once, and ``fallbacks`` counts each sequence's fallback
+    frames.
     """
-    return _runner(config, resolve_device(device), stationary_gate,
-                   batched=True)
+    return _make_runner(config, resolve_device(device), stationary_gate,
+                        True, eager)
+
+
+@functools.lru_cache(maxsize=8)
+def _make_runner(config: Config, dev: torch.device, stationary_gate: float,
+                 batched: bool, eager: bool):
+    if eager or pipeline.capture_refusal(config, dev) is not None:
+        register = functools.partial(pipeline.register_frame, config=config)
+    else:
+        register = pipeline.Step(config, device=dev)
+    return _runner(config, dev, stationary_gate, batched, register)
 
 
 def init_batched_state(config: Config, batch: int, dtype=torch.float32,
@@ -99,9 +122,14 @@ def init_batched_state(config: Config, batch: int, dtype=torch.float32,
 
 
 def _runner(config: Config, dev, stationary_gate: float, batched: bool,
-            register=pipeline.register_frame):
-    """The frame loop over ``register`` (``register_frame``'s signature;
-    the map-sharded runner passes its own step)."""
+            register):
+    """The frame loop over ``register(state, points, timestamps, mask,
+    has_timestamps, lidar_to_base, relative_odometry, active=,
+    rel_twist_in_lidar=)``: ``register_frame`` with its config bound, a
+    ``pipeline.Step`` (whose state lives in its buffers during the loop
+    and is copied out at the end), or the map-sharded step."""
+    stepped = isinstance(register, pipeline.Step)
+
     def run(state, pts, ts, mask, has_ts, extrinsic, rels):
         for t in (pts, ts, mask, has_ts, extrinsic, rels, state.pose):
             if t.device.type != dev.type:
@@ -117,21 +145,26 @@ def _runner(config: Config, dev, stationary_gate: float, batched: bool,
         active, twists = _per_frame_constants(rels, extrinsic, config,
                                               stationary_gate)
         lead = pts.shape[1:-2]  # (B,) in a batch
-        poses = []
+        poses = torch.empty((pts.shape[0], *state.pose.shape),
+                            dtype=state.pose.dtype, device=dev)
         overflow = torch.zeros(lead + (3,), dtype=torch.int32, device=dev)
         fallbacks = torch.zeros(lead, dtype=torch.int32, device=dev)
         for f in range(pts.shape[0]):
             state, out = register(
                 state, pts[f], ts[f], mask[f], has_ts[f], extrinsic, rels[f],
-                config, active=active[f],
+                active=active[f],
                 rel_twist_in_lidar=None if twists is None else twists[f])
-            poses.append(state.pose)
-            overflow = overflow + out.overflow
+            poses[f] = state.pose
+            overflow += out.overflow
             if out.debug.exact_fallback is not None:
-                fallbacks = fallbacks + (out.debug.exact_fallback
-                                         & active[f]).to(torch.int32)
-        return state, torch.stack(poses), overflow, fallbacks
+                fallbacks += (out.debug.exact_fallback
+                              & active[f]).to(torch.int32)
+        if stepped:
+            state = pipeline.clone_state(state)
+        return state, poses, overflow, fallbacks
 
+    #: the runner's ``pipeline.Step`` (its graphs), or None on the eager loop
+    run.step = register if stepped else None
     return run
 
 

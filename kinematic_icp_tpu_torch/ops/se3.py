@@ -230,7 +230,7 @@ def from_rt(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
 
 

@@ -81,7 +81,9 @@ def roll_heads(key):
     """``key != roll(key, 1)`` along the last axis with the first element
     of each row forced to a head."""
     head = key != torch.roll(key, 1, dims=-1)
-    head[..., 0] = True
+    # fill_ with a Python value: an assignment would copy a host tensor,
+    # which a CUDA graph capture refuses
+    head[..., 0].fill_(True)
     return head
 
 

@@ -3,13 +3,15 @@
 The answer to "process many bags": instead of the reference's one bag at a
 time (offline_node.cpp), B sequences advance in lock-step, padded to shared
 static shapes, every frame of the batch in the launches of one frame
-(``offline.make_batched_sequence_runner``).  Given a (data, map) mesh, the
+(``offline.make_batched_sequence_runner``), on a card one CUDA graph
+replay a batched frame (``pipeline.Step``).  Given a (data, map) mesh, the
 sequences are split over the data ranks and each sequence's map over the
 map ranks (``parallel.sharded``).
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -50,6 +52,13 @@ class BatchedOdometryRunner:
         if mesh is None:
             self.device = resolve_device(device)
             self.state = init_batched_state(config, batch, dtype, self.device)
+            # the batched step (one graph replay a batched frame on a
+            # card), or register_frame for a configuration it refuses
+            self._frame = (
+                pipeline.Step(config, device=self.device)
+                if pipeline.capture_refusal(config, self.device) is None
+                else functools.partial(pipeline.register_frame,
+                                       config=config))
         else:
             self.device = sharded.mesh_device(mesh)
             self.state = sharded.init_sharded_state(config, mesh, batch,
@@ -117,8 +126,8 @@ class BatchedOdometryRunner:
                 self._tensor(has_ts), self._ext(),
                 self._tensor(rel).to(self.dtype))
         if self.mesh is None:
-            self.state, _ = pipeline.register_frame(
-                self.state, *args, self.config, active=self._tensor(active))
+            self.state, _ = self._frame(self.state, *args,
+                                        active=self._tensor(active))
             poses = self.state.pose
         else:
             self.state, poses, _ = self._step(self.state, *args,

@@ -39,6 +39,7 @@ JAX's, the exact mode has no certificate and no pruning here.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -268,8 +269,9 @@ def make_sharded_step(config: Config, mesh):
     the rank's (``init_sharded_state``) and comes back as the rank's, the
     poses and overflow counts gathered over the data axis (the same on
     every rank).  ``active`` False (the stationary gate) keeps a sequence's
-    state.  JAX's ``donate`` has no counterpart: eager PyTorch donates
-    nothing, and the step returns new tensors.
+    state.  The sharded step stays eager, op by op, and returns new
+    tensors: its collectives (NCCL, or gloo, which a CUDA graph cannot
+    hold) are not captured as ``pipeline.make_step``'s frame is.
     """
     axes = _axes(mesh)
 
@@ -299,14 +301,13 @@ def make_sharded_sequence_runner(config: Config, mesh,
     before it (``offline._per_frame_constants``): identity padding is a
     stationary frame.  Returns the rank's state, and the poses and
     per-sequence overflow totals of the whole batch, gathered over the
-    data axis.  JAX's ``donate`` has no counterpart (eager PyTorch donates
-    nothing).
+    data axis.  The frame loop stays eager, one ``sharded_register_frame``
+    a frame (see ``make_sharded_step``).
     """
     axes = _axes(mesh)
 
-    def register(*args, **kw):
-        return sharded_register_frame(*args, mesh=mesh, **kw)
-
+    register = functools.partial(sharded_register_frame, config=config,
+                                 mesh=mesh)
     frames = _runner(config, axes.device, stationary_gate, batched=True,
                      register=register)
 

@@ -11,7 +11,12 @@ device; only the pose and the overflow totals come back to the host.
 Each frame is shipped as ONE packed buffer (``utils/packing.py``) carrying
 points, timestamps, count and the odometry delta, unpacked on the device.
 Blocking mode costs one upload, one step and one readback of a small int32
-vector holding the pose's bits and the running overflow totals.  Streaming
+vector holding the pose's bits and the running overflow totals.  On a card
+a step is one replay of a CUDA graph, one per (bucket, codec, dtype) and
+one per chunk-scan (the counterpart of the JAX server's executables),
+captured at the bucket's first frame or by ``warmup``; the server's state,
+its overflow totals, extrinsic and upload buffers are the graphs' fixed
+buffers, refilled in place (``state`` assignment, ``set_pose``).  Streaming
 mode stages ``stream_chunk`` frames host-side and uploads them as one
 transfer, then either (``stream_mode="steps"``) runs the same per-frame step
 on each row, so streaming and blocking trajectories are bitwise identical,
@@ -34,6 +39,7 @@ from .oracle import reference as _ref  # float64 SE(3) helpers for host math
 from .ops import cuda_build, registration
 from .runtime import resolve_device
 from .utils import packing
+from .utils.cuda_graph import StaticCall, refill
 
 #: the state's float types -> numpy's, to read a pose back from its bits
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -69,6 +75,33 @@ def _server_step(state, acc, packed, extrinsic, config: Config, bucket: int,
         config, active=unpacked[5] if with_active else None)
     acc = acc + out.overflow
     return state, acc, _ret(state, acc)
+
+
+def _server_call(config: Config, bucket: int, codec: str, bucket_slots: int,
+                 rows: int):
+    """The function of a server's static call over its buffers (pose,
+    table, threshold sums, overflow totals, the packed upload, extrinsic):
+    one frame of a (W,) upload (``rows`` 0), or every row of a (rows, W)
+    chunk with padding rows masked (the chunk-scan).  Writes the new state
+    and totals into their buffers and returns the ret row (rows)."""
+    def fn(pose, table, sse, n, acc, packed, extrinsic):
+        state = pipeline.state_of((pose, table, sse, n), bucket_slots)
+        if rows == 0:
+            state, new_acc, ret = _server_step(state, acc, packed, extrinsic,
+                                               config, bucket, codec)
+        else:
+            new_acc, rets = acc, []
+            for row in packed:
+                state, new_acc, r = _server_step(
+                    state, new_acc, row, extrinsic, config, bucket, codec,
+                    with_active=True)
+                rets.append(r)
+            ret = torch.stack(rets)
+        refill((pose, table, sse, n, acc),
+               (*pipeline.state_tensors(state), new_acc))
+        return ret
+
+    return fn
 
 
 class _PendingPose:
@@ -109,6 +142,10 @@ class LidarOdometryServer:
         overflow totals every this many registered frames so a capacity
         problem warns mid-stream instead of only at ``drain()`` (0 disables
         the periodic check).
+      eager: run each step op by op over the same buffers instead of
+        replaying its CUDA graph (the baseline a replay is held to).  The
+        configurations ``pipeline.capture_refusal`` names (the certified
+        and pruned exact modes) always run so; so does the CPU.
     """
 
     def __init__(self, config: Config | None = None,
@@ -116,7 +153,8 @@ class LidarOdometryServer:
                  extrinsic=None, initial_pose=None, dtype=torch.float32,
                  upload: str = "f32", stream_chunk: int = 8,
                  stream_mode: str = "steps",
-                 overflow_check_interval: int = 64, device=None):
+                 overflow_check_interval: int = 64, device=None,
+                 eager: bool = False):
         self.device = resolve_device(device)
         self.config = config or Config()
         self.server_config = server_config or ServerConfig()
@@ -132,11 +170,22 @@ class LidarOdometryServer:
         self.overflow_check_interval = int(overflow_check_interval)
         self._extrinsic = np.eye(4) if extrinsic is None else np.asarray(
             extrinsic, np.float64)
-        self._ext_dev = None
         self.dtype = dtype
-        self.state = pipeline.init_state(self.config, dtype, initial_pose,
-                                         device=self.device)
+        # the buffers every step runs over: state, overflow totals and
+        # extrinsic, refilled in place and never rebound
+        self._state = pipeline.init_state(self.config, dtype, initial_pose,
+                                          device=self.device)
         self._ovf_acc = torch.zeros(3, dtype=torch.int32, device=self.device)
+        self._ext_dev = torch.as_tensor(self._extrinsic.astype(np.float32),
+                                        device=self.device)
+        self._capture = (self.device.type == "cuda" and not eager
+                         and pipeline.capture_refusal(self.config,
+                                                      self.device) is None)
+        self._pool = (torch.cuda.graph_pool_handle() if self._capture
+                      else None)
+        #: (bucket, chunk rows or 0) -> (the upload buffer, its StaticCall)
+        self._calls: dict[tuple[int, int], tuple[torch.Tensor,
+                                                 StaticCall]] = {}
         self.last_stamp: float | None = None
         #: (stamp, pose) records; a pose is a (4,4) float64 numpy array
         #: once settled, or (until ``drain()``) a ``_PendingPose`` marker
@@ -183,13 +232,29 @@ class LidarOdometryServer:
     @extrinsic.setter
     def extrinsic(self, value):
         self._extrinsic = np.asarray(value, np.float64)
-        self._ext_dev = None  # re-upload lazily
+        self._ext_dev.copy_(torch.from_numpy(
+            self._extrinsic.astype(np.float32)))
 
-    def _extrinsic_device(self):
-        if self._ext_dev is None:
-            self._ext_dev = torch.as_tensor(
-                self._extrinsic.astype(np.float32), device=self.device)
-        return self._ext_dev
+    @property
+    def state(self) -> pipeline.OdometryState:
+        """The server's state: the buffers its steps update in place.
+        Assigning a state (a checkpoint's) copies it into them; it must
+        have the server's shapes and dtype."""
+        return self._state
+
+    @state.setter
+    def state(self, value: pipeline.OdometryState):
+        have = pipeline.state_tensors(self._state)
+        given = pipeline.state_tensors(value)
+        if value.map.bucket_slots != self._state.map.bucket_slots or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                for a, b in zip(have, given)):
+            raise ValueError(
+                "the server's state keeps its shapes and dtype: got "
+                + ", ".join(f"{tuple(b.shape)} {b.dtype}" for b in given)
+                + " for "
+                + ", ".join(f"{tuple(a.shape)} {a.dtype}" for a in have))
+        refill(have, given)
 
     @property
     def pose(self) -> np.ndarray:
@@ -199,7 +264,7 @@ class LidarOdometryServer:
     def set_pose(self, pose):
         """Re-seed pose; clears map and threshold (KinematicICP.hpp:86-90)."""
         self._flush()
-        self.state = pipeline.set_pose(self.state, torch.as_tensor(
+        self.state = pipeline.set_pose(self._state, torch.as_tensor(
             np.asarray(pose, np.float64), dtype=self.dtype,
             device=self.device), self.config)
         self._last_pose_np = self.state.pose.cpu().numpy().astype(np.float64)
@@ -220,33 +285,59 @@ class LidarOdometryServer:
                           RuntimeWarning, stacklevel=3)
             self._overflow_warned = True
 
-    def _step(self, packed, bucket: int):
-        self.state, self._ovf_acc, ret = _server_step(
-            self.state, self._ovf_acc, packed, self._extrinsic_device(),
-            self.config, bucket, self.upload)
-        return ret
+    def _call(self, bucket: int, rows: int = 0):
+        """(upload buffer, StaticCall) of a bucket's step: one frame
+        (``rows`` 0), or the chunk-scan of ``rows`` frames; built at first
+        use, captured at its first call on a card."""
+        key = (bucket, rows)
+        if key not in self._calls:
+            words = packing.packed_words(bucket, self.upload)
+            packed = torch.zeros((rows, words) if rows else (words,),
+                                 dtype=torch.int16, device=self.device)
+            fn = _server_call(self.config, bucket, self.upload,
+                              self._state.map.bucket_slots, rows)
+            self._calls[key] = (packed, StaticCall(
+                fn, (*pipeline.state_tensors(self._state), self._ovf_acc,
+                     packed, self._ext_dev),
+                capture=self._capture, pool=self._pool))
+        return self._calls[key]
 
-    def _upload(self, buf: np.ndarray):
-        """One host->device copy of packed u16 words, as int16 bits.  The
-        copy from pageable memory returns once the host buffer is read, so
-        the staging buffer may be dropped or reused after it."""
-        return torch.from_numpy(buf.view(np.int16)).to(self.device)
+    def _step(self, bucket: int, packed):
+        """One frame of ``bucket``: ``packed`` (a host u16 buffer, or a
+        row of an uploaded chunk) into the step's upload buffer, then the
+        step.  Returns its ret row, valid until the bucket's next step."""
+        buf, call = self._call(bucket)
+        self._upload(packed, buf)
+        return call()
+
+    def _upload(self, buf, into=None):
+        """One copy of packed u16 words (a host array, or int16 bits on
+        the device) into ``into`` or a new device tensor, as int16 bits.
+        The copy from pageable memory returns once the host buffer is
+        read, so the staging buffer may be dropped or reused after it."""
+        if isinstance(buf, np.ndarray):
+            buf = torch.from_numpy(buf.view(np.int16))
+        if into is None:
+            return buf.to(self.device)
+        return into.copy_(buf)
 
     def warmup(self, num_points: int, streaming: bool = False):
-        """Build the CUDA kernels this configuration runs, so the first
-        served frame does not pay their build.
-
-        Touches neither the state nor the counters; a no-op on the CPU and
-        where the configuration runs no kernel (``gn_backend="torch"``).
-        ``num_points`` and ``streaming`` name the frames to come; eager
-        PyTorch compiles nothing per shape, so both steps (blocking and
-        chunk-scan) run the same kernels at every bucket.
+        """Capture the step of the bucket that scans of ``num_points``
+        points fall in (with ``streaming`` under ``stream_mode="scan"``,
+        the chunk-scan step too; ``"steps"`` replays the blocking step), so
+        the bucket's first served frame replays a graph: the counterpart
+        of the JAX server's ahead-of-time compile.  The capture's warm-up
+        runs on scratch copies of the buffers, so neither the state nor
+        the launch counters change.  Without capture (the CPU, ``eager``,
+        an exact mode) it builds the CUDA kernels the configuration runs.
         """
-        del num_points, streaming
-        if self.device.type != "cuda":
-            return
-        if registration._resolve_backend(self.config.gn_backend,
-                                         self.device) == "cuda":
+        bucket = next_bucket(max(num_points, 1), self.config.max_points)
+        self._call(bucket)[1].prepare()
+        if streaming and self.stream_mode == "scan":
+            self._call(bucket, self.stream_chunk)[1].prepare()
+        if (not self._capture and self.device.type == "cuda"
+                and registration._resolve_backend(
+                    self.config.gn_backend, self.device) == "cuda"):
             cuda_build.load("gn_solve")
 
     # ------------------------------------------------------------------
@@ -302,7 +393,7 @@ class LidarOdometryServer:
             self._count_truncation(n, bucket)
             buf, _ = packing.pack_frame(points, timestamps, rel, bucket,
                                         self.upload)
-            ret = self._step(self._upload(buf), bucket)
+            ret = self._step(bucket, buf)
             self.frames_registered += 1
             registered = True
             ret_np = ret.cpu().numpy()  # the ONE device->host sync
@@ -414,30 +505,27 @@ class LidarOdometryServer:
                 and records and records[0][0] == "skip"):
             fallback_pose = self.state.pose.cpu().numpy().astype(np.float64)
         if staged:
-            chunk = self._upload(self._staging if scan_mode
-                                 else self._staging[:staged])
             if scan_mode:
                 # every row runs, all-zero padding rows inactive (masked
                 # state); all stream_chunk rows append to the log, a pad
                 # row carrying the running pose/overflow unchanged
+                buf, call = self._call(self._staging_bucket,
+                                       self.stream_chunk)
+                self._upload(self._staging, buf)
                 base = self._ret_count
-                rets = []
-                for row in chunk:
-                    self.state, self._ovf_acc, ret = _server_step(
-                        self.state, self._ovf_acc, row,
-                        self._extrinsic_device(), self.config,
-                        self._staging_bucket, self.upload, with_active=True)
-                    rets.append(ret)
-                self._append_rets(torch.stack(rets))
+                rets = call()
+                self._append_rets(rets)
                 self._last_ret = rets[staged - 1]
                 self._frames_since_ovf_check += staged
+            else:
+                chunk = self._upload(self._staging[:staged])
         nframe = 0
         for kind, stamp in records:
             if kind == "frame":
                 if scan_mode:
                     cur = base + nframe
                 else:
-                    ret = self._step(chunk[nframe], self._staging_bucket)
+                    ret = self._step(self._staging_bucket, chunk[nframe])
                     self._append_rets(ret[None])
                     self._last_ret = ret
                     self._frames_since_ovf_check += 1

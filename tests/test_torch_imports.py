@@ -39,7 +39,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "oracle.reference", "utils.io.lz4f", "utils.io.mcap",
                  "utils.io.sqlite_bag", "utils.io.bag", "utils.io.native",
                  "utils.progress", "utils.viewer", "utils.visualization",
-                 "utils.profiling", "parallel.mesh", "parallel.sharded"):
+                 "utils.profiling", "parallel.mesh", "parallel.sharded",
+                 "utils.cuda_graph"):
         assert f"kinematic_icp_tpu_torch.{name}" in res["modules"]
 
 
@@ -63,7 +64,7 @@ def test_card_scripts_import_no_jax(script):
     assert not roots & {"jax", "jaxlib", "kinematic_icp_tpu"}, roots
 
 
-@pytest.mark.parametrize("entry", ["run_offline", "init_state",
+@pytest.mark.parametrize("entry", ["run_offline", "init_state", "make_step",
                                    "make_sequence_runner",
                                    "make_batched_sequence_runner",
                                    "init_batched_state",
@@ -91,6 +92,7 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "run_offline": lambda: offline.run_offline(
             [np.zeros((8, 3), np.float32)], [np.eye(4)], cfg),
         "init_state": lambda: pipeline.init_state(cfg),
+        "make_step": lambda: pipeline.make_step(cfg),
         "make_sequence_runner": lambda: offline.make_sequence_runner(cfg),
         "make_batched_sequence_runner":
             lambda: offline.make_batched_sequence_runner(cfg),

@@ -586,3 +586,192 @@ def test_native_library_loads_on_the_card_host(card):
 
     assert native.get_lib() is not None
     assert baseline_native.available()
+
+
+# --- the compiled step: CUDA graph capture and replay -------------------
+
+
+def _bits(t):
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.cuda
+def test_cooperative_gn_launch_captured_and_replayed(card):
+    """The GN kernel's cooperative launch inside a CUDA graph: a replay
+    gives the eager launch's bits and counts one launch; 1,000 replays of
+    the same inputs give the same bits (each launch zeroes its own barrier
+    words, which sit at one address in the graph)."""
+    from kinematic_icp_tpu_torch.utils.cuda_graph import StaticCall
+
+    cand, source, mask, guess = _problem(card, 10, n=1024, nmap=12000,
+                                         extent=4.0)
+    tau = torch.tensor(0.5, device=card)
+    eager = gn.gn_solve(cand, source, mask, guess, tau, **SOLVE)
+    call = StaticCall(lambda *a: gn.gn_solve(
+        hashmap.CandidateSet(*a[:5]), P3(*a[5:8]), a[8], a[9], a[10],
+        **SOLVE), (*cand, *source, mask, guess, tau), capture=True)
+    before = gn.LAUNCHES
+    call.prepare()
+    assert gn.LAUNCHES == before  # warm-up and capture are not counted
+    for i in range(1000):
+        out = call()
+        if i in (0, 999):
+            torch.cuda.synchronize()
+            for x, y in zip(out, eager):
+                assert torch.equal(_bits(x), _bits(y)), i
+    assert gn.LAUNCHES == before + 1000
+
+
+def _headline_drive(frames, seed=0):
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    return synthetic.make_sequence(frames, world_seed=seed,
+                                   traj_seed=seed + 10, noise_seed=seed + 20,
+                                   lidar=synthetic.realistic_lidar(),
+                                   clear_path_margin=3.0)
+
+
+def _run(card, seqs, cfg, eager, count=None):
+    """The batched runner (``seqs`` a list) or the sequence runner (one
+    dict), graph or ``eager``: (poses as numpy, GN launches)."""
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import (
+        init_batched_state, make_batched_sequence_runner,
+        make_sequence_runner, pad_batch, pad_sequence)
+
+    batched = isinstance(seqs, list)
+    if batched:
+        arrays = pad_batch(seqs, cfg)
+        runner = make_batched_sequence_runner(cfg, card, eager=eager)
+        state = init_batched_state(cfg, len(seqs), device=card)
+        ext = seqs[0]["extrinsic"]
+    else:
+        arrays = pad_sequence(seqs["frames"], seqs["rel_odometry"], cfg)
+        runner = make_sequence_runner(cfg, card, eager=eager)
+        state = pipeline.init_state(cfg, device=card)
+        ext = seqs["extrinsic"]
+    arrays = [torch.from_numpy(a).to(card) for a in arrays]
+    before = gn.LAUNCHES
+    _, poses, overflow, _ = runner(
+        state, *arrays[:4], torch.tensor(np.asarray(ext, np.float32),
+                                         device=card), arrays[4])
+    torch.cuda.synchronize()
+    assert not overflow.any()
+    return poses.cpu().numpy(), gn.LAUNCHES - before
+
+
+@pytest.mark.cuda
+def test_headline_drive_replayed_bit_equal_to_eager(card):
+    """20 headline frames: one graph replay a frame, every pose bit-equal
+    to the eager loop's, one GN launch a frame either way; a second
+    sequence of the same shapes replays the same graph."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import make_sequence_runner
+
+    cfg = Config(**HEADLINE)
+    seq = _headline_drive(20)
+    eager, eager_launches = _run(card, seq, cfg, eager=True)
+    graph, graph_launches = _run(card, seq, cfg, eager=False)
+    assert eager_launches == graph_launches == 20
+    np.testing.assert_array_equal(graph, eager)
+    step = make_sequence_runner(cfg, card)
+    again, _ = _run(card, seq, cfg, eager=False)
+    np.testing.assert_array_equal(again, eager)
+    assert step is make_sequence_runner(cfg, card)
+
+
+@pytest.mark.cuda
+def test_batched_drive_replayed_bit_equal_to_eager(card):
+    """Eight distinct headline drives, 10 frames: one GN launch a batched
+    frame, graph and eager bit-equal."""
+    from kinematic_icp_tpu_torch import Config
+
+    cfg = Config(**HEADLINE)
+    seqs = [_headline_drive(10, s) for s in range(8)]
+    eager, eager_launches = _run(card, seqs, cfg, eager=True)
+    graph, graph_launches = _run(card, seqs, cfg, eager=False)
+    assert eager_launches == graph_launches == 10
+    np.testing.assert_array_equal(graph, eager)
+
+
+@pytest.mark.cuda
+def test_batch_past_capacity_captured_with_both_launches(card):
+    """A batch of the co-resident CTA count plus one: each batched frame
+    replays both GN launches, bit-equal to the eager loop."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 12, max_range=60.0, deskew=True)
+    b = gn.capacity(card, False) + 1
+    drives = [synthetic.make_sequence(3, world_seed=s, traj_seed=s + 10,
+                                      noise_seed=s + 20) for s in range(3)]
+    seqs = [drives[i % 3] for i in range(b)]
+    eager, eager_launches = _run(card, seqs, cfg, eager=True)
+    graph, graph_launches = _run(card, seqs, cfg, eager=False)
+    assert eager_launches == graph_launches == 2 * 3
+    np.testing.assert_array_equal(graph, eager)
+
+
+@pytest.mark.cuda
+def test_step_replayed_1000_times_gives_the_same_bits(card):
+    """One captured headline frame replayed 1,000 times from the same
+    state (``make_step(donate=False)`` copies it in each call): the same
+    pose, solve and map table every time."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import pad_sequence
+
+    cfg = Config(**HEADLINE)
+    seq = _headline_drive(3)
+    pts, ts, mask, has_ts, rels = (torch.from_numpy(a).to(card) for a in
+                                   pad_sequence(seq["frames"],
+                                                seq["rel_odometry"], cfg))
+    ext = torch.tensor(np.asarray(seq["extrinsic"], np.float32), device=card)
+    state, _ = pipeline.register_frame(
+        pipeline.init_state(cfg, device=card), pts[1], ts[1], mask[1],
+        has_ts[1], ext, rels[1], cfg)
+    args = (state, pts[2], ts[2], mask[2], has_ts[2], ext, rels[2])
+    want_state, want = pipeline.register_frame(*args, cfg)
+    step = pipeline.make_step(cfg, donate=False, device=card)
+    before = gn.LAUNCHES
+    for i in range(1000):
+        got_state, got = step(*args)
+        if i % 100 == 0 or i == 999:
+            for x, y in ((got_state.pose, want_state.pose),
+                         (got_state.map.table, want_state.map.table),
+                         (got.debug.iterations, want.debug.iterations),
+                         (got.debug.odometry_error_pt,
+                          want.debug.odometry_error_pt),
+                         (got.overflow, want.overflow)):
+                assert torch.equal(_bits(x), _bits(y)), i
+    assert gn.LAUNCHES == before + 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["blocking", "scan"])
+def test_served_drive_replayed_bit_equal_to_eager(card, mode):
+    """20 headline frames through the server, blocking and chunk-scan:
+    graph replays bit-equal to the eager steps, one GN launch a registered
+    frame (the scan's padding rows included)."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+
+    seq = _headline_drive(20)
+    poses, launches = {}, {}
+    for eager in (True, False):
+        s = LidarOdometryServer(Config(**HEADLINE), extrinsic=seq["extrinsic"],
+                                stream_mode="steps" if mode == "blocking"
+                                else "scan", stream_chunk=8, device=card,
+                                eager=eager)
+        s.warmup(len(seq["frames"][0][0]), streaming=mode == "scan")
+        before = gn.LAUNCHES
+        for i, (p, t) in enumerate(seq["frames"]):
+            s.register_frame(p, t, seq["rel_odometry"][i], stamp=0.1 * i,
+                             blocking=mode == "blocking")
+        s.drain()
+        launches[eager] = gn.LAUNCHES - before
+        poses[eager] = np.asarray([p for _, p in s.poses_with_stamps])
+    np.testing.assert_array_equal(poses[False], poses[True])
+    assert launches[False] == launches[True] == (
+        19 if mode == "blocking" else 24)

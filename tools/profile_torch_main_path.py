@@ -37,21 +37,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _busy_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
 def _registration_times(torch, frames, rels, cfg, extrinsic):
     """Median wall ms of one registration on frames whose certificate held
     and on frames that fell back, with the count of each."""
@@ -106,6 +91,7 @@ def main(argv=None):
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import run_offline
     from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils.profiling import union_length
 
     if not torch.cuda.is_available():
         print("profile: no CUDA card", file=sys.stderr)
@@ -138,8 +124,8 @@ def main(argv=None):
     f = len(frames)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     kernel_us = sum(e.time_range.elapsed_us() for e in kernels)
-    busy_us = _busy_us([(e.time_range.start, e.time_range.end)
-                        for e in kernels])
+    busy = union_length([(e.time_range.start, e.time_range.end)
+                         for e in kernels])
     gn_us = sum(e.time_range.elapsed_us() for e in kernels
                 if "gn_solve_kernel" in e.name)
     top = {}
@@ -157,8 +143,8 @@ def main(argv=None):
         "wall_ms_per_frame": wall_us / f / 1e3,
         "device_kernel_ms_per_frame": kernel_us / f / 1e3 if measured
         else None,
-        "device_busy_share": busy_us / wall_us if measured else None,
-        "device_idle_share": 1.0 - busy_us / wall_us if measured else None,
+        "device_busy_share": busy / wall_us if measured else None,
+        "device_idle_share": 1.0 - busy / wall_us if measured else None,
         "kernel_launches_per_frame": len(kernels) / f if measured else None,
         "gn_kernel_ms_per_frame": gn_us / f / 1e3 if measured else None,
         "top_device_ops": [
