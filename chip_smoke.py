@@ -58,13 +58,15 @@ last line.  Phases:
      ``parallel.BatchedOdometryRunner(mesh=...)`` over 2 of the drives, 20
      frames (``run`` within 1e-5 of ``run_device``, bit-equal to the
      unsharded runner's loop lowering, each drive within 5 mm of its
-     ``run_offline``, no GN launch: the sharded path runs none, by
-     design; ms and collectives a frame);
+     ``run_offline``, the frame captured with its collectives, no GN
+     launch: the sharded path runs none, by design; ms and collectives a
+     frame);
  12. sharded_2rank: this script again as two worker processes on the one
      card (``--sharded-worker RANK PORT DIR``; gloo, a (1, 2) mesh, a wall
      limit each): gloo's CUDA int32 MIN and float32 SUM, each drive within
      5 mm of the one-rank run, zero overflow, every stored voxel on its
-     owner's rank, each shard's voxel count, ms a frame;
+     owner's rank, the frame run eagerly (gloo's collectives cannot be
+     captured), each shard's voxel count, ms a frame;
  13. serve: ``server.LidarOdometryServer`` over the 60 headline frames,
      one JSON line per sub-phase: blocking (per-frame latency p50/p90/p99,
      frames/s, one GN launch per registered frame, zero overflow, better
@@ -79,12 +81,16 @@ last line.  Phases:
      20 frames (one GN launch per registered frame, within 5 mm of the
      float32 server);
  13b. graph: the headline drive (60 frames), the stock ``Config`` drive
-     (20), the batched drive of the 8 headline drives and the served
-     headline (blocking and ``"scan"``), each on the eager loop
-     (``eager=True``) and on its CUDA graph in one call: every frame
-     bit-equal, the same GN launches, frames/s, host calls a frame and
-     the device's idle share over 20 frames under ``torch.profiler``, the
-     capture's ms and the graph pool's bytes;
+     (20), the batched drive of the 8 headline drives, the served
+     headline (blocking and ``"scan"``), the certified exact drive (60),
+     pruned exact (20), the certified exact batch of 4 drives (20), the
+     served certified headline (60) and the sharded runner on a one-rank
+     NCCL group (2 drives, 20), each on the eager loop (``eager=True``)
+     and on its CUDA graphs in one call: every frame bit-equal, the same
+     GN, ``check_crossing``, fallback and collective counts and fallback
+     frames, frames/s, host calls and syncs a frame and the device's idle
+     share over 20 frames under ``torch.profiler``, the capture's ms, the
+     graphs a static call and the graph pool's bytes;
  14. cli: ``run_odometry.main`` (the offline CLI) over the 60 headline
      frames written to an uncompressed mcap by the port's writer (one GN
      launch per registered frame, the native ingestion library loaded,
@@ -102,10 +108,13 @@ last line.  Phases:
  16. the ``kernels`` summary line, the card's name and power limit, and
      the final ``{"ok": true, ...}`` line.
 
-Every entry point on the card runs a frame of the default registration
-(and of its loop lowering) as one replay of a CUDA graph
-(``pipeline.Step``); the exact modes and the sharded phases run op by op,
-by configuration.  Each drive's line says which (``"path"``).
+Every entry point on the card runs its frames as replays of CUDA graphs
+(``pipeline.Step``, ``utils.cuda_graph``): one a frame under the default
+registration, its loop lowering and the sharded path on NCCL; two around
+the fallback flag's one read-back under the exact modes, and the full-27
+loop's graph between them on a frame that falls back.  Only
+``eager=True`` and the gloo ranks run op by op.  Each drive's line says
+which (``"path"``, read from the static calls the path ran).
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
 """
@@ -421,7 +430,8 @@ def drive_phase(torch, np, seq, phase, config_kw, count, judge_vs_gt,
     poses_loop, seconds_loop, overflow_loop, stats_loop = run_drive(
         torch, seq, cfg.replace(gn_backend="torch"), count)
     ate_loop = ate_rmse(poses_loop, poses, align=False)
-    row = {"phase": phase, "frames": count, "path": path_of(cfg),
+    row = {"phase": phase, "frames": count,
+           "path": path_of(runner_calls(torch, cfg)),
            "mean_points": float(np.mean([len(f[0]) for f in frames])),
            "config": config_kw, "gn_launches": launches,
            "gn_check_crossing_launches": crossing,
@@ -555,7 +565,7 @@ def pruned_phase(torch, np, seq):
               "zero_overflow": not overflow and not overflow_full,
               "bit_equal_every_frame": equal == count}
     emit({"phase": "pruned_exact", "frames": count, "config": PRUNED,
-          "path": path_of(cfg),
+          "path": path_of(runner_calls(torch, cfg)),
           "exact_fallback_frames": stats["exact_fallback_frames"],
           "frames_bit_equal": equal, "frames_per_s": count / seconds,
           "full_27_frames_per_s": count / seconds_full, "checks": checks})
@@ -751,7 +761,7 @@ def batched_drive_phase(torch, np):
             "run_offline_overflow": single_overflow or [0, 0, 0]})
     padded = poses[BATCH_SHORT:, -1]
     row = {"phase": "batched_drive", "B": BATCH, "frames": count,
-           "path": path_of(cfg),
+           "path": path_of(runner_calls(torch, cfg, batched=True)),
            "short_sequence_frames": BATCH_SHORT, "config": HEADLINE,
            "gn_launches": launches, "gn_frames_solved": frames,
            "frames_per_launch": frames / max(launches, 1),
@@ -811,7 +821,7 @@ def batched_sweep_phase(torch, np, seq, card):
     ratio = (rows[BATCH]["launches_per_batched_frame"]
              / rows[1]["launches_per_batched_frame"])
     row = {"phase": "batched_sweep", "frames": count, "nvidia_smi": card,
-           "path": path_of(cfg),
+           "path": path_of(runner_calls(torch, cfg, batched=True)),
            "profiled_frames": PROFILED_FRAMES,
            "by_batch": {str(b): r for b, r in rows.items()},
            "run_offline_frames_per_s": count / single_s,
@@ -1021,7 +1031,7 @@ def batched_exact_phase(torch, np, seqs):
     equal = sum(bool(np.array_equal(a, b)) for a, b in zip(pruned, full))
     seconds = stages["seconds"]
     row = {"phase": "batched_exact", "B": EXACT_BATCH, "frames": count,
-           "path": path_of(cfg),
+           "path": path_of(runner_calls(torch, cfg, batched=True)),
            "config": EXACT, "gn_launches": launches,
            "gn_check_crossing_launches": crossing,
            "fallback_loops": loops,
@@ -1074,14 +1084,20 @@ def sharded_drives(seqs):
 
 def sharded_runner(torch, np, mesh, drives, ext, how="run_device"):
     """``BatchedOdometryRunner`` on ``mesh`` over ``drives`` (headline
-    config) by ``how``, the collective count set to 0 just before and read
-    just after.  Returns (poses (B, F, 4, 4), seconds, collectives,
-    overflow warnings, the runner)."""
+    config) by ``how``: over their first 3 frames (which captures the
+    frame on NCCL), then from a fresh state over the whole drives, the
+    collective count set to 0 just before and read just after.  Returns
+    (poses (B, F, 4, 4), seconds, collectives, overflow warnings, the
+    runner)."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner, sharded
 
-    runner = BatchedOdometryRunner(Config(**HEADLINE), len(drives),
-                                   mesh=mesh, extrinsic=ext)
+    cfg = Config(**HEADLINE)
+    runner = BatchedOdometryRunner(cfg, len(drives), mesh=mesh,
+                                   extrinsic=ext)
+    getattr(runner, how)([{k: v[:3] for k, v in d.items()} for d in drives])
+    runner.state = sharded.init_sharded_state(cfg, mesh, len(drives))
+    runner.poses = [[] for _ in drives]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.synchronize()
@@ -1118,8 +1134,6 @@ def sharded_1rank_phase(torch, np, seqs):
     try:
         backend = dist.get_backend()
         mesh = make_mesh(1, 1)
-        sharded_runner(torch, np, mesh, [{k: v[:3] for k, v in d.items()}
-                                         for d in drives], ext)  # warm-up
         gn.LAUNCHES = 0
         device, seconds, collectives, overflow, runner = sharded_runner(
             torch, np, mesh, drives, ext)
@@ -1139,8 +1153,8 @@ def sharded_1rank_phase(torch, np, seqs):
            for i, s in enumerate(seqs[:SHARD_BATCH])]
     step_diff = float(np.abs(stepped - device).max())
     row = {"phase": "sharded_1rank", "backend": backend, "mesh": [1, 1],
-           # collectives between the frame's launches: no graph, by design
-           "path": "eager",
+           # NCCL's collectives inside the frame's graph
+           "path": path_of(runner._seq_runner.step.calls),
            "B": SHARD_BATCH, "frames": SHARD_FRAMES, "config": HEADLINE,
            "seconds": seconds, "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
            "run_ms_per_frame": step_s * 1e3 / SHARD_FRAMES,
@@ -1156,6 +1170,7 @@ def sharded_1rank_phase(torch, np, seqs):
         "bit_equal_to_unsharded_loop": bits == SHARD_FRAMES,
         "each_within_5mm_of_run_offline": max(ate) < 5e-3,
         "zero_overflow": not overflow and not step_overflow,
+        "captured_on_nccl": row["path"] == "graph",
         # collectives cannot run inside a kernel
         "no_gn_kernel_by_design": launches == 0}
     emit(row)
@@ -1195,8 +1210,6 @@ def sharded_worker(rank, port, out_dir):
         seqs = [headline_drive(s) for s in range(SHARD_BATCH)]
         drives = sharded_drives(seqs)
         ext = seqs[0]["extrinsic"]
-        sharded_runner(torch, np, mesh, [{k: v[:3] for k, v in d.items()}
-                                         for d in drives], ext)  # warm-up
         poses, seconds, collectives, overflow, runner = sharded_runner(
             torch, np, mesh, drives, ext)
         m = runner.state.map
@@ -1207,6 +1220,7 @@ def sharded_worker(rank, port, out_dir):
         meta = {"rank": rank, "backend": dist.get_backend(),
                 "device": str(dev), "gloo_cuda_int32_min_f32_sum": gloo_cuda,
                 "seconds": seconds, "collectives": collectives,
+                "path": path_of(runner._seq_runner.step.calls),
                 "overflow": overflow or [0, 0, 0],
                 "voxels": hashmap.num_voxels(m).tolist(),
                 "every_voxel_on_its_owner": bool(
@@ -1260,7 +1274,8 @@ def sharded_2rank_phase(torch, np, one_rank):
            for i in range(SHARD_BATCH)]
     seconds = max(m["seconds"] for m in meta)
     row = {"phase": "sharded_2rank", "backend": meta[0]["backend"],
-           "path": "eager",
+           # gloo's collectives cannot be captured
+           "path": meta[0]["path"],
            "mesh": [1, 2], "B": SHARD_BATCH, "frames": SHARD_FRAMES,
            "devices": [m["device"] for m in meta], "seconds": seconds,
            "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
@@ -1276,6 +1291,7 @@ def sharded_2rank_phase(torch, np, one_rank):
         "ranks_agree": bool(np.array_equal(poses[0], poses[1])),
         "each_within_5mm_of_one_rank": max(ate) < 5e-3,
         "zero_overflow": all(m["overflow"] == [0, 0, 0] for m in meta),
+        "eager_on_gloo": all(m["path"] == "eager" for m in meta),
         "every_voxel_on_its_owner": all(m["every_voxel_on_its_owner"]
                                         for m in meta),
         "both_shards_hold_voxels": all(min(m["voxels"]) > 0 for m in meta)}
@@ -1391,7 +1407,8 @@ def serve_phase(torch, np, seq, main_poses):
                         align=False)
     ate_offline = ate_rmse(main_poses, poses, align=False)
     equal = sum(bool(np.array_equal(a, b)) for a, b in zip(poses, main_poses))
-    row = {"phase": "serve_blocking", "frames": count, "path": path_of(cfg),
+    row = {"phase": "serve_blocking", "frames": count,
+           "path": path_of(server_calls(blocking)),
            "frames_registered": registered,
            "frames_skipped": blocking.frames_skipped,
            "warmup_s": warmup_s,
@@ -1428,7 +1445,7 @@ def serve_phase(torch, np, seq, main_poses):
         got = stamped_poses(np, s)
         rows[mode] = got
         row = {"phase": f"serve_stream_{mode}", "frames": count,
-               "path": path_of(cfg),
+               "path": path_of(server_calls(s)),
                "stream_chunk": SERVE_CHUNK, "gn_launches": gn.LAUNCHES,
                "frames_registered": s.frames_registered,
                "frames_per_s": count / seconds, "seconds": seconds,
@@ -1547,14 +1564,28 @@ def serve_phase(torch, np, seq, main_poses):
     return launches
 
 
-def path_of(config):
-    """"graph" where the entry points replay a CUDA graph a frame under
-    ``config`` on the card, "eager" where the step refuses it (the exact
-    modes that read their fallback flags back every frame)."""
-    from kinematic_icp_tpu_torch.models import pipeline
+def path_of(calls):
+    """"graph" where every static call a path ran
+    (``utils.cuda_graph.StaticCall``) replayed CUDA graphs, "eager" where
+    one ran op by op (or the path ran none: the eager loop)."""
+    calls = list(calls)
+    return "graph" if calls and all(c.graphs for c in calls) else "eager"
 
-    return ("eager" if pipeline.capture_refusal(config, "cuda")
-            else "graph")
+
+def runner_calls(torch, config, batched=False):
+    """The static calls of the cached sequence runner (``batched``: the
+    batched one) under ``config`` on the card: what ``run_offline`` and
+    ``run_batched`` ran."""
+    from kinematic_icp_tpu_torch.offline import (
+        make_batched_sequence_runner, make_sequence_runner)
+
+    make = make_batched_sequence_runner if batched else make_sequence_runner
+    step = make(config, torch.device("cuda")).step
+    return [] if step is None else step.calls
+
+
+def server_calls(server):
+    return [call for _, call in server._calls.values()]
 
 
 def pool_bytes(torch, pool):
@@ -1563,11 +1594,13 @@ def pool_bytes(torch, pool):
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
-def profiled(torch, run, frames, eager, frames_per_replay=1):
+def profiled(torch, run, frames, marker, per_marker):
     """``utils.profiling.device_profile`` of ``run()`` (``frames`` frames
     that end in a readback) under ``torch.profiler``, a frame's host calls
-    counted between the first and the last GN launch (``eager``) or graph
-    replay (``frames_per_replay`` frames each)."""
+    counted between the first and the last ``marker`` call (the GN
+    kernel's launch on an eager loop, a graph launch), ``per_marker``
+    frames each (None where a frame's count of them varies: an exact
+    frame's two or three graph launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     from kinematic_icp_tpu_torch.utils.profiling import device_profile
@@ -1578,27 +1611,45 @@ def profiled(torch, run, frames, eager, frames_per_replay=1):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if eager:
-        return device_profile(prof, wall, frames,
-                              "cudaLaunchCooperativeKernel",
-                              kernel="gn_solve_kernel")
-    return device_profile(prof, wall, frames, "cudaGraphLaunch",
-                          frames_per_replay, kernel="gn_solve_kernel")
+    return device_profile(prof, wall, frames, marker, per_marker,
+                          kernel="gn_solve_kernel")
 
 
-def graph_drive(torch, np, seqs, config, count, eager):
+def reset_counts():
+    """Set the launch, fallback and collective counters to 0."""
+    from kinematic_icp_tpu_torch.ops import gn, registration
+    from kinematic_icp_tpu_torch.parallel import sharded
+
+    gn.LAUNCHES = gn.CROSSING_LAUNCHES = 0
+    registration.FALLBACK_LOOPS = sharded.COLLECTIVES = 0
+
+
+def read_counts():
+    """The counters ``reset_counts`` zeroes: GN launches, ``check_crossing``
+    launches, full-27 fallback loops, collectives."""
+    from kinematic_icp_tpu_torch.ops import gn, registration
+    from kinematic_icp_tpu_torch.parallel import sharded
+
+    return {"gn_launches": gn.LAUNCHES,
+            "check_crossing_launches": gn.CROSSING_LAUNCHES,
+            "fallback_loops": registration.FALLBACK_LOOPS,
+            "collectives": sharded.COLLECTIVES}
+
+
+def graph_drive(torch, np, seqs, config, count, eager, markers, mesh=None):
     """The sequence runner over one drive (a dict), or the batched runner
-    over a list of drives, ``count`` frames, on its graph or (``eager``)
-    on the eager loop: a 3-frame run first (it captures the graph), then
-    the timed run (the inputs padded and on the card before the clock, the
-    poses read back inside it), then GRAPH_PROFILED_FRAMES frames under
-    the profiler.  The GN launch count is set to 0 just before the timed
-    run and read just after."""
+    over a list of drives (with ``mesh``, the map-sharded runner on it),
+    ``count`` frames, on its graphs or (``eager``) on the eager loop: a
+    3-frame run first (it captures the graphs), then the timed run (the
+    inputs padded and on the card before the clock, the poses read back
+    inside it), then GRAPH_PROFILED_FRAMES frames under the profiler,
+    ``markers`` (marker, frames a marker) starting its frames.  The counts
+    are set to 0 just before the timed run and read just after."""
     from kinematic_icp_tpu_torch.models import pipeline
     from kinematic_icp_tpu_torch.offline import (
         init_batched_state, make_batched_sequence_runner,
         make_sequence_runner, pad_batch, pad_sequence)
-    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.parallel import sharded
 
     dev = torch.device("cuda")
     batched = isinstance(seqs, list)
@@ -1614,7 +1665,10 @@ def graph_drive(torch, np, seqs, config, count, eager):
                                   first["rel_odometry"][:n], config)
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
-    if batched:
+    if mesh is not None:
+        runner = sharded.make_sharded_sequence_runner(config, mesh,
+                                                      eager=eager)
+    elif batched:
         runner = make_batched_sequence_runner(config, dev, eager=eager)
     else:
         runner = make_sequence_runner(config, dev, eager=eager)
@@ -1622,37 +1676,44 @@ def graph_drive(torch, np, seqs, config, count, eager):
                        device=dev)
 
     def run(arrays):
-        state = (init_batched_state(config, len(seqs), device=dev)
-                 if batched else pipeline.init_state(config, device=dev))
+        if mesh is not None:
+            state = sharded.init_sharded_state(config, mesh, len(seqs))
+        elif batched:
+            state = init_batched_state(config, len(seqs), device=dev)
+        else:
+            state = pipeline.init_state(config, device=dev)
         out = runner(state, *arrays[:4], ext, arrays[4])
-        return out[1].cpu().numpy(), out[2].cpu().numpy()
+        # the sharded runner counts no fallbacks (no certificate)
+        return tuple(x.cpu().numpy() for x in out[1:])
 
     run(inputs(3))
     arrays = inputs(count)
     torch.cuda.synchronize()
-    gn.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
-    poses, overflow = run(arrays)
+    poses, overflow, *fallbacks = run(arrays)
     seconds = time.perf_counter() - t0
-    launches = gn.LAUNCHES
+    counts = read_counts()
     few = inputs(GRAPH_PROFILED_FRAMES)
-    prof = profiled(torch, lambda: run(few), GRAPH_PROFILED_FRAMES, eager)
-    step = runner.step
+    prof = profiled(torch, lambda: run(few), GRAPH_PROFILED_FRAMES,
+                    *markers)
+    calls = [] if runner.step is None else runner.step.calls
     return {"poses": poses, "overflow": overflow, "seconds": seconds,
-            "gn_launches": launches, "profile": prof,
-            "capture_ms": None if step is None else [
-                c.capture_ms for c in step.calls],
-            "pool_bytes": None if step is None else pool_bytes(torch,
-                                                               step.pool)}
+            "fallback_frames": fallbacks[0] if fallbacks else None,
+            **counts, "profile": prof, "path": path_of(calls),
+            "capture_ms": [c.capture_ms for c in calls] or None,
+            "graphs": [c.graphs for c in calls],
+            "pool_bytes": pool_bytes(torch, runner.step.pool)
+            if calls else None}
 
 
-def graph_serve(torch, np, seq, config, count, mode, eager):
+def graph_serve(torch, np, seq, config, count, mode, eager, markers):
     """The headline through ``LidarOdometryServer``, blocking or streamed
     in ``"scan"`` chunks, on its graphs or (``eager``) op by op: ``warmup``
-    (which captures), the timed ``count`` frames with the GN launch count
-    set to 0 just before and read just after, then a second server's first
-    GRAPH_PROFILED_FRAMES frames under the profiler."""
-    from kinematic_icp_tpu_torch.ops import gn
+    (which captures), the timed ``count`` frames with the counts set to 0
+    just before and read just after, then a second server's first
+    GRAPH_PROFILED_FRAMES frames under the profiler (``markers`` as
+    ``graph_drive``'s)."""
     from kinematic_icp_tpu_torch.server import LidarOdometryServer
 
     blocking = mode == "blocking"
@@ -1666,12 +1727,12 @@ def graph_serve(torch, np, seq, config, count, mode, eager):
 
     s = served()
     torch.cuda.synchronize()
-    gn.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     serve_frames(s, seq, range(count), blocking=blocking)
     s.drain()
     seconds = time.perf_counter() - t0
-    launches = gn.LAUNCHES
+    counts = read_counts()
     other = served()
 
     def run():
@@ -1679,104 +1740,170 @@ def graph_serve(torch, np, seq, config, count, mode, eager):
                      blocking=blocking)
         other.drain()
 
-    # a chunk-scan replay runs SERVE_CHUNK frames
-    prof = profiled(torch, run, GRAPH_PROFILED_FRAMES, eager,
-                    1 if blocking else SERVE_CHUNK)
-    calls = [c for _, c in s._calls.values()]
+    prof = profiled(torch, run, GRAPH_PROFILED_FRAMES, *markers)
+    calls = server_calls(s)
     return {"poses": stamped_poses(np, s), "seconds": seconds,
-            "gn_launches": launches, "frames_registered":
-                s.frames_registered, "overflow": s.overflow_stats,
-            "profile": prof,
+            **counts, "fallback_frames": None,
+            "frames_registered": s.frames_registered,
+            "overflow": s.overflow_stats, "profile": prof,
+            "path": path_of(calls),
             "capture_ms": None if eager else [c.capture_ms for c in calls],
+            "graphs": [c.graphs for c in calls],
             "pool_bytes": None if eager else pool_bytes(torch, s._pool)}
 
 
+#: the markers that start a profiled frame: the GN kernel's launch (one a
+#: frame) on an eager loop, a graph launch (one a frame, or a chunk-scan
+#: of SERVE_CHUNK) under graphs; every launch of the kernel-free eager
+#: loops (pruned, sharded), and an exact frame's two or three graph
+#: launches, start a varying number a frame
+COOPERATIVE = ("cudaLaunchCooperativeKernel", 1)
+REPLAY = ("cudaGraphLaunch", 1)
+ANY_LAUNCH = ("cudaLaunchKernel", None)
+REPLAYS = ("cudaGraphLaunch", None)
+
+
 def graph_phase(torch, np, seq, drives, card):
-    """Each default path twice in one call, on the eager loop and on its
-    CUDA graph (the path the entry points take): the 60-frame headline
-    drive, the 20-frame stock ``Config`` drive, the batched drive of the 8
-    headline drives, and the served headline, blocking and chunk-scan.
-    For each: every frame bit-equal, frames/s, host calls a frame and the
+    """Each path twice in one call, on the eager loop and on its CUDA
+    graphs (the path the entry points take): the default paths (the
+    60-frame headline drive, the 20-frame stock ``Config`` drive, the
+    batched drive of the 8 headline drives, the served headline, blocking
+    and chunk-scan), the exact modes (the 60-frame certified drive, 20
+    pruned frames, 4 drives of 20 frames certified under a batch, the
+    served certified headline) and the map-sharded runner on a one-rank
+    NCCL group (drives 0-1, 20 frames).  For each: every frame bit-equal,
+    the same GN, ``check_crossing``, fallback and collective counts (and
+    fallback frames), frames/s, host calls and syncs a frame and the
     device's idle share over GRAPH_PROFILED_FRAMES frames under the
-    profiler, the capture's ms and the graph pool's bytes.  One line a
-    path, then a summary line."""
+    profiler, the capture's ms, the graphs a static call and the graph
+    pool's bytes.  One line a path, then a summary line."""
+    import torch.distributed as dist
+
     from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
+                                                  make_mesh)
 
     headline, stock = Config(**HEADLINE), Config(**STOCK)
+    exact, pruned = Config(**EXACT), Config(**PRUNED)
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    mesh = make_mesh(1, 1)
+
+    def drive(*a, markers=(COOPERATIVE, REPLAY), **kw):
+        return lambda e: graph_drive(torch, np, *a, e, markers[1 - e], **kw)
+
+    def serve(config, mode, markers=(COOPERATIVE, REPLAY)):
+        return lambda e: graph_serve(torch, np, seq, config, MAIN_FRAMES,
+                                     mode, e, markers[1 - e])
+
+    # (name, run(eager), frames, B, whether the GN kernel runs, whether
+    # the frame loop never waits for the device under graphs: a server
+    # waits for its upload and its readback, an exact frame for its
+    # fallback flag)
     cases = [
-        ("headline", lambda e: graph_drive(torch, np, seq, headline,
-                                           MAIN_FRAMES, e), MAIN_FRAMES, 1),
-        ("stock_config", lambda e: graph_drive(torch, np, seq, stock,
-                                               STOCK_FRAMES, e),
-         STOCK_FRAMES, 1),
-        (f"batched_b{BATCH}", lambda e: graph_drive(
-            torch, np, drives, headline, MAIN_FRAMES, e), MAIN_FRAMES,
-         BATCH),
-        ("serve_blocking", lambda e: graph_serve(
-            torch, np, seq, headline, MAIN_FRAMES, "blocking", e),
-         MAIN_FRAMES, 1),
-        ("serve_scan", lambda e: graph_serve(
-            torch, np, seq, headline, MAIN_FRAMES, "scan", e),
-         MAIN_FRAMES, 1)]
+        ("headline", drive(seq, headline, MAIN_FRAMES), MAIN_FRAMES, 1,
+         True, True),
+        ("stock_config", drive(seq, stock, STOCK_FRAMES), STOCK_FRAMES, 1,
+         True, True),
+        (f"batched_b{BATCH}", drive(drives, headline, MAIN_FRAMES),
+         MAIN_FRAMES, BATCH, True, True),
+        ("serve_blocking", serve(headline, "blocking"), MAIN_FRAMES, 1,
+         True, False),
+        ("serve_scan", serve(headline, "scan", (COOPERATIVE, (
+            "cudaGraphLaunch", SERVE_CHUNK))), MAIN_FRAMES, 1, True, False),
+        ("exact_certified", drive(seq, exact, EXACT_FRAMES,
+                                  markers=(COOPERATIVE, REPLAYS)),
+         EXACT_FRAMES, 1, True, False),
+        ("exact_pruned", drive(seq, pruned, PRUNED_FRAMES,
+                               markers=(ANY_LAUNCH, REPLAYS)),
+         PRUNED_FRAMES, 1, False, False),
+        (f"batched_exact_b{EXACT_BATCH}", drive(
+            drives[:EXACT_BATCH], exact, EXACT_BATCH_FRAMES,
+            markers=(COOPERATIVE, REPLAYS)), EXACT_BATCH_FRAMES,
+         EXACT_BATCH, True, False),
+        ("serve_exact_blocking", serve(exact, "blocking",
+                                       (COOPERATIVE, REPLAYS)),
+         MAIN_FRAMES, 1, True, False),
+        ("sharded_1rank_nccl", drive(
+            drives[:SHARD_BATCH], headline, SHARD_FRAMES,
+            markers=(ANY_LAUNCH, REPLAY), mesh=mesh), SHARD_FRAMES,
+         SHARD_BATCH, False, True)]
     summary = {}
-    for name, drive, count, b in cases:
-        eager, graph = drive(True), drive(False)
-        equal = sum(bool(np.array_equal(x, y))
-                    for x, y in zip(graph["poses"], eager["poses"]))
-        row = {"phase": f"graph_{name}", "frames": count, "B": b,
-               "nvidia_smi": card, "frames_bit_equal": equal,
-               "frames_per_s": {"eager": b * count / eager["seconds"],
-                                "graph": b * count / graph["seconds"]},
-               "gn_launches": {"eager": eager["gn_launches"],
-                               "graph": graph["gn_launches"]},
-               "profiled_frames": GRAPH_PROFILED_FRAMES,
-               "host_calls_per_frame": {
-                   "eager": eager["profile"]["host_calls_per_frame"],
-                   "graph": graph["profile"]["host_calls_per_frame"]},
-               "host_syncs_per_frame": {
-                   "eager": eager["profile"]["host_syncs_per_frame"],
-                   "graph": graph["profile"]["host_syncs_per_frame"]},
-               "device_idle_share": {
-                   "eager": eager["profile"]["device_idle_share"],
-                   "graph": graph["profile"]["device_idle_share"]},
-               "device_ops_per_frame": {
-                   "eager": eager["profile"]["device_ops_per_frame"],
-                   "graph": graph["profile"]["device_ops_per_frame"]},
-               "host_calls_by_name": {
-                   "eager": eager["profile"]["host_calls_by_name"],
-                   "graph": graph["profile"]["host_calls_by_name"]},
-               # the GN kernel's mean device ms, launched and replayed
-               "gn_kernel_ms": {"eager": eager["profile"]["kernel_ms"],
-                                "graph": graph["profile"]["kernel_ms"]},
-               "capture_ms": graph["capture_ms"],
-               "pool_bytes": graph["pool_bytes"]}
-        row["checks"] = {
-            "every_frame_bit_equal": equal == len(eager["poses"]) > 0,
-            "same_gn_launches": (graph["gn_launches"]
-                                 == eager["gn_launches"] > 0),
-            "overflow_equal": (
-                graph["overflow"] == eager["overflow"]
-                if isinstance(eager["overflow"], dict)
-                else np.array_equal(graph["overflow"], eager["overflow"])),
-            "captured": bool(graph["capture_ms"]) and None not in graph[
-                "capture_ms"],
-            # the frame's launches, the GN kernel's among them, are inside
-            # the replay
-            "gn_launch_inside_the_replay": "cudaLaunchCooperativeKernel"
-            not in graph["profile"]["host_calls_by_name"]}
-        if not name.startswith("serve"):
-            # a runner's frame loop never waits for the device (a server
-            # waits for its upload and its readback)
-            row["checks"]["no_host_sync_in_the_frame_loop"] = (
-                graph["profile"]["host_syncs_per_frame"] == 0)
-        row["checks"] = {k: bool(v) for k, v in row["checks"].items()}
-        emit(row)
-        if not all(row["checks"].values()):
-            raise SystemExit(f"graph_{name} failed: {row['checks']}")
-        summary[name] = {k: row[k] for k in (
-            "frames_per_s", "host_calls_per_frame", "host_syncs_per_frame",
-            "device_idle_share")}
+    try:
+        for name, run, count, b, kernel, quiet in cases:
+            eager, graph = run(True), run(False)
+            summary[name] = graph_row(np, name, count, b, kernel, quiet,
+                                      eager, graph, card)
+    finally:
+        dist.destroy_process_group()
     emit({"phase": "graph", "nvidia_smi": card, "paths": summary})
+    return summary
+
+
+def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
+    """One path's line of the graph phase (it fails the run on a failed
+    check); returns its summary."""
+    def both(key, of=None):
+        src = (lambda r: r[of][key]) if of else (lambda r: r[key])
+        return {"eager": src(eager), "graph": src(graph)}
+
+    equal = sum(bool(np.array_equal(x, y))
+                for x, y in zip(graph["poses"], eager["poses"]))
+    row = {"phase": f"graph_{name}", "frames": count, "B": b,
+           "nvidia_smi": card, "path": both("path"),
+           "frames_bit_equal": equal,
+           "frames_per_s": {"eager": b * count / eager["seconds"],
+                            "graph": b * count / graph["seconds"]},
+           **{k: both(k) for k in ("gn_launches", "check_crossing_launches",
+                                   "fallback_loops", "collectives")},
+           "exact_fallback_frames": {
+               k: None if r["fallback_frames"] is None
+               else r["fallback_frames"].tolist()
+               for k, r in (("eager", eager), ("graph", graph))},
+           "profiled_frames": GRAPH_PROFILED_FRAMES,
+           **{k: both(k, "profile") for k in (
+               "host_calls_per_frame", "host_syncs_per_frame",
+               "device_idle_share", "device_ops_per_frame",
+               "host_calls_by_name")},
+           # the GN kernel's mean device ms, launched and replayed
+           "gn_kernel_ms": both("kernel_ms", "profile"),
+           "capture_ms": graph["capture_ms"], "graphs": graph["graphs"],
+           "pool_bytes": graph["pool_bytes"]}
+    counts_equal = all(graph[k] == eager[k] for k in (
+        "gn_launches", "check_crossing_launches", "fallback_loops",
+        "collectives"))
+    row["checks"] = {
+        "every_frame_bit_equal": equal == len(eager["poses"]) > 0,
+        "same_counts": counts_equal and (graph["gn_launches"] > 0) == kernel,
+        "same_fallback_frames": (
+            eager["fallback_frames"] is None
+            if graph["fallback_frames"] is None
+            else np.array_equal(graph["fallback_frames"],
+                                eager["fallback_frames"])),
+        "overflow_equal": (
+            graph["overflow"] == eager["overflow"]
+            if isinstance(eager["overflow"], dict)
+            else np.array_equal(graph["overflow"], eager["overflow"])),
+        "captured": graph["path"] == "graph" and eager["path"] == "eager"
+        and None not in graph["capture_ms"],
+        # the frame's launches, the GN kernel's among them, are inside
+        # the replays
+        "gn_launch_inside_the_replay": "cudaLaunchCooperativeKernel"
+        not in graph["profile"]["host_calls_by_name"]}
+    if quiet:
+        row["checks"]["no_host_sync_in_the_frame_loop"] = (
+            graph["profile"]["host_syncs_per_frame"] == 0)
+    row["checks"] = {k: bool(v) for k, v in row["checks"].items()}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"graph_{name} failed: {row['checks']}")
+    return {"gn_launches": graph["gn_launches"],
+            "check_crossing_launches": graph["check_crossing_launches"],
+            "capture_ms": graph["capture_ms"],
+            "pool_mb": None if graph["pool_bytes"] is None
+            else graph["pool_bytes"] / 2**20,
+            **{k: row[k] for k in ("frames_per_s", "host_calls_per_frame",
+                                   "host_syncs_per_frame",
+                                   "device_idle_share")}}
 
 
 def cli_drive(np, bag, out_dir, argv):
@@ -1864,7 +1991,6 @@ def cli_phase(torch, np, seq, main_poses, card):
         write_tum(gt_tum, list(zip(stamps, seq["gt_poses"][:count])))
         scores = evaluate.evaluate_files(out, gt_tum, align=False)
         row = {"phase": "cli", "frames": count, "nvidia_smi": card,
-               "path": path_of(Config(**HEADLINE)),
                "config": "yaml: headline" if yaml is not None
                else "default Config(deskew=True)",
                "bag_bytes": os.path.getsize(bag), "bag_write_s": write_s,
@@ -2056,7 +2182,7 @@ def main():
     _, one_rank = sharded_1rank_phase(torch, np, drives)
     sharded_2rank_phase(torch, np, one_rank)
     serve_launches = serve_phase(torch, np, seq, main_poses)
-    graph_phase(torch, np, seq, drives, card)
+    graph = graph_phase(torch, np, seq, drives, card)
     cli_launches = cli_phase(torch, np, seq, main_poses, card)
     oracle_phase(torch, np, seq, main_poses)
 
@@ -2070,6 +2196,10 @@ def main():
         "launches_cli": cli_launches,
         "launches_batched": batched_drive["gn_launches"],
         "launches_batched_exact": batched_exact["gn_check_crossing_launches"],
+        # each path of the graph phase replayed: {GN, check_crossing}
+        "launches_graph": {name: [p["gn_launches"],
+                                  p["check_crossing_launches"]]
+                           for name, p in graph.items()},
         "frames_per_launch_batched": batched_drive["frames_per_launch"],
         "batched_ms": batched_kernel["ms"],
         "batched_bound_ms": batched_kernel["bound_ms"],

@@ -11,12 +11,13 @@ middle.
 
 ``make_step`` is the counterpart of the JAX package's jitted, donated step:
 a ``Step`` keeps the state and the inputs in buffers of its own, and on a
-CUDA device runs the frame as one replay of a CUDA graph captured once per
-static shape (``utils.cuda_graph``).  Under the default registration the
-frame reads nothing back to the host, which the capture needs; the certified
-and pruned exact modes read their fallback flags back once a frame, so
-``make_step`` refuses them (``capture_refusal``) and their callers run
-``register_frame``.
+CUDA device runs the frame as replays of CUDA graphs captured once per
+static shape (``utils.cuda_graph``), for every configuration.  The default
+registration reads nothing back: one replay a frame.  The certified and
+pruned exact modes branch to the full-27 loop where JAX's frame runs a
+``lax.cond``: their frame is two graphs around one read-back of the
+fallback flags, with the loop's graph replayed between them on the frames
+that set them.
 """
 
 from __future__ import annotations
@@ -232,25 +233,6 @@ def finish_frame(state: OdometryState, prep: PreparedFrame,
     return new_state, outputs
 
 
-def capture_refusal(config: Config, device) -> str | None:
-    """Why a frame under ``config`` on ``device`` cannot run as a CUDA
-    graph, or None: the exact modes that read their fallback flags back
-    to the host every frame (``registration.compute_robot_motion``).  The
-    default branch, its loop lowering and the plain full-27 loop read
-    nothing back."""
-    if not config.exact_gn_reassociation:
-        return None
-    backend = registration._resolve_backend(config.gn_backend,
-                                            torch.device(device))
-    if backend == "cuda":
-        return ("the certified exact mode reads its (B,) certificate flags "
-                "back every frame to decide the full-27 fallback")
-    if 0 < config.exact_prune_candidates < 27:
-        return ("the pruned exact mode reads its (B,) certificate flags "
-                "back every frame to decide the full-27 fallback")
-    return None
-
-
 def _tree_map(fn, tree):
     """``fn`` on every tensor of a state or an outputs tuple."""
     if tree is None:
@@ -299,7 +281,7 @@ class _Frame:
             args = [None] * len(inputs)
             for i, b in zip(present, buffers[4:]):
                 args[i] = b
-            new_state, out = register_frame(
+            new_state, out = step.register(
                 state_in, *args[:6], config, active=args[6],
                 rel_twist_in_lidar=args[7])
             refill(buffers[:4], state_tensors(new_state))
@@ -308,7 +290,7 @@ class _Frame:
         self.call = StaticCall(
             frame, (*state_tensors(self.state),
                     *(self.inputs[i] for i in present)),
-            capture=step.device.type == "cuda", pool=step.pool)
+            capture=step.capture, pool=step.pool)
 
     def load(self, state: OdometryState):
         if state is not self.state:
@@ -339,30 +321,33 @@ class Step:
     allocates the buffers; every call copies the state in (unless it is
     the state the step last returned) and each input that changed, then
     runs the frame over the buffers, writing the new state back into them.
-    On a CUDA device the frame is captured at that first call as a CUDA
-    graph and every call is one replay of it, with no host sync; on the
-    CPU it runs eagerly over the same buffers.
+    On a CUDA device the frame is captured at that first call as CUDA
+    graphs and every call replays them: one replay with no host sync, or
+    under an exact mode two around the fallback flags' one read-back
+    (``utils.cuda_graph``); on the CPU it runs eagerly over the same
+    buffers.
 
     ``donate=True`` returns the step's own state (and on a card its
     outputs): they hold this frame until the step's next call with the
     same shapes, and the caller's old state must not be used again (JAX's
     donation).
     ``donate=False`` returns clones and leaves the input state as it was.
-    The configurations of ``capture_refusal`` raise ``NotImplementedError``.
+    ``register`` (``register_frame``'s arguments) is the frame, and
+    ``capture`` (default: on a CUDA device) whether it runs as graphs: the
+    map-sharded step passes its own frame and captures only where its
+    collectives can be captured (``parallel.sharded``).
     """
 
-    def __init__(self, config: Config, donate: bool = True, device=None):
+    def __init__(self, config: Config, donate: bool = True, device=None,
+                 register=register_frame, capture: bool | None = None):
         self.device = resolve_device(device)
-        reason = capture_refusal(config, self.device)
-        if reason is not None:
-            raise NotImplementedError(
-                f"make_step takes no configuration whose frame reads back "
-                f"to the host: {reason}; run register_frame instead")
         self.config = config
         self.donate = donate
-        #: the memory pool the step's graphs share (None on the CPU)
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if self.device.type == "cuda" else None)
+        self.register = register
+        self.capture = (self.device.type == "cuda" if capture is None
+                        else capture)
+        #: the memory pool the step's graphs share (None without capture)
+        self.pool = torch.cuda.graph_pool_handle() if self.capture else None
         self._frames: dict[tuple, _Frame] = {}
 
     @property

@@ -58,15 +58,17 @@ def make_sequence_runner(config: Config, device=None, eager: bool = False):
     recomputed the solve.  ``device`` (``None`` = CUDA; raises if absent)
     is where the inputs must live.
 
-    Each frame runs through the runner's ``pipeline.Step``: on a CUDA
-    device one replay of a CUDA graph captured at the first frame of each
-    static shape, the state updated in place in the step's buffers and
-    returned as a copy at the end.  The runner is cached per (config,
-    device) as JAX's is, so a later sequence of the same shapes replays
-    the same graph.  ``eager=True`` runs ``register_frame`` op by op (the
-    baseline a replay is held to), as do the configurations that
-    ``pipeline.capture_refusal`` names (the certified and pruned exact
-    modes).
+    Each frame runs through the runner's ``pipeline.Step``, under every
+    configuration: on a CUDA device the replays of CUDA graphs captured at
+    the first frame of each static shape (one a frame; under the certified
+    and pruned exact modes two around the fallback flag's one read-back,
+    and the full-27 loop's graph between them on a frame that falls back),
+    the state updated in place in the step's buffers and returned as a copy
+    at the end.  ``fallbacks`` reads each frame's ``exact_fallback`` output
+    on the device.  The runner is cached per (config, device) as JAX's is,
+    so a later sequence of the same shapes replays the same graphs.
+    ``eager=True`` runs ``register_frame`` op by op (the baseline a replay
+    is held to).
     """
     return _make_runner(config, resolve_device(device), STATIONARY_GATE,
                         False, eager)
@@ -82,15 +84,15 @@ def make_batched_sequence_runner(config: Config, device=None,
     from ``init_batched_state``.
 
     The same frame loop as ``make_sequence_runner`` (and the same graph
-    replay a frame, and ``eager``) with a batch axis on every tensor: a
+    replays a frame, and ``eager``) with a batch axis on every tensor: a
     frame of B sequences issues the launches of one frame, the GN solves
     of all B in one kernel launch.  A sequence shorter than the batch's
     pads with identity odometry: its frames past the end are stationary
     and leave its state as it was.  ``stationary_gate`` is the |log(rel)|
     below which a frame is stationary (JAX's ``run_device`` fixes it at
     1e-3).  Under an exact mode a batched frame reads its (B,) fallback
-    flags back once, and ``fallbacks`` counts each sequence's fallback
-    frames.
+    flags back once (the full-27 loop runs on the batch where any is set),
+    and ``fallbacks`` counts each sequence's fallback frames.
     """
     return _make_runner(config, resolve_device(device), stationary_gate,
                         True, eager)
@@ -99,7 +101,7 @@ def make_batched_sequence_runner(config: Config, device=None,
 @functools.lru_cache(maxsize=8)
 def _make_runner(config: Config, dev: torch.device, stationary_gate: float,
                  batched: bool, eager: bool):
-    if eager or pipeline.capture_refusal(config, dev) is not None:
+    if eager:
         register = functools.partial(pipeline.register_frame, config=config)
     else:
         register = pipeline.Step(config, device=dev)

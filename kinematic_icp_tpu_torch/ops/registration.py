@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import cuda_graph
 from . import gn, hashmap, motion_model, se3
 from .points import P3, per_row, transform
 
@@ -41,7 +42,8 @@ from .points import P3, per_row, transform
 _EPSILON = 1e-30
 
 #: full-27 fallback loops run by the exact modes so far (one a frame, or a
-#: batched frame, whose certificate failed in some row; a plain count)
+#: batched frame, whose certificate failed in some row; a plain count,
+#: advanced by each replay of a captured fallback as ``gn.LAUNCHES`` is)
 FALLBACK_LOOPS = 0
 
 
@@ -253,10 +255,12 @@ def compute_robot_motion(m: hashmap.MapState, source: P3, source_mask,
         equals the full loop bit for bit;
       * "torch" otherwise: the full-27 loop.
 
-    The exact modes read the fallback flag back to the host once a frame,
-    and run the full-27 loop only on frames that set it (eager PyTorch has
-    no device-side branch).  The default branch reads nothing back.
-    Returns (new_pose (4, 4), RegistrationDebug).
+    Where JAX's exact modes branch on the device (``lax.cond``), the
+    port's fallback is a branch point (``utils.cuda_graph.branch``): the
+    flag read back once a frame, the full-27 loop run only on frames that
+    set it, eagerly or, in a captured frame, as a graph of its own replayed
+    between the frame's two segments.  The default branch reads nothing
+    back.  Returns (new_pose (4, 4), RegistrationDebug).
 
     Every branch takes a batch: (B, NB, G*R) table, (B, N) sources, (B, 4,
     4) poses and odometry, (B,) tau; it returns (B, 4, 4) poses and (B,)
@@ -324,16 +328,20 @@ def compute_robot_motion(m: hashmap.MapState, source: P3, source_mask,
         """``solved`` (pose, iterations, correspondences[, point-space
         error]) with the full-27 loop's values in each row whose ``flag``
         is set, as JAX's vmapped ``lax.cond`` selects them; the loop runs
-        only when some row is set (one sync a frame)."""
-        global FALLBACK_LOOPS
-        if not bool(flag.any()):
-            return solved
-        FALLBACK_LOOPS += 1
-        looped = full_loop()
-        if len(solved) == 4:
-            looped += (_point_error(looped[0], guess, threshold_max_range),)
-        return tuple(torch.where(per_row(flag, a.dim() - flag.dim()), a, b)
-                     for a, b in zip(looped, solved))
+        only when some row is set (a branch point of the frame: one
+        read-back of the flag)."""
+        def fallback():
+            global FALLBACK_LOOPS
+            FALLBACK_LOOPS += 1
+            looped = full_loop()
+            if len(solved) == 4:
+                looped += (_point_error(looped[0], guess,
+                                        threshold_max_range),)
+            return tuple(
+                torch.where(per_row(flag, a.dim() - flag.dim()), a, b)
+                for a, b in zip(looped, solved))
+
+        return cuda_graph.branch(flag, fallback, solved)
 
     if backend == "cuda":
         # Certified solve: while the window-margin certificate holds, the

@@ -3,15 +3,15 @@
 The answer to "process many bags": instead of the reference's one bag at a
 time (offline_node.cpp), B sequences advance in lock-step, padded to shared
 static shapes, every frame of the batch in the launches of one frame
-(``offline.make_batched_sequence_runner``), on a card one CUDA graph
-replay a batched frame (``pipeline.Step``).  Given a (data, map) mesh, the
+(``offline.make_batched_sequence_runner``), on a card as CUDA graph
+replays (``pipeline.Step``: one a batched frame, or under an exact mode
+two around the fallback flags' read-back).  Given a (data, map) mesh, the
 sequences are split over the data ranks and each sequence's map over the
 map ranks (``parallel.sharded``).
 """
 
 from __future__ import annotations
 
-import functools
 import warnings
 
 import numpy as np
@@ -52,13 +52,8 @@ class BatchedOdometryRunner:
         if mesh is None:
             self.device = resolve_device(device)
             self.state = init_batched_state(config, batch, dtype, self.device)
-            # the batched step (one graph replay a batched frame on a
-            # card), or register_frame for a configuration it refuses
-            self._frame = (
-                pipeline.Step(config, device=self.device)
-                if pipeline.capture_refusal(config, self.device) is None
-                else functools.partial(pipeline.register_frame,
-                                       config=config))
+            # the batched step (graph replays a batched frame on a card)
+            self._frame = pipeline.Step(config, device=self.device)
         else:
             self.device = sharded.mesh_device(mesh)
             self.state = sharded.init_sharded_state(config, mesh, batch,

@@ -19,7 +19,10 @@ Per GN trip, on ``torch.distributed`` collectives over the map group:
   * the map insert and eviction stay shard-local (ownership-filtered).
 
 The data axis never communicates inside a frame; the poses (and overflow
-totals) are gathered over it once a step or a sequence.
+totals) are gathered over it once a step or a sequence.  On an NCCL mesh
+the frame is captured as a CUDA graph, its collectives inside it, and
+replayed every frame, as JAX runs its sharded step as one jitted dispatch;
+gloo's collectives cannot be captured, so on gloo the frame runs eagerly.
 
 JAX's data-dependent ``while`` loop becomes ``registration.run_gn``'s
 ``max_num_iterations`` masked trips, so every rank issues the same
@@ -83,7 +86,8 @@ def _axes(mesh) -> _Axes:
 
 def _all_reduce(t, op, group):
     """``t`` reduced in place over ``group`` (every rank gets the same
-    bits), and returned."""
+    bits), and returned; counted in ``COLLECTIVES`` (by each replay of a
+    captured frame as ``gn.LAUNCHES`` is)."""
     global COLLECTIVES
     COLLECTIVES += 1
     dist.all_reduce(t, op=op, group=group)
@@ -269,27 +273,51 @@ def make_sharded_step(config: Config, mesh):
     the rank's (``init_sharded_state``) and comes back as the rank's, the
     poses and overflow counts gathered over the data axis (the same on
     every rank).  ``active`` False (the stationary gate) keeps a sequence's
-    state.  The sharded step stays eager, op by op, and returns new
-    tensors: its collectives (NCCL, or gloo, which a CUDA graph cannot
-    hold) are not captured as ``pipeline.make_step``'s frame is.
+    state.
+
+    The frame runs over the step's own buffers (``pipeline.Step``, with
+    ``sharded_register_frame``): the state returned is the step's, valid
+    until its next call, and the caller's old state must not be used again
+    (JAX's ``donate=True``); on a data axis of one rank the poses and
+    overflow are the step's too.  Where the map group is NCCL's the frame
+    is captured as a CUDA graph at its first call of each static shape and
+    replayed every frame, its collectives inside the graph, with no host
+    sync; on gloo, whose collectives a CUDA graph cannot hold, or on the
+    CPU, the same frame runs eagerly over the same buffers.  The gathers
+    over the data axis run outside the frame.  A captured frame holds the
+    map group's communicator: drop the step (and run ``gc.collect()``)
+    before ``destroy_process_group``, whose NCCL teardown waits for the
+    graphs to be freed.
     """
     axes = _axes(mesh)
+    frame = _frame_step(config, mesh, axes)
 
     def step(state, points, timestamps, mask, has_timestamps, lidar_to_base,
              relative_odometry, active):
         rows = _rows(axes, state, points.shape[0])
-        state, out = sharded_register_frame(
+        state, out = frame(
             state, points[rows], timestamps[rows], mask[rows],
             has_timestamps[rows], lidar_to_base, relative_odometry[rows],
-            config, mesh, active=active[rows])
+            active=active[rows])
         return (state, _gather_rows(out.pose, 0, axes),
                 _gather_rows(out.overflow, 0, axes))
 
     return step
 
 
+def _frame_step(config: Config, mesh, axes: _Axes) -> pipeline.Step:
+    """``sharded_register_frame`` over buffers of its own, captured where
+    the map group's backend is NCCL (chosen by the backend, never by
+    trying a capture)."""
+    return pipeline.Step(
+        config, device=axes.device,
+        register=functools.partial(sharded_register_frame, mesh=mesh),
+        capture=dist.get_backend(axes.map_group) == "nccl")
+
+
 def make_sharded_sequence_runner(config: Config, mesh,
-                                 stationary_gate: float = STATIONARY_GATE):
+                                 stationary_gate: float = STATIONARY_GATE,
+                                 eager: bool = False):
     """Whole sequences over the (data, map) mesh: ``run(state, pts (F, B,
     N, 3), ts (F, B, N), mask (F, B, N), has_ts (F, B), lidar_to_base (4,
     4), rels (F, B, 4, 4)) -> (state, poses (F, B, 4, 4), overflow (B,
@@ -301,13 +329,17 @@ def make_sharded_sequence_runner(config: Config, mesh,
     before it (``offline._per_frame_constants``): identity padding is a
     stationary frame.  Returns the rank's state, and the poses and
     per-sequence overflow totals of the whole batch, gathered over the
-    data axis.  The frame loop stays eager, one ``sharded_register_frame``
-    a frame (see ``make_sharded_step``).
+    data axis.  Each frame runs as ``make_sharded_step``'s does: one
+    replay of a CUDA graph a frame where the map group is NCCL's, the
+    same frame eagerly over the same buffers on gloo or the CPU; the state
+    is copied out at the end.  ``eager=True`` runs
+    ``sharded_register_frame`` op by op (the baseline a replay is held to).
     """
     axes = _axes(mesh)
 
-    register = functools.partial(sharded_register_frame, config=config,
-                                 mesh=mesh)
+    register = (functools.partial(sharded_register_frame, config=config,
+                                  mesh=mesh) if eager
+                else _frame_step(config, mesh, axes))
     frames = _runner(config, axes.device, stationary_gate, batched=True,
                      register=register)
 
@@ -319,4 +351,6 @@ def make_sharded_sequence_runner(config: Config, mesh,
         return (state, _gather_rows(poses, 1, axes),
                 _gather_rows(overflow, 0, axes))
 
+    #: the runner's ``pipeline.Step`` (its graphs), or None on the eager loop
+    run.step = frames.step
     return run

@@ -14,7 +14,9 @@ Blocking mode costs one upload, one step and one readback of a small int32
 vector holding the pose's bits and the running overflow totals.  On a card
 a step is one replay of a CUDA graph, one per (bucket, codec, dtype) and
 one per chunk-scan (the counterpart of the JAX server's executables),
-captured at the bucket's first frame or by ``warmup``; the server's state,
+captured at the bucket's first frame or by ``warmup``; under an exact mode
+a frame's graph is split at its fallback branch point (one read-back of
+the flag, ``utils.cuda_graph``); the server's state,
 its overflow totals, extrinsic and upload buffers are the graphs' fixed
 buffers, refilled in place (``state`` assignment, ``set_pose``).  Streaming
 mode stages ``stream_chunk`` frames host-side and uploads them as one
@@ -143,9 +145,11 @@ class LidarOdometryServer:
         problem warns mid-stream instead of only at ``drain()`` (0 disables
         the periodic check).
       eager: run each step op by op over the same buffers instead of
-        replaying its CUDA graph (the baseline a replay is held to).  The
-        configurations ``pipeline.capture_refusal`` names (the certified
-        and pruned exact modes) always run so; so does the CPU.
+        replaying its CUDA graphs (the baseline a replay is held to), as
+        the CPU always does.  Under the certified and pruned exact modes a
+        step's graphs are two segments around the fallback flag's one
+        read-back, with the full-27 loop's graph replayed between them
+        where the flag is set (a chunk-scan has a branch point a row).
     """
 
     def __init__(self, config: Config | None = None,
@@ -178,9 +182,7 @@ class LidarOdometryServer:
         self._ovf_acc = torch.zeros(3, dtype=torch.int32, device=self.device)
         self._ext_dev = torch.as_tensor(self._extrinsic.astype(np.float32),
                                         device=self.device)
-        self._capture = (self.device.type == "cuda" and not eager
-                         and pipeline.capture_refusal(self.config,
-                                                      self.device) is None)
+        self._capture = self.device.type == "cuda" and not eager
         self._pool = (torch.cuda.graph_pool_handle() if self._capture
                       else None)
         #: (bucket, chunk rows or 0) -> (the upload buffer, its StaticCall)
@@ -328,8 +330,8 @@ class LidarOdometryServer:
         the bucket's first served frame replays a graph: the counterpart
         of the JAX server's ahead-of-time compile.  The capture's warm-up
         runs on scratch copies of the buffers, so neither the state nor
-        the launch counters change.  Without capture (the CPU, ``eager``,
-        an exact mode) it builds the CUDA kernels the configuration runs.
+        the launch counters change.  Without capture (the CPU, ``eager``)
+        it builds the CUDA kernels the configuration runs.
         """
         bucket = next_bucket(max(num_points, 1), self.config.max_points)
         self._call(bucket)[1].prepare()

@@ -1,30 +1,47 @@
-"""One call over fixed buffers, captured once as a CUDA graph and replayed.
+"""One call over fixed buffers, captured once as CUDA graphs and replayed.
 
 The counterpart of a jitted JAX program with donated arguments: the JAX
 package compiles a frame once per static shape and runs it as one dispatch
 that updates the donated state in place.  Here the owner (a pipeline step,
 a server bucket) allocates the buffers once; ``fn`` reads its inputs from
 them and writes the new state back into them, and on a CUDA device the
-first call captures ``fn`` as a ``torch.cuda.CUDAGraph`` that every later
-call replays: one host call in place of the frame's ~1,000 launches, the
-same kernels, so the same bits.
+first call captures ``fn`` as CUDA graphs that every later call replays:
+one host call in place of the frame's ~1,000 launches, the same kernels,
+so the same bits.
+
+A frame may hit branch points (``branch``): a (B,) flag, a fallback that
+recomputes some tensors, and those tensors.  This is where JAX's frame runs
+a device-side ``lax.cond`` (the exact modes' full-27 fallback); eager
+PyTorch has no such branch, so the frame is captured as a chain: segment 0
+up to the first branch point, ending in ``flag.any()``; a graph of the
+fallback of its own, writing its values into the branch point's tensors in
+place; the next segment up to the next branch point, or to the end.  A
+replay runs segment 0, copies the flag into pinned host memory and waits
+for it (the frame's one read-back a branch point), replays the fallback's
+graph only if some row is set, then the next segment.  Every graph of a
+chain shares one memory pool and replays in capture order; a fallback
+graph writes only into tensors that exist before it, so the memory of its
+temporaries is dead once it ends whether or not it ran.
 
 Capture follows PyTorch's recipe: ``fn`` is warmed up once on a side
 stream, over scratch clones of the buffers (the owner's state is not
-advanced), so the kernels are built, the GN kernel's co-resident CTA count
-is queried and the allocator has seen the frame before the capture; the
+advanced), with every fallback run, so the kernels are built, the GN
+kernel's co-resident CTA count is queried, a process group's communicator
+is made and the allocator has seen the frame before the capture; the
 capture then records ``fn`` over the real buffers without running it.  A
 capture that fails raises: nothing falls back to the eager call.
 
-The GN kernel's launch counters (``ops.gn``) are plain Python integers
-bumped by its wrapper, and a replay runs no Python: the capture records
-their increments, every replay adds them, and the warm-up's launches and
-the capture's own are taken back out, so a count read around a run is
-that run's launches.
+The launch, fallback and collective counters (``ops.gn``,
+``ops.registration.FALLBACK_LOOPS``, ``parallel.sharded.COLLECTIVES``) are
+plain Python integers bumped where the work is issued, and a replay runs no
+Python: each graph's capture records their increments, every replay of it
+adds them, and the warm-up's and the capture's own are taken back out, so
+a count read around a run is that run's.
 
 Without capture (a CPU device, or an owner that asks for the eager call)
-each call runs ``fn`` over the same buffers: the same protocol of copies
-in and state written in place, testable on the CPU.
+each call runs ``fn`` over the same buffers, and a branch point reads its
+flag back and runs the fallback where set: the same protocol, testable on
+the CPU.
 """
 
 from __future__ import annotations
@@ -35,24 +52,111 @@ import torch
 
 from ..ops import gn
 
-#: the GN kernel's counters a replay advances by the captured increments
-_ADDITIVE = ("LAUNCHES", "FRAMES", "CROSSING_LAUNCHES")
+#: the chain being captured, or ``_WARMUP`` during a warm-up, else None
+_active = None
+_WARMUP = object()
+
+
+def _counters():
+    """(module, name) of each counter a replay advances by what its capture
+    recorded (imported here: those modules import this one)."""
+    from ..ops import registration
+    from ..parallel import sharded
+
+    return ((gn, "LAUNCHES"), (gn, "FRAMES"), (gn, "CROSSING_LAUNCHES"),
+            (registration, "FALLBACK_LOOPS"), (sharded, "COLLECTIVES"))
 
 
 def _counts():
-    return {name: getattr(gn, name) for name in _ADDITIVE + ("LAST_CTAS",)}
+    return {(m, n): getattr(m, n) for m, n in _counters()}
+
+
+def _since(before):
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+def _add(increments):
+    for (module, name), n in increments.items():
+        setattr(module, name, getattr(module, name) + n)
+
+
+def branch(flag, fallback, tensors):
+    """A branch point of a frame: ``tensors`` (a tuple) as they are, or
+    ``fallback()``'s new values of them (a tuple of the same shapes, which
+    must keep each row whose ``flag`` is clear), run only where some row of
+    the (B,) or 0-d bool ``flag`` is set.
+
+    Eager: one read-back of ``flag.any()``, then the fallback if set.  In a
+    static call's warm-up the fallback always runs; under its capture the
+    fallback becomes a graph of its own that writes into ``tensors`` in
+    place, replayed on the frames whose flag reads back set (see the
+    module's docstring).
+    """
+    if _active is None:
+        return fallback() if bool(flag.any()) else tensors
+    if _active is _WARMUP:
+        return fallback()
+    return _active.branch(flag, fallback, tensors)
+
+
+class _Chain:
+    """The graphs of one capture: ``segments`` (graph, counter increments),
+    and between each two a branch point's (``flag.any()`` on the device,
+    its pinned host copy, fallback graph, increments)."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.segments = []
+        self.branches = []
+        self._begin()
+
+    def _begin(self):
+        self._graph, self._before = torch.cuda.CUDAGraph(), _counts()
+        self._graph.capture_begin(pool=self.pool)
+
+    def _end(self):
+        graph, self._graph = self._graph, None
+        graph.capture_end()
+        return graph, _since(self._before)
+
+    def end(self):
+        self.segments.append(self._end())
+
+    def abort(self):
+        """End a capture left open by a failure (which the caller
+        re-raises)."""
+        if self._graph is not None:
+            try:
+                self._graph.capture_end()
+            except RuntimeError:
+                pass
+            self._graph = None
+
+    def branch(self, flag, fallback, tensors):
+        any_set = flag.any()
+        self.end()
+        self._begin()
+        values = fallback()
+        for dst, src in zip(tensors, values):
+            dst.copy_(src)
+        del values
+        graph, increments = self._end()
+        host = torch.empty((), dtype=torch.bool, pin_memory=True)
+        self.branches.append((any_set, host, graph, increments))
+        self._begin()
+        return tensors
 
 
 class StaticCall:
-    """``fn(*buffers)`` over fixed ``buffers``, replayed as a CUDA graph
+    """``fn(*buffers)`` over fixed ``buffers``, replayed as CUDA graphs
     when ``capture`` is true (the buffers must then lie on one CUDA
     device), else called eagerly.
 
-    ``fn`` must read nothing back to the host, and its outputs (a tensor
-    or a nested tuple of them, returned by every call) live in the graph's
-    memory: each call overwrites them.  ``pool`` (``torch.cuda.
-    graph_pool_handle()``) lets the graphs of one owner, replayed one at a
-    time, share their memory.
+    ``fn`` must read nothing back to the host outside its branch points
+    (``branch``), and its outputs (a tensor or a nested tuple of them,
+    returned by every call) live in the graphs' memory: each call
+    overwrites them.  ``pool`` (``torch.cuda.graph_pool_handle()``) lets
+    the graphs of one owner, replayed one at a time, share their memory.
     """
 
     def __init__(self, fn, buffers, capture: bool, pool=None):
@@ -60,47 +164,77 @@ class StaticCall:
         self.buffers = tuple(buffers)
         self.capture = capture
         self.pool = pool
-        self.graph = None
         self.outputs = None
-        self._increments = {}
+        self._chain = None
         self._last_ctas = None
         #: host ms of the warm-up and the capture (None before them)
         self.capture_ms = None
 
+    @property
+    def graphs(self) -> int:
+        """CUDA graphs captured: the segments and the fallbacks between
+        them (0 before the capture, or without capture)."""
+        if self._chain is None:
+            return 0
+        return len(self._chain.segments) + len(self._chain.branches)
+
     def prepare(self):
         """Warm up and capture now (a no-op without capture or once
         captured); touches no buffer."""
-        if not self.capture or self.graph is not None:
+        global _active
+        if not self.capture or self._chain is not None:
             return
         dev = self.buffers[0].device
-        before = _counts()
+        before, ctas = _counts(), gn.LAST_CTAS
         t0 = time.perf_counter()
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self.fn(*(b.clone() for b in self.buffers))
+                _active = _WARMUP
+                try:
+                    self.fn(*(b.clone() for b in self.buffers))
+                finally:
+                    _active = None
             torch.cuda.current_stream(dev).wait_stream(side)
-            warmed = _counts()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool):
-                self.outputs = self.fn(*self.buffers)
-            captured = _counts()
+            # as torch.cuda.graph frees what it can before a capture
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            pool = (self.pool if self.pool is not None
+                    else torch.cuda.graph_pool_handle())
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                chain = _active = _Chain(pool)
+                try:
+                    outputs = self.fn(*self.buffers)
+                    chain.end()
+                except BaseException:
+                    chain.abort()
+                    raise
+                finally:
+                    _active = None
         self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.graph = graph
-        self._increments = {n: captured[n] - warmed[n] for n in _ADDITIVE}
-        if self._increments["LAUNCHES"]:
-            self._last_ctas = captured["LAST_CTAS"]
-        for name, value in before.items():
-            setattr(gn, name, value)
+        self.outputs, self._chain = outputs, chain
+        if any((gn, "LAUNCHES") in inc for _, inc in chain.segments):
+            self._last_ctas = gn.LAST_CTAS
+        for (module, name), value in before.items():
+            setattr(module, name, value)
+        gn.LAST_CTAS = ctas
 
     def __call__(self):
         if not self.capture:
             return self.fn(*self.buffers)
         self.prepare()
-        self.graph.replay()
-        for name, n in self._increments.items():
-            setattr(gn, name, getattr(gn, name) + n)
+        segments, branches = self._chain.segments, self._chain.branches
+        for i, (graph, increments) in enumerate(segments):
+            if i:
+                any_set, host, fallback, more = branches[i - 1]
+                host.copy_(any_set, non_blocking=True)
+                torch.cuda.current_stream().synchronize()
+                if host.item():
+                    fallback.replay()
+                    _add(more)
+            graph.replay()
+            _add(increments)
         if self._last_ctas is not None:
             gn.LAST_CTAS = self._last_ctas
         return self.outputs

@@ -110,7 +110,8 @@ def union_length(intervals) -> float:
 
 
 def device_profile(prof, wall_s: float, frames: int, marker: str,
-                   frames_per_marker: int = 1, kernel: str = "") -> dict:
+                   frames_per_marker: float | None = 1,
+                   kernel: str = "") -> dict:
     """What ``torch.profiler`` (CUDA activity, which also records the CUDA
     API calls) saw over ``frames`` frames that took ``wall_s`` host
     seconds, ending in a sync.
@@ -122,7 +123,10 @@ def device_profile(prof, wall_s: float, frames: int, marker: str,
     from the first ``marker`` call to the last, the call that starts each
     ``frames_per_marker`` frames (a graph launch, or the GN kernel's
     launch on the eager loop), over the frames between them: the frame
-    loop's steady cost, without the run's set-up; ``host_syncs_per_frame``
+    loop's steady cost, without the run's set-up (``frames_per_marker``
+    None, where a frame's markers vary in number, as an exact frame's
+    graph launches do: ``frames`` over the markers seen, a close figure,
+    not an exact one); ``host_syncs_per_frame``
     counts the waits for the device in the same span (a readback is one).
     ``kernel_ms``: the mean device time of the kernels whose name holds
     ``kernel`` (None without ``kernel`` or without such a kernel).  Reads
@@ -143,6 +147,8 @@ def device_profile(prof, wall_s: float, frames: int, marker: str,
     span = [name for t, name in api
             if len(marks) > 1 and marks[0] <= t < marks[-1]]
     loop = Counter(name for name in span if _SUBMITS.match(name))
+    if frames_per_marker is None:
+        frames_per_marker = frames / max(len(marks), 1)
     per = max(len(marks) - 1, 0) * frames_per_marker
     busy = union_length(device) / 1e3  # us
     return {

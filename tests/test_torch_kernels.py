@@ -7,6 +7,8 @@ Imports no JAX, so it also runs where JAX is not installed:
 On a machine without a CUDA card every test here skips.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -775,3 +777,150 @@ def test_served_drive_replayed_bit_equal_to_eager(card, mode):
     np.testing.assert_array_equal(poses[False], poses[True])
     assert launches[False] == launches[True] == (
         19 if mode == "blocking" else 24)
+
+
+# --- the exact modes' frames as graph segments around their read-back ----
+
+#: chip_smoke.py's exact configuration (the JAX bench's, bench.py:296-298)
+EXACT = dict(HEADLINE, neighbor_candidates=27, exact_gn_reassociation=True,
+             map_capacity=1 << 16, max_probes=4)
+
+
+def _exact_frames(card, cfg, seqs, eager, count):
+    """``count`` frames of one drive (a dict) or a batch of drives (a
+    list) through a fresh ``pipeline.Step`` (captured) or
+    ``register_frame`` (``eager``).  Returns, a frame each: the pose's
+    bits, the fallback flags, and the full-27 loops and ``check_crossing``
+    launches the frame ran."""
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import (init_batched_state,
+                                                 pad_batch, pad_sequence)
+
+    batched = isinstance(seqs, list)
+    if batched:
+        arrays = pad_batch([{k: s[k][:count] for k in ("frames",
+                                                       "rel_odometry")}
+                            for s in seqs], cfg)
+        state = init_batched_state(cfg, len(seqs), device=card)
+        ext = seqs[0]["extrinsic"]
+    else:
+        arrays = pad_sequence(seqs["frames"][:count],
+                              seqs["rel_odometry"][:count], cfg)
+        state = pipeline.init_state(cfg, device=card)
+        ext = seqs["extrinsic"]
+    pts, ts, mask, has_ts, rels = (torch.from_numpy(a).to(card)
+                                   for a in arrays)
+    ext = torch.tensor(np.asarray(ext, np.float32), device=card)
+    register = (functools.partial(pipeline.register_frame, config=cfg)
+                if eager else pipeline.Step(cfg, device=card))
+    frames = []
+    for f in range(count):
+        before = (registration.FALLBACK_LOOPS, gn.CROSSING_LAUNCHES)
+        state, out = register(state, pts[f], ts[f], mask[f], has_ts[f], ext,
+                              rels[f])
+        frames.append((_bits(state.pose).cpu(),
+                       out.debug.exact_fallback.cpu(),
+                       registration.FALLBACK_LOOPS - before[0],
+                       gn.CROSSING_LAUNCHES - before[1]))
+    if not eager:
+        assert [c.graphs for c in register.calls] == [3]
+    return frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,batch", [("certified", 0), ("pruned", 0),
+                                        ("certified", 4)])
+def test_exact_frames_replayed_bit_equal_to_eager(card, mode, batch):
+    """The certified (one drive and B = 4) and pruned exact modes through
+    the step: two segments and the full-27 loop's graph, every frame's
+    pose bit-equal to the eager frame's with the same fallback flags; the
+    fallback graph replays on exactly the frames whose flag is set, and
+    the fallback and ``check_crossing`` counts equal eager's."""
+    from kinematic_icp_tpu_torch import Config
+
+    cfg = Config(**EXACT)
+    if mode == "pruned":
+        cfg = cfg.replace(exact_prune_candidates=14, gn_backend="torch")
+    count = 20
+    seqs = ([_headline_drive(count, s) for s in range(batch)] if batch
+            else _headline_drive(count))
+    eager = _exact_frames(card, cfg, seqs, True, count)
+    graph = _exact_frames(card, cfg, seqs, False, count)
+    for f, (e, g) in enumerate(zip(eager, graph)):
+        assert torch.equal(e[0], g[0]), f
+        assert torch.equal(e[1], g[1]), f
+        assert e[2:] == g[2:] == (int(g[1].any()),
+                                  int(mode == "certified")), f
+    assert any(g[1].any() for g in graph)  # the fallback ran
+
+
+@pytest.mark.cuda
+def test_served_exact_drive_replayed_bit_equal_to_eager(card):
+    """20 headline frames through a blocking server under the certified
+    exact mode: graph replays bit-equal to the eager steps, with the same
+    ``check_crossing`` launches and fallback loops."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+
+    seq = _headline_drive(20)
+    runs = {}
+    for eager in (True, False):
+        s = LidarOdometryServer(Config(**EXACT), extrinsic=seq["extrinsic"],
+                                device=card, eager=eager)
+        s.warmup(len(seq["frames"][0][0]))
+        before = (gn.CROSSING_LAUNCHES, registration.FALLBACK_LOOPS)
+        for i, (p, t) in enumerate(seq["frames"]):
+            s.register_frame(p, t, seq["rel_odometry"][i], stamp=0.1 * i)
+        runs[eager] = (np.asarray([p for _, p in s.poses_with_stamps]),
+                       gn.CROSSING_LAUNCHES - before[0],
+                       registration.FALLBACK_LOOPS - before[1])
+        if not eager:
+            assert [c.graphs for _, c in s._calls.values()] == [3]
+    np.testing.assert_array_equal(runs[False][0], runs[True][0])
+    assert runs[False][1:] == runs[True][1:]
+    assert runs[False][1] == 19 and runs[False][2] > 0
+
+
+@pytest.mark.cuda
+def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card):
+    """A one-rank NCCL group: the sharded runner's frame captured as one
+    CUDA graph, collectives inside, bit-equal to its eager loop with the
+    same collective count."""
+    import socket
+
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import pad_batch
+    from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
+                                                  make_mesh, sharded)
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 13, max_range=60.0, deskew=True)
+    seqs = [synthetic.make_sequence(5, world_seed=w, traj_seed=w + 10,
+                                    noise_seed=w + 20) for w in range(2)]
+    arrays = [torch.from_numpy(a).to(card) for a in pad_batch(seqs, cfg)]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(1, 1)
+        runs = {}
+        for eager in (True, False):
+            run = sharded.make_sharded_sequence_runner(cfg, mesh,
+                                                       eager=eager)
+            before = sharded.COLLECTIVES
+            out = run(sharded.init_sharded_state(cfg, mesh, 2),
+                      *arrays[:4], torch.eye(4, device=card), arrays[4])
+            torch.cuda.synchronize()
+            runs[eager] = out, sharded.COLLECTIVES - before
+        assert [c.graphs for c in run.step.calls] == [1]
+    finally:
+        dist.destroy_process_group()
+    (want, n_want), (got, n_got) = runs[True], runs[False]
+    assert n_got == n_want == 5 * 23
+    for a, b in zip((*got[1:], got[0].map.table),
+                    (*want[1:], want[0].map.table)):
+        assert torch.equal(_bits(a), _bits(b))

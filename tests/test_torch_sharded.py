@@ -366,6 +366,16 @@ for how in ("run", "run_device"):
         res[f"{how}_{i}"] = np.asarray(got[i])
 for k, v in zip("ptos", state_to_numpy(runner.state)):
     res["run_state_" + k] = v
+#    the eager frame loop (sharded_register_frame op by op) over the same
+#    padded drives, against run_device's buffered step
+from kinematic_icp_tpu_torch.offline import pad_batch
+packed = [t(a) for a in pad_batch(ragged, cfg)]
+eager = sharded.make_sharded_sequence_runner(cfg, mesh, eager=True)(
+    sharded.init_sharded_state(cfg, mesh, 2), *packed[:4], torch.eye(4),
+    packed[4])
+res["eager_poses"] = eager[1].numpy()
+for k, v in zip("ptos", state_to_numpy(eager[0])):
+    res["eager_state_" + k] = v
 np.savez(os.path.join(out_dir, f"out_{rank}.npz"), **res)
 torch.distributed.destroy_process_group()
 print(f"rank {rank}: OK", flush=True)
@@ -504,6 +514,20 @@ def test_four_ranks_runner_matches_jax(four_ranks):
             np.testing.assert_allclose(got, jposes[:len(got), i], atol=1e-5,
                                        rtol=0)
             np.testing.assert_array_equal(got, outs[0][f"run_device_{i}"])
+
+
+def test_four_ranks_buffered_runner_bit_equal_to_eager(four_ranks):
+    """On every rank of the (2, 2) mesh, ``run_device``'s buffered step
+    (gloo: eager over the step's buffers) gives the eager frame loop's
+    poses and final shard state bit for bit."""
+    outs = four_ranks[0]
+    for o in outs:
+        for i, n in enumerate((NUM_FRAMES, SHORT)):
+            np.testing.assert_array_equal(o[f"run_device_{i}"],
+                                          o["eager_poses"][:n, i])
+        for k in "ptos":
+            np.testing.assert_array_equal(o["run_state_" + k],
+                                          o["eager_state_" + k])
 
 
 def test_four_ranks_run_equals_run_device(four_ranks):

@@ -1,15 +1,16 @@
 """The port's compiled step (``pipeline.make_step``) on the CPU.
 
-Against JAX's ``make_step`` on the same inputs, against ``register_frame``
-and the eager frame loop, and the step's buffer protocol: donation, reuse
-by a later sequence, in-place refills (``set_pose``, a checkpoint), the
-configurations it refuses, and a frame with no host sync, which a CUDA
-graph capture needs.  On the CPU each call runs the frame eagerly over the
-step's buffers; the card tests (``tests/test_torch_kernels.py``) replay it
-as a CUDA graph.
+Against JAX's ``make_step`` on the same inputs (the exact modes
+included), against ``register_frame`` and the eager frame loop, and the
+step's buffer protocol: donation, reuse by a later sequence, in-place
+refills (``set_pose``, a checkpoint), and a frame with no host sync but
+one read-back a branch point, which a CUDA graph capture needs.  On the
+CPU each call runs the frame eagerly over the step's buffers; the card
+tests (``tests/test_torch_kernels.py``) replay it as CUDA graphs.
 """
 
 import dataclasses
+import functools
 import io
 import traceback
 
@@ -21,6 +22,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from kinematic_icp_tpu import Config as JConfig
 from kinematic_icp_tpu.models import pipeline as jpipe
+from kinematic_icp_tpu.ops import pallas_gn
 from kinematic_icp_tpu_torch import Config
 from kinematic_icp_tpu_torch import offline as toffline
 from kinematic_icp_tpu_torch.convert import state_to_numpy
@@ -40,10 +42,12 @@ LIDAR = dict(num_beams=256, num_rings=4, ring_angles_deg=(-10.0, -3.0, 0.0,
                                                           8.0))
 FRAMES = 6
 CFG = Config.from_dict(dataclasses.asdict(DRIVE_CFG))
-CERTIFIED = CFG.replace(neighbor_candidates=27, exact_gn_reassociation=True,
-                        gn_backend="cuda")
-PRUNED = CFG.replace(neighbor_candidates=27, exact_gn_reassociation=True,
-                     gn_backend="torch", exact_prune_candidates=14)
+#: the exact modes at a 60 m range, where the certificates fail on some
+#: frames of the drive (the fallback runs)
+EXACT = dict(neighbor_candidates=27, exact_gn_reassociation=True,
+             max_range=60.0)
+CERTIFIED = CFG.replace(gn_backend="cuda", **EXACT)
+PRUNED = CFG.replace(gn_backend="torch", exact_prune_candidates=14, **EXACT)
 
 
 @pytest.fixture(scope="module")
@@ -221,31 +225,62 @@ def test_set_pose_and_checkpoint_refill_the_servers_buffers(seqs):
         b.state = tpipe.init_state(CFG, dtype=torch.float64, device=CPU)
 
 
-@pytest.mark.parametrize("cfg,refused", [
-    (CERTIFIED, True), (PRUNED, True),
-    (CFG.replace(neighbor_candidates=27, exact_gn_reassociation=True,
-                 gn_backend="torch"), False),
-    (CFG.replace(gn_backend="torch"), False)],
+@pytest.mark.parametrize("cfg", [
+    CERTIFIED, PRUNED,
+    CFG.replace(neighbor_candidates=27, exact_gn_reassociation=True,
+                gn_backend="torch"),
+    CFG.replace(gn_backend="torch")],
     ids=["certified", "pruned", "full_27_loop", "loop_lowering"])
-def test_refused_configs_run_the_eager_loop(seqs, cfg, refused):
-    """``make_step`` refuses the exact modes that read their fallback flags
-    back every frame, naming why; the runners and the server run those on
-    the eager loop, chosen by config (the same bits as ``eager=True``)."""
-    assert (tpipe.capture_refusal(cfg, CPU) is not None) == refused
-    if refused:
-        with pytest.raises(NotImplementedError, match="reads its"):
-            make_step(cfg, device=CPU)
-    else:
-        assert isinstance(make_step(cfg, device=CPU), tpipe.Step)
+def test_refused_configs_run_the_eager_loop(seqs, cfg, monkeypatch):
+    """``make_step`` takes every single-device configuration, the exact
+    modes whose frame reads its fallback flag back included: each against
+    JAX's jitted ``make_step(donate=False)`` over a short drive (JAX's
+    certified kernel in interpret mode), overflow bit-equal, poses within
+    1e-5 and the fallback flags equal every frame; the runners and the
+    server route through the step (the runner's bits are the eager
+    loop's)."""
+    monkeypatch.setattr(pallas_gn, "gn_solve",
+                        functools.partial(pallas_gn.gn_solve, interpret=True))
+    jcfg = JConfig(**cfg.to_jax_dict())
+    jstep = jpipe.make_step(jcfg, donate=False)
+    tstep = make_step(cfg, device=CPU)
+    assert isinstance(tstep, tpipe.Step)
+    pts, ts, mask, has_ts, rels = _frames(cfg, seqs[0])
+    jstate = jpipe.init_state(jcfg)
+    tstate = tpipe.init_state(cfg, device=CPU)
+    flags = []
+    for f in range(FRAMES):
+        jstate, jout = jstep(jstate, *(jnp.asarray(a[f].numpy()) for a in
+                                       (pts, ts, mask, has_ts)),
+                             jnp.eye(4), jnp.asarray(rels[f].numpy()))
+        tstate, tout = tstep(tstate, pts[f], ts[f], mask[f], has_ts[f],
+                             torch.eye(4), rels[f])
+        np.testing.assert_array_equal(tout.overflow.numpy(),
+                                      np.asarray(jout.overflow))
+        np.testing.assert_allclose(tstate.pose.numpy(),
+                                   np.asarray(jstate.pose), atol=1e-5,
+                                   rtol=0)
+        if cfg in (CERTIFIED, PRUNED):
+            flags.append(bool(tout.debug.exact_fallback))
+            assert flags[-1] == bool(jout.debug.exact_fallback), f
+        else:
+            assert tout.debug.exact_fallback is None
+    assert np.linalg.norm(tstate.pose.numpy()[:3, 3]) > 1.0
+
     a = _frames(cfg, seqs[0])
     args = (tpipe.init_state(cfg, device=CPU), *a[:4], torch.eye(4), a[4])
-    routed = toffline.make_sequence_runner(cfg, CPU)(*args)
+    runner = toffline.make_sequence_runner(cfg, CPU)
+    assert isinstance(runner.step, tpipe.Step)
+    routed = runner(*args)
     eager = toffline.make_sequence_runner(cfg, CPU, eager=True)(*args)
     for x, y in zip(routed[1:], eager[1:]):
         assert _bits_equal(x, y)
+    if flags:
+        assert 0 < int(routed[3]) <= sum(flags)
     server = LidarOdometryServer(cfg, extrinsic=seqs[0]["extrinsic"],
                                  device=CPU)
     assert np.isfinite(_serve(server, seqs[0], range(3))).all()
+    assert [key[1] for key in server._calls] == [0]
 
 
 #: aten ops that read a device value back to the host
@@ -280,14 +315,19 @@ class _HostTraffic(TorchDispatchMode):
         return out
 
 
-@pytest.mark.parametrize("kw", [
-    {}, dict(gn_backend="torch", gn_candidates_per_voxel=4),
-    dict(deskew=False, neighbor_candidates=27, exact_gn_reassociation=True,
-         gn_backend="torch")], ids=["kernel_branch", "loop", "full_27_loop"])
+@pytest.mark.parametrize("kw,branch_points", [
+    ({}, 0), (dict(gn_backend="torch", gn_candidates_per_voxel=4), 0),
+    (dict(deskew=False, neighbor_candidates=27, exact_gn_reassociation=True,
+          gn_backend="torch"), 0),
+    (dict(EXACT, gn_backend="cuda"), 1),
+    (dict(EXACT, gn_backend="torch", exact_prune_candidates=14), 1)],
+    ids=["kernel_branch", "loop", "full_27_loop", "certified", "pruned"])
 @pytest.mark.parametrize("batch", [0, 2])
-def test_frame_has_no_host_sync(seqs, kw, batch):
+def test_frame_has_no_host_sync(seqs, kw, branch_points, batch):
     """A frame of every configuration the step takes, unbatched and
-    batched, reads nothing back and copies no host value in."""
+    batched, copies no host value in and reads nothing back but its
+    branch points' flags (``cuda_graph.branch``), one read-back each: the
+    exact modes' one branch point, none elsewhere."""
     cfg = CFG.replace(**kw)
     pts, ts, mask, has_ts, rels = _frames(cfg, seqs[0])
     state, _ = tpipe.register_frame(tpipe.init_state(cfg, device=CPU),
@@ -307,7 +347,10 @@ def test_frame_has_no_host_sync(seqs, kw, batch):
     with _HostTraffic() as mode:
         tpipe.register_frame(state, *args[:4], torch.eye(4), args[4], cfg,
                              active=args[5], rel_twist_in_lidar=args[6])
-    assert mode.found == []
+    reads = [name for name, where in mode.found
+             if "cuda_graph.py" in where and "in branch" in where]
+    assert reads == ["_local_scalar_dense.default"] * branch_points
+    assert len(mode.found) == branch_points
 
 
 @pytest.mark.parametrize("upload", ["f32", "u16"])

@@ -20,10 +20,11 @@ runner`` advancing B copies of the drive in lock-step (inputs padded and
 uploaded as ``run_offline`` does); "a frame" is then a batched frame of B
 sequences, and the line adds the sequences' aggregate frames per second.
 
-With ``--config exact`` a second, unprofiled pass over the same frames
-times each registration (``compute_robot_motion``, synchronised before and
-after) and reports the median wall time of frames whose certificate held
-and of frames that fell back to the full-27 loop.
+With ``--config exact`` a second, unprofiled pass over the same frames,
+on the eager loop (a replayed frame runs no Python to time), times each
+registration (``compute_robot_motion``, synchronised before and after)
+and reports the median wall time of frames whose certificate held and of
+frames that fell back to the full-27 loop.
 """
 
 from __future__ import annotations
@@ -37,10 +38,13 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _registration_times(torch, frames, rels, cfg, extrinsic):
+def _registration_times(torch, np, frames, rels, cfg, extrinsic):
     """Median wall ms of one registration on frames whose certificate held
-    and on frames that fell back, with the count of each."""
-    from kinematic_icp_tpu_torch.offline import run_offline
+    and on frames that fell back, with the count of each, on the eager
+    frame loop."""
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import (make_sequence_runner,
+                                                 pad_sequence)
     from kinematic_icp_tpu_torch.ops import registration
 
     solve = registration.compute_robot_motion
@@ -55,9 +59,15 @@ def _registration_times(torch, frames, rels, cfg, extrinsic):
         times[fell_back].append((time.perf_counter() - t0) * 1e3)
         return pose, debug
 
+    dev = torch.device("cuda")
+    arrays = [torch.from_numpy(a).to(dev)
+              for a in pad_sequence(frames, rels, cfg)]
+    ext = torch.tensor(np.asarray(extrinsic, np.float32), device=dev)
     registration.compute_robot_motion = timed
     try:
-        run_offline(frames, rels, cfg, extrinsic=extrinsic)
+        make_sequence_runner(cfg, dev, eager=True)(
+            pipeline.init_state(cfg, device=dev), *arrays[:4], ext,
+            arrays[4])
     finally:
         registration.compute_robot_motion = solve
 
@@ -153,7 +163,7 @@ def main(argv=None):
     }
     if args.config == "exact" and not args.batch:
         row["registration_wall_ms"] = _registration_times(
-            torch, frames, rels, cfg, seq["extrinsic"])
+            torch, np, frames, rels, cfg, seq["extrinsic"])
     line = json.dumps(row)
     print(line, flush=True)
     if args.out:

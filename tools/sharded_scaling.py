@@ -24,6 +24,7 @@ and power limit (the first card's).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -109,10 +110,13 @@ def worker(args):
     try:
         for data, m in meshes(args.world):
             mesh = make_mesh(data, m, args.device)
-            BatchedOdometryRunner(cfg, args.world, mesh=mesh,
-                                  extrinsic=ext).run_device(warm)
+            # the warm-up captures the runner's frame on NCCL; the timed
+            # run replays it from a fresh state
             runner = BatchedOdometryRunner(cfg, args.world, mesh=mesh,
                                            extrinsic=ext)
+            runner.run_device(warm)
+            runner.state = sharded.init_sharded_state(cfg, mesh, args.world)
+            runner.poses = [[] for _ in range(args.world)]
             sharded.COLLECTIVES = 0
             poses, seconds, overflow = timed(torch, runner, runs, sync)
             counts = hashmap.num_voxels(runner.state.map).to(torch.int64)
@@ -123,6 +127,10 @@ def worker(args):
                          "collectives": sharded.COLLECTIVES,
                          "overflow": overflow,
                          "voxels_by_rank": [c.tolist() for c in every]})
+            # a captured frame holds its communicator: NCCL's teardown
+            # waits for the graphs to be freed
+            del runner
+            gc.collect()
     finally:
         dist.destroy_process_group()
     if args.rank:
