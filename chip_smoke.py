@@ -1125,7 +1125,8 @@ def sharded_1rank_phase(torch, np, seqs):
     from kinematic_icp_tpu_torch.ops import gn, hashmap
     from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
                                                   initialize_distributed,
-                                                  make_mesh)
+                                                  make_mesh,
+                                                  shutdown_distributed)
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
     drives = sharded_drives(seqs)
@@ -1141,8 +1142,11 @@ def sharded_1rank_phase(torch, np, seqs):
         stepped, step_s, _, step_overflow, _ = sharded_runner(
             torch, np, mesh, drives, ext, how="run")
         voxels = hashmap.num_voxels(runner.state.map).tolist()
+        # NCCL's collectives inside the frame's graph (read before the
+        # shutdown frees the graphs)
+        path = path_of(runner._seq_runner.step.calls)
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
     loop = np.asarray(BatchedOdometryRunner(
         Config(**HEADLINE, gn_backend="torch"), SHARD_BATCH,
         extrinsic=ext).run_device(drives))
@@ -1153,8 +1157,7 @@ def sharded_1rank_phase(torch, np, seqs):
            for i, s in enumerate(seqs[:SHARD_BATCH])]
     step_diff = float(np.abs(stepped - device).max())
     row = {"phase": "sharded_1rank", "backend": backend, "mesh": [1, 1],
-           # NCCL's collectives inside the frame's graph
-           "path": path_of(runner._seq_runner.step.calls),
+           "path": path,
            "B": SHARD_BATCH, "frames": SHARD_FRAMES, "config": HEADLINE,
            "seconds": seconds, "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
            "run_ms_per_frame": step_s * 1e3 / SHARD_FRAMES,
@@ -1190,7 +1193,8 @@ def sharded_worker(rank, port, out_dir):
 
     from kinematic_icp_tpu_torch.ops import hashmap
     from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
-                                                  make_mesh, sharded)
+                                                  make_mesh, sharded,
+                                                  shutdown_distributed)
 
     rank = int(rank)
     initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo")
@@ -1226,7 +1230,7 @@ def sharded_worker(rank, port, out_dir):
                 "every_voxel_on_its_owner": bool(
                     (owner == mesh.get_local_rank("map")).all())}
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
     np.save(os.path.join(out_dir, f"poses{rank}.npy"), poses)
     with open(os.path.join(out_dir, f"meta{rank}.json"), "w") as f:
         json.dump(meta, f)
@@ -1777,11 +1781,10 @@ def graph_phase(torch, np, seq, drives, card):
     device's idle share over GRAPH_PROFILED_FRAMES frames under the
     profiler, the capture's ms, the graphs a static call and the graph
     pool's bytes.  One line a path, then a summary line."""
-    import torch.distributed as dist
-
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
-                                                  make_mesh)
+                                                  make_mesh,
+                                                  shutdown_distributed)
 
     headline, stock = Config(**HEADLINE), Config(**STOCK)
     exact, pruned = Config(**EXACT), Config(**PRUNED)
@@ -1834,7 +1837,7 @@ def graph_phase(torch, np, seq, drives, card):
             summary[name] = graph_row(np, name, count, b, kernel, quiet,
                                       eager, graph, card)
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
     emit({"phase": "graph", "nvidia_smi": card, "paths": summary})
     return summary
 

@@ -355,6 +355,12 @@ class Step:
         """The step's static calls, one a static shape seen so far."""
         return [f.call for f in self._frames.values()]
 
+    def release(self):
+        """Free the graphs of every static shape now (each captures again
+        at its next call); the buffers stay."""
+        for call in self.calls:
+            call.release()
+
     def _frame_for(self, state: OdometryState, inputs) -> _Frame:
         """The buffers and call of this state's and inputs' static shape
         (built at its first use)."""

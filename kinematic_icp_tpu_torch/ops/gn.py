@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from ..utils import cuda_graph
 from . import cuda_build
 from .hashmap import CandidateSet, _candidate_points
 from .points import P3
@@ -54,6 +55,9 @@ CROSSING_LAUNCHES = 0
 #: CTAs a frame of the kernel's last cooperative grid (0 before the first
 #: launch); the grid holds B times as many
 LAST_CTAS = 0
+cuda_graph.replayed(__name__, counters=("LAUNCHES", "FRAMES",
+                                        "CROSSING_LAUNCHES"),
+                    latest=("LAST_CTAS",))
 
 
 def _params(guess, tau, max_range: float, voxel_size: float):

@@ -45,6 +45,7 @@ _EPSILON = 1e-30
 #: batched frame, whose certificate failed in some row; a plain count,
 #: advanced by each replay of a captured fallback as ``gn.LAUNCHES`` is)
 FALLBACK_LOOPS = 0
+cuda_graph.replayed(__name__, counters=("FALLBACK_LOOPS",))
 
 
 class RegistrationDebug(NamedTuple):

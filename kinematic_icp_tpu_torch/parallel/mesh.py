@@ -10,13 +10,15 @@ The system's two parallel axes, as in the JAX package:
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the default
 process group, one rank a process.  Start the processes with ``torchrun``
 (``initialize_distributed()`` reads its environment) or pass the
-coordinator's address, the process count and this process's index.
+coordinator's address, the process count and this process's index, and
+leave the group with ``shutdown_distributed``.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -26,6 +28,10 @@ from ..runtime import resolve_device
 
 #: how long a collective may wait for the other ranks before it fails
 TIMEOUT = datetime.timedelta(seconds=120)
+
+#: the live steps whose captured frames issue collectives of the default
+#: group's ranks (``parallel.sharded``)
+_captured = weakref.WeakSet()
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
@@ -57,6 +63,29 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     if torch.cuda.is_available():
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
     dist.init_process_group(backend, timeout=TIMEOUT, **kw)
+
+
+def track_captured(step):
+    """Have ``shutdown_distributed`` free ``step``'s graphs (a
+    ``pipeline.Step`` whose captured frames issue collectives)."""
+    _captured.add(step)
+
+
+def shutdown_distributed():
+    """Leave the default process group: free the graphs of every captured
+    frame that issues collectives first, then ``destroy_process_group``.
+
+    A captured NCCL frame holds its communicator, and NCCL's teardown waits
+    for it: on four ranks ``destroy_process_group`` hangs while such a
+    graph is alive.  A step released here cannot run again: its group is
+    gone.
+    """
+    for step in list(_captured):
+        step.release()
+    _captured.clear()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
 
 
 def make_mesh(data: int | None = None, map: int = 1, device_type=None):

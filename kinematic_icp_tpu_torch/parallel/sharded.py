@@ -53,10 +53,13 @@ from ..models import pipeline
 from ..offline import STATIONARY_GATE, _runner, init_batched_state
 from ..ops import hashmap, registration, se3, voxel
 from ..ops.points import per_row, transform
+from ..utils import cuda_graph
+from . import mesh as _mesh
 
 #: collectives issued so far (a plain count, for reading how many a frame
 #: takes; as ``gn.LAUNCHES`` counts kernel launches)
 COLLECTIVES = 0
+cuda_graph.replayed(__name__, counters=("COLLECTIVES",))
 
 
 class _Axes(NamedTuple):
@@ -285,9 +288,8 @@ def make_sharded_step(config: Config, mesh):
     sync; on gloo, whose collectives a CUDA graph cannot hold, or on the
     CPU, the same frame runs eagerly over the same buffers.  The gathers
     over the data axis run outside the frame.  A captured frame holds the
-    map group's communicator: drop the step (and run ``gc.collect()``)
-    before ``destroy_process_group``, whose NCCL teardown waits for the
-    graphs to be freed.
+    map group's communicator: leave the group with
+    ``parallel.shutdown_distributed``, which frees the graphs first.
     """
     axes = _axes(mesh)
     frame = _frame_step(config, mesh, axes)
@@ -308,11 +310,15 @@ def make_sharded_step(config: Config, mesh):
 def _frame_step(config: Config, mesh, axes: _Axes) -> pipeline.Step:
     """``sharded_register_frame`` over buffers of its own, captured where
     the map group's backend is NCCL (chosen by the backend, never by
-    trying a capture)."""
-    return pipeline.Step(
+    trying a capture); a captured step's graphs are freed by
+    ``parallel.shutdown_distributed``."""
+    step = pipeline.Step(
         config, device=axes.device,
         register=functools.partial(sharded_register_frame, mesh=mesh),
         capture=dist.get_backend(axes.map_group) == "nccl")
+    if step.capture:
+        _mesh.track_captured(step)
+    return step
 
 
 def make_sharded_sequence_runner(config: Config, mesh,

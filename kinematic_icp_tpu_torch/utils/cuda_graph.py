@@ -31,53 +31,83 @@ is made and the allocator has seen the frame before the capture; the
 capture then records ``fn`` over the real buffers without running it.  A
 capture that fails raises: nothing falls back to the eager call.
 
-The launch, fallback and collective counters (``ops.gn``,
-``ops.registration.FALLBACK_LOOPS``, ``parallel.sharded.COLLECTIVES``) are
-plain Python integers bumped where the work is issued, and a replay runs no
-Python: each graph's capture records their increments, every replay of it
-adds them, and the warm-up's and the capture's own are taken back out, so
-a count read around a run is that run's.
+The launch, fallback and collective counters are plain Python integers
+bumped where the work is issued, and a replay runs no Python.  So each
+module that owns such a counter registers it here at import time
+(``replayed``): each graph's capture records the counters' increments and
+the last values it set, every replay of it adds and sets them again, and
+the warm-up's and the capture's own are taken back out, so a count read
+around a run is that run's.
 
 Without capture (a CPU device, or an owner that asks for the eager call)
 each call runs ``fn`` over the same buffers, and a branch point reads its
 flag back and runs the fallback where set: the same protocol, testable on
 the CPU.
+
+A captured frame that issues collectives holds its process group's
+communicator until its graphs are freed (``StaticCall.release``).
 """
 
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
 
-from ..ops import gn
-
 #: the chain being captured, or ``_WARMUP`` during a warm-up, else None
 _active = None
 _WARMUP = object()
+_UNSET = object()
+
+#: (module, name) of each counter a replay advances by what its capture
+#: added, and of each value a replay sets to what its capture left
+_COUNTERS = []
+_LATEST = []
 
 
-def _counters():
-    """(module, name) of each counter a replay advances by what its capture
-    recorded (imported here: those modules import this one)."""
-    from ..ops import registration
-    from ..parallel import sharded
-
-    return ((gn, "LAUNCHES"), (gn, "FRAMES"), (gn, "CROSSING_LAUNCHES"),
-            (registration, "FALLBACK_LOOPS"), (sharded, "COLLECTIVES"))
+def replayed(module_name: str, counters=(), latest=()):
+    """Register module ``module_name``'s integer ``counters``, which each
+    replay advances by what its capture added, and its ``latest`` values,
+    which each replay sets to what its capture left (called by the owning
+    module at import time)."""
+    module = sys.modules[module_name]
+    _COUNTERS.extend((module, n) for n in counters)
+    _LATEST.extend((module, n) for n in latest)
 
 
 def _counts():
-    return {(m, n): getattr(m, n) for m, n in _counters()}
+    return {k: getattr(*k) for k in _COUNTERS}
 
 
-def _since(before):
-    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+def _latest():
+    return {k: getattr(*k) for k in _LATEST}
 
 
-def _add(increments):
-    for (module, name), n in increments.items():
-        setattr(module, name, getattr(module, name) + n)
+def _set(values):
+    for (module, name), v in values.items():
+        setattr(module, name, v)
+
+
+class _Effects:
+    """What a graph's capture did to the registered counters and values,
+    recorded from its making (at the capture's start) to ``end``;
+    ``apply`` does it again at a replay."""
+
+    def __init__(self):
+        self._before = _counts()
+        _set(dict.fromkeys(_LATEST, _UNSET))
+
+    def end(self):
+        self.added = {k: v - self._before[k] for k, v in _counts().items()
+                      if v != self._before[k]}
+        self.left = {k: v for k, v in _latest().items() if v is not _UNSET}
+        return self
+
+    def apply(self):
+        for (module, name), n in self.added.items():
+            setattr(module, name, getattr(module, name) + n)
+        _set(self.left)
 
 
 def branch(flag, fallback, tensors):
@@ -100,9 +130,9 @@ def branch(flag, fallback, tensors):
 
 
 class _Chain:
-    """The graphs of one capture: ``segments`` (graph, counter increments),
-    and between each two a branch point's (``flag.any()`` on the device,
-    its pinned host copy, fallback graph, increments)."""
+    """The graphs of one capture: ``segments`` (graph, effects), and
+    between each two a branch point's (``flag.any()`` on the device, its
+    pinned host copy, fallback graph, effects)."""
 
     def __init__(self, pool):
         self.pool = pool
@@ -111,13 +141,13 @@ class _Chain:
         self._begin()
 
     def _begin(self):
-        self._graph, self._before = torch.cuda.CUDAGraph(), _counts()
+        self._graph, self._effects = torch.cuda.CUDAGraph(), _Effects()
         self._graph.capture_begin(pool=self.pool)
 
     def _end(self):
         graph, self._graph = self._graph, None
         graph.capture_end()
-        return graph, _since(self._before)
+        return graph, self._effects.end()
 
     def end(self):
         self.segments.append(self._end())
@@ -140,9 +170,9 @@ class _Chain:
         for dst, src in zip(tensors, values):
             dst.copy_(src)
         del values
-        graph, increments = self._end()
+        graph, effects = self._end()
         host = torch.empty((), dtype=torch.bool, pin_memory=True)
-        self.branches.append((any_set, host, graph, increments))
+        self.branches.append((any_set, host, graph, effects))
         self._begin()
         return tensors
 
@@ -166,7 +196,6 @@ class StaticCall:
         self.pool = pool
         self.outputs = None
         self._chain = None
-        self._last_ctas = None
         #: host ms of the warm-up and the capture (None before them)
         self.capture_ms = None
 
@@ -185,7 +214,7 @@ class StaticCall:
         if not self.capture or self._chain is not None:
             return
         dev = self.buffers[0].device
-        before, ctas = _counts(), gn.LAST_CTAS
+        before = {**_counts(), **_latest()}
         t0 = time.perf_counter()
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
@@ -212,31 +241,35 @@ class StaticCall:
                     raise
                 finally:
                     _active = None
+                    _set(before)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.outputs, self._chain = outputs, chain
-        if any((gn, "LAUNCHES") in inc for _, inc in chain.segments):
-            self._last_ctas = gn.LAST_CTAS
-        for (module, name), value in before.items():
-            setattr(module, name, value)
-        gn.LAST_CTAS = ctas
+
+    def release(self):
+        """Free the graphs now (a later call captures again): a graph that
+        issues collectives holds its group's communicator until then."""
+        if self._chain is not None:
+            for graph, _ in self._chain.segments:
+                graph.reset()
+            for _, _, graph, _ in self._chain.branches:
+                graph.reset()
+        self.outputs = self._chain = None
 
     def __call__(self):
         if not self.capture:
             return self.fn(*self.buffers)
         self.prepare()
         segments, branches = self._chain.segments, self._chain.branches
-        for i, (graph, increments) in enumerate(segments):
+        for i, (graph, effects) in enumerate(segments):
             if i:
                 any_set, host, fallback, more = branches[i - 1]
                 host.copy_(any_set, non_blocking=True)
                 torch.cuda.current_stream().synchronize()
                 if host.item():
                     fallback.replay()
-                    _add(more)
+                    more.apply()
             graph.replay()
-            _add(increments)
-        if self._last_ctas is not None:
-            gn.LAST_CTAS = self._last_ctas
+            effects.apply()
         return self.outputs
 
 

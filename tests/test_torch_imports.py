@@ -48,8 +48,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                                     "tools/profile_torch_main_path.py",
                                     "tools/gn_kernel_pace.py",
                                     "tools/gn_kernel_parity.py",
-                                    "tools/sharded_scaling.py",
-                                    "tools/sharded_nccl_check.py"])
+                                    "tools/sharded_scaling.py"])
 def test_card_scripts_import_no_jax(script):
     """The card's scripts run where JAX is not installed: read their import
     statements (at any depth, without running them)."""

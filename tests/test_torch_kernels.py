@@ -330,12 +330,11 @@ def test_sharded_one_rank_nccl_bit_equal_to_unsharded_loop(card):
     loop lowering."""
     import socket
 
-    import torch.distributed as dist
-
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
                                                   initialize_distributed,
-                                                  make_mesh)
+                                                  make_mesh,
+                                                  shutdown_distributed)
     from kinematic_icp_tpu_torch.utils import synthetic
 
     cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
@@ -355,7 +354,7 @@ def test_sharded_one_rank_nccl_bit_equal_to_unsharded_loop(card):
             runs)
         assert gn.LAUNCHES == before
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
     want = BatchedOdometryRunner(cfg.replace(gn_backend="torch"), 2,
                                  device=card).run_device(runs)
     for i in range(2):
@@ -888,12 +887,11 @@ def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card):
     same collective count."""
     import socket
 
-    import torch.distributed as dist
-
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import pad_batch
     from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
-                                                  make_mesh, sharded)
+                                                  make_mesh, sharded,
+                                                  shutdown_distributed)
     from kinematic_icp_tpu_torch.utils import synthetic
 
     cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
@@ -918,7 +916,7 @@ def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card):
             runs[eager] = out, sharded.COLLECTIVES - before
         assert [c.graphs for c in run.step.calls] == [1]
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
     (want, n_want), (got, n_got) = runs[True], runs[False]
     assert n_got == n_want == 5 * 23
     for a, b in zip((*got[1:], got[0].map.table),

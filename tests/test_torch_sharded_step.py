@@ -8,7 +8,8 @@ one-rank gloo group in this process, both hold to the eager frame
 (``sharded_register_frame`` op by op) bit for bit: poses, overflow, the
 final state and the collectives issued.  The (2, 2) gloo mesh's check runs
 in ``tests/test_torch_sharded.py``'s worker processes; the NCCL capture in
-the card tests (``tests/test_torch_kernels.py``).
+the card tests (``tests/test_torch_kernels.py``).  ``shutdown_distributed``
+frees the tracked steps' graphs before it leaves the group.
 """
 
 import numpy as np
@@ -19,7 +20,8 @@ import torch.distributed as dist
 from kinematic_icp_tpu_torch import Config
 from kinematic_icp_tpu_torch import offline as toffline
 from kinematic_icp_tpu_torch.models import pipeline
-from kinematic_icp_tpu_torch.parallel import make_mesh, sharded
+from kinematic_icp_tpu_torch.parallel import (make_mesh, mesh as tmesh,
+                                              sharded, shutdown_distributed)
 from kinematic_icp_tpu_torch.utils import synthetic
 
 torch.set_num_threads(1)
@@ -34,14 +36,39 @@ LIDAR = dict(num_beams=256, num_rings=4, ring_angles_deg=(-10.0, -3.0, 0.0,
 FRAMES = 6
 
 
-@pytest.fixture(scope="module")
-def one_rank():
+def _one_rank_group():
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
+
+
+def test_shutdown_releases_tracked_steps_then_leaves_the_group():
+    """``shutdown_distributed`` releases every live tracked step (a
+    captured NCCL frame holds its communicator), forgets them, and then
+    destroys the default group; a gloo step is never tracked."""
+    class Tracked:
+        released = 0
+
+        def release(self):
+            self.released += 1
+
+    _one_rank_group()
+    steps = [Tracked(), Tracked()]
+    for s in steps:
+        tmesh.track_captured(s)
+    gloo = sharded.make_sharded_step(CFG, make_mesh(1, 1, CPU))
+    assert len(tmesh._captured) == 2 and gloo is not None
+    shutdown_distributed()
+    assert [s.released for s in steps] == [1, 1]
+    assert len(tmesh._captured) == 0 and not dist.is_initialized()
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    _one_rank_group()
     try:
         yield make_mesh(1, 1, CPU)
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
 
 
 @pytest.fixture(scope="module")

@@ -238,7 +238,8 @@ def test_refused_configs_run_the_eager_loop(seqs, cfg, monkeypatch):
     certified kernel in interpret mode), overflow bit-equal, poses within
     1e-5 and the fallback flags equal every frame; the runners and the
     server route through the step (the runner's bits are the eager
-    loop's)."""
+    loop's).  The name dates from when the step refused these
+    configurations and the runners ran them on the eager loop."""
     monkeypatch.setattr(pallas_gn, "gn_solve",
                         functools.partial(pallas_gn.gn_solve, interpret=True))
     jcfg = JConfig(**cfg.to_jax_dict())
@@ -364,3 +365,36 @@ def test_server_steps_have_no_host_sync(upload):
         with _HostTraffic() as mode:
             call()
         assert mode.found == []
+
+
+def test_replays_redo_what_their_capture_recorded():
+    """The counters a replay advances are registered by the modules that
+    own them (``cuda_graph.replayed``), and a graph's recorded effects
+    redo its capture's: the counters' increments added, the last values
+    set again, whatever happened in between."""
+    from kinematic_icp_tpu_torch.ops import gn, registration
+    from kinematic_icp_tpu_torch.parallel import sharded
+    from kinematic_icp_tpu_torch.utils import cuda_graph
+
+    assert set(cuda_graph._COUNTERS) == {
+        (gn, "LAUNCHES"), (gn, "FRAMES"), (gn, "CROSSING_LAUNCHES"),
+        (registration, "FALLBACK_LOOPS"), (sharded, "COLLECTIVES")}
+    assert cuda_graph._LATEST == [(gn, "LAST_CTAS")]
+    saved = {**cuda_graph._counts(), **cuda_graph._latest()}
+    try:
+        gn.LAUNCHES, gn.LAST_CTAS, sharded.COLLECTIVES = 5, 3, 9
+        effects = cuda_graph._Effects()
+        gn.LAUNCHES += 2
+        registration.FALLBACK_LOOPS += 1
+        gn.LAST_CTAS = 7
+        effects.end()
+        cuda_graph._set({(gn, "LAUNCHES"): 0, (gn, "LAST_CTAS"): 1})
+        effects.apply()
+        effects.apply()
+        assert (gn.LAUNCHES, gn.LAST_CTAS, sharded.COLLECTIVES) == (4, 7, 9)
+        assert registration.FALLBACK_LOOPS == saved[
+            (registration, "FALLBACK_LOOPS")] + 3
+        assert effects.added == {(gn, "LAUNCHES"): 2,
+                                 (registration, "FALLBACK_LOOPS"): 1}
+    finally:
+        cuda_graph._set(saved)

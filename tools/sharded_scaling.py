@@ -12,19 +12,25 @@ The script starts one worker process a rank (each under a wall limit) and
 drives ``parallel.BatchedOdometryRunner(mesh=...).run_device`` over
 ``world`` distinct headline drives of ``chip_smoke.py`` on every (data,
 map) mesh of the world: (world, 1), the square-most split, and (1, world).
-Rank 0 also runs the same drives through the unsharded runner's loop
+On NCCL that runner replays each rank's frame as a CUDA graph; the same
+drives then run through ``make_sharded_sequence_runner(eager=True)``, op by
+op, and every rank checks the two bit-equal.  The ranks leave the group
+with ``parallel.shutdown_distributed`` with the last mesh's runners alive.
+Rank 0 then runs the same drives through the unsharded runner's loop
 lowering on its own card, the yardstick (the sharded path is that loop
-with collectives).  Rank 0 prints one JSON line a mesh: wall ms a batched
-frame, aggregate frames/s, collectives a frame, each drive's ATE and the
-largest pose difference from the unsharded run, and each shard's voxel
-count; then the unsharded run's line and the cards' ``nvidia-smi`` name
-and power limit (the first card's).
+with collectives), at B = world and at B = 1 on each drive alone.  Rank 0
+prints one JSON line a mesh: wall ms a batched frame captured and eager,
+aggregate frames/s, collectives a frame, whether every rank's captured
+poses were bit-equal to its eager ones, each drive's ATE and the largest
+pose difference from the unsharded run, the frames bit-equal to it at
+B = world and to each drive's B = 1 run, and each shard's voxel count;
+then the unsharded run's line and the cards' ``nvidia-smi`` name and power
+limit (the first card's).
 """
 
 from __future__ import annotations
 
 import argparse
-import gc
 import json
 import os
 import subprocess
@@ -93,10 +99,12 @@ def worker(args):
 
     from chip_smoke import HEADLINE
     from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import pad_batch
     from kinematic_icp_tpu_torch.ops import hashmap
     from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
                                                   initialize_distributed,
-                                                  make_mesh, sharded)
+                                                  make_mesh, sharded,
+                                                  shutdown_distributed)
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
     torch.set_num_threads(1 if args.device == "cpu" else 4)
@@ -106,6 +114,9 @@ def worker(args):
             else (lambda: None))
     runs, ext = drives(args, args.world)
     warm = [{k: v[:3] for k, v in r.items()} for r in runs]
+    dev = "cuda" if args.device == "cuda" else "cpu"
+    padded = [torch.from_numpy(a).to(dev) for a in pad_batch(runs, cfg)]
+    ext_t = torch.tensor(np.asarray(ext, np.float32), device=dev)
     rows = []
     try:
         for data, m in meshes(args.world):
@@ -119,29 +130,48 @@ def worker(args):
             runner.poses = [[] for _ in range(args.world)]
             sharded.COLLECTIVES = 0
             poses, seconds, overflow = timed(torch, runner, runs, sync)
+            collectives = sharded.COLLECTIVES
             counts = hashmap.num_voxels(runner.state.map).to(torch.int64)
             every = [torch.empty_like(counts) for _ in range(args.world)]
             dist.all_gather(every, counts)
+            # the same drives op by op: the baseline a replay is held to
+            eager = sharded.make_sharded_sequence_runner(
+                cfg, mesh, runner.stationary_gate, eager=True)
+            sync()
+            t0 = time.perf_counter()
+            eager_poses = eager(
+                sharded.init_sharded_state(cfg, mesh, args.world),
+                *padded[:4], ext_t, padded[4])[1]
+            sync()
+            eager_s = time.perf_counter() - t0
+            eager_poses = eager_poses.cpu().numpy().astype(np.float64)
+            same = torch.tensor(int(np.array_equal(
+                poses, eager_poses.transpose(1, 0, 2, 3))), device=dev)
+            dist.all_reduce(same, op=dist.ReduceOp.MIN)
             rows.append({"mesh": [data, m], "poses": poses,
-                         "seconds": seconds,
-                         "collectives": sharded.COLLECTIVES,
+                         "seconds": seconds, "eager_seconds": eager_s,
+                         "collectives": collectives,
+                         "captured_bit_equal_to_eager_every_rank": bool(
+                             same),
                          "overflow": overflow,
                          "voxels_by_rank": [c.tolist() for c in every]})
-            # a captured frame holds its communicator: NCCL's teardown
-            # waits for the graphs to be freed
-            del runner
-            gc.collect()
     finally:
-        dist.destroy_process_group()
+        # with the last mesh's captured runner alive: the helper frees
+        # its graphs before NCCL's teardown
+        shutdown_distributed()
     if args.rank:
         return 0
-    dev = "cuda" if args.device == "cuda" else "cpu"
-    loop = BatchedOdometryRunner(cfg.replace(gn_backend="torch"), args.world,
-                                 extrinsic=ext, device=dev)
+    lowering = cfg.replace(gn_backend="torch")
+    loop = BatchedOdometryRunner(lowering, args.world, extrinsic=ext,
+                                 device=dev)
     loop.run_device(warm)
-    loop = BatchedOdometryRunner(cfg.replace(gn_backend="torch"), args.world,
-                                 extrinsic=ext, device=dev)
+    loop = BatchedOdometryRunner(lowering, args.world, extrinsic=ext,
+                                 device=dev)
     want, want_s, want_overflow = timed(torch, loop, runs, sync)
+    # each drive alone, B = 1: a (world, 1) rank's batch
+    alone = np.concatenate([np.asarray(BatchedOdometryRunner(
+        lowering, 1, extrinsic=ext, device=dev).run_device([r]))
+        for r in runs])
     f = args.frames
     for row in rows:
         poses = row.pop("poses")
@@ -154,15 +184,25 @@ def worker(args):
             max_abs_vs_unsharded=float(np.abs(poses - want).max()),
             frames_bit_equal_to_unsharded=sum(
                 bool(np.array_equal(poses[:, k], want[:, k]))
-                for k in range(f)))
+                for k in range(f)),
+            frames_bit_equal_to_b1_loop_by_drive=[
+                sum(bool(np.array_equal(poses[i, k], alone[i, k]))
+                    for k in range(f)) for i in range(args.world)],
+            max_abs_vs_b1_loop=float(np.abs(poses - alone).max()),
+            eager_ms_per_batched_frame=row.pop("eager_seconds") * 1e3 / f)
         print(json.dumps({"sharded": row, "world": args.world,
                           "device": args.device, "frames": f}), flush=True)
     print(json.dumps({"unsharded_loop": {
         "B": args.world, "frames": f, "seconds": want_s,
         "ms_per_batched_frame": want_s * 1e3 / f,
         "aggregate_frames_per_s": args.world * f / want_s,
-        "overflow": want_overflow}}), flush=True)
-    return 0
+        "overflow": want_overflow,
+        "frames_bit_equal_to_b1_loop_by_drive": [
+            sum(bool(np.array_equal(want[i, k], alone[i, k]))
+                for k in range(f)) for i in range(args.world)]}}),
+        flush=True)
+    return 0 if all(r["captured_bit_equal_to_eager_every_rank"]
+                    for r in rows) else 1
 
 
 def main(argv=None):
