@@ -61,6 +61,12 @@ last line.  Phases:
      ``run_offline``, the frame captured with its collectives, no GN
      launch: the sharded path runs none, by design; ms and collectives a
      frame);
+ 11b. loop_batch: the unsharded ``parallel.BatchedOdometryRunner`` on the
+     GN loop lowering (``gn_backend="torch"``, what the sharded path, pruned
+     exact and the certified fallback run) over 4 of the drives, 20
+     frames, at B = 4 and each drive alone at B = 1: every frame bit-equal
+     (the loop's float sums are ``points.row_sum``'s fixed tree), zero
+     overflow;
  12. sharded_2rank: this script again as two worker processes on the one
      card (``--sharded-worker RANK PORT DIR``; gloo, a (1, 2) mesh, a wall
      limit each): gloo's CUDA int32 MIN and float32 SUM, each drive within
@@ -188,6 +194,9 @@ PRUNED_BATCH_FRAMES = 10
 SHARD_BATCH = 2
 SHARD_FRAMES = 20
 SHARD_WORKER_TIMEOUT_S = 300
+#: the loop lowering's batch check: drives at once, and their frames
+LOOP_BATCH = 4
+LOOP_BATCH_FRAMES = 20
 #: the float64 served drive's frames
 FLOAT64_FRAMES = 20
 #: the cli phase: the 2D drive's frames, its LaserScan topic and point
@@ -1180,6 +1189,47 @@ def sharded_1rank_phase(torch, np, seqs):
     if not all(row["checks"].values()):
         raise SystemExit(f"sharded_1rank failed: {row['checks']}")
     return row, device
+
+
+def loop_batch_phase(torch, np, seqs):
+    """The GN loop lowering through the unsharded ``BatchedOdometryRunner``
+    over LOOP_BATCH headline drives at once and over each drive alone
+    (B = 1), LOOP_BATCH_FRAMES frames: every frame bit-equal, since each
+    float sum of the loop is ``points.row_sum``'s fixed tree."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
+
+    config = dict(HEADLINE, gn_backend="torch")
+    cfg = Config(**config)
+    drives = [{"frames": s["frames"][:LOOP_BATCH_FRAMES],
+               "rel_odometry": s["rel_odometry"][:LOOP_BATCH_FRAMES]}
+              for s in seqs[:LOOP_BATCH]]
+    ext = seqs[0]["extrinsic"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        batched = np.asarray(BatchedOdometryRunner(
+            cfg, LOOP_BATCH, extrinsic=ext).run_device(drives))
+        alone = np.stack([np.asarray(BatchedOdometryRunner(
+            cfg, 1, extrinsic=ext).run_device([d]))[0] for d in drives])
+    overflow = [str(w.message) for w in caught
+                if "capacity overflow" in str(w.message)]
+    by_drive = [sum(bool(np.array_equal(batched[i, f], alone[i, f]))
+                    for f in range(LOOP_BATCH_FRAMES))
+                for i in range(LOOP_BATCH)]
+    row = {"phase": "loop_batch", "B": LOOP_BATCH,
+           "frames": LOOP_BATCH_FRAMES, "config": config,
+           "frames_bit_equal_to_b1_loop_by_drive": by_drive,
+           "max_abs_vs_b1_loop": float(np.abs(batched - alone).max()),
+           "overflow": overflow or [0, 0, 0]}
+    row["checks"] = {
+        "finite": bool(np.isfinite(batched).all()),
+        "bit_equal_to_b1_every_frame":
+            sum(by_drive) == LOOP_BATCH * LOOP_BATCH_FRAMES,
+        "zero_overflow": not overflow}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"loop_batch failed: {row['checks']}")
+    return row
 
 
 def sharded_worker(rank, port, out_dir):
@@ -2183,6 +2233,7 @@ def main():
                                                           card)
     batched_exact = batched_exact_phase(torch, np, drives)
     _, one_rank = sharded_1rank_phase(torch, np, drives)
+    loop_batch_phase(torch, np, drives)
     sharded_2rank_phase(torch, np, one_rank)
     serve_launches = serve_phase(torch, np, seq, main_poses)
     graph = graph_phase(torch, np, seq, drives, card)

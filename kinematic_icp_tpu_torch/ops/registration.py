@@ -36,7 +36,8 @@ import torch
 
 from ..utils import cuda_graph
 from . import gn, hashmap, motion_model, se3
-from .points import P3, per_row, transform
+from . import points
+from .points import P3, per_row, row_sum, transform
 
 #: the reference uses DBL_MIN; a float32-safe tiny value serves the same purpose
 _EPSILON = 1e-30
@@ -85,18 +86,15 @@ def associate_from_candidates(cand, source: P3, source_mask, pose,
 
 
 def _residual(source: P3, targets: P3, pose):
-    world = transform(pose, source)
-    return P3(world.x - targets.x, world.y - targets.y, world.z - targets.z)
+    return points.sub(transform(pose, source), targets)
 
 
 def partial_residual_sse(source: P3, targets: P3, corr_mask, pose):
     """(..., 2) (sse, n) sums of squared residuals over the
-    correspondences."""
-    r = _residual(source, targets, pose)
-    sq = r.x * r.x + r.y * r.y + r.z * r.z
-    n = corr_mask.sum(-1).to(source.x.dtype)
-    sse = torch.where(corr_mask, sq, 0.0).sum(-1)
-    return torch.stack([sse, n], dim=-1)
+    correspondences (``row_sum``: the same bits for a row at any batch)."""
+    sq = points.norm2(_residual(source, targets, pose))
+    return row_sum(torch.stack([torch.where(corr_mask, sq, 0.0),
+                                corr_mask.to(source.x.dtype)], dim=-2))
 
 
 def regularization_from_sums(sums):
@@ -132,12 +130,13 @@ def partial_normal_equations(source: P3, targets: P3, corr_mask, pose):
     r_dot_j0 = r.x * j0x + r.y * j0y + r.z * j0z
     r_dot_j1 = r.x * j1x + r.y * j1y + r.z * j1z
 
-    n = w.sum(-1)
+    # one fixed-order tree for the five sums (``row_sum``)
+    n, a01, a11, b0, b1 = row_sum(torch.stack(
+        [w, w * j1_dot_j0, w * j1_dot_j1, w * r_dot_j0, w * r_dot_j1],
+        dim=-2)).unbind(-1)
     r00, r10, r20 = pose[..., 0, 0], pose[..., 1, 0], pose[..., 2, 0]
     return torch.stack([n * (r00 * r00 + r10 * r10 + r20 * r20),
-                        (w * j1_dot_j0).sum(-1), (w * j1_dot_j1).sum(-1),
-                        (w * r_dot_j0).sum(-1), (w * r_dot_j1).sum(-1), n],
-                       dim=-1)
+                        a01, a11, b0, b1, n], dim=-1)
 
 
 def solve_normal_equations(sums, beta):
@@ -177,7 +176,8 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
     counts the association before the last update, and a certificate
     violation counts only from an association the while loop would have
     made.  With a batch of (B, 4, 4) guesses each sequence keeps its own
-    convergence mask.
+    convergence mask, and its float sums are ``points.row_sum``s, so a
+    sequence's bits do not depend on B.
 
     ``reduce`` (the map-sharded path's sum over the shards) is applied to
     the residual sums, each trip's normal-equation sums and the final
@@ -205,8 +205,7 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
         if trip + 1 < max_num_iterations:
             t2, c2, v2 = associate(new_pose)
             use = live & ~new_conv
-            targets = P3(*(torch.where(per_row(use), a, b)
-                           for a, b in zip(t2, targets)))
+            targets = points.where(use, t2, targets)
             corr_mask = torch.where(per_row(use), c2, corr_mask)
             if viol is not None:
                 viol = viol | (use & v2)

@@ -28,8 +28,13 @@ stream, over scratch clones of the buffers (the owner's state is not
 advanced), with every fallback run, so the kernels are built, the GN
 kernel's co-resident CTA count is queried, a process group's communicator
 is made and the allocator has seen the frame before the capture; the
-capture then records ``fn`` over the real buffers without running it.  A
-capture that fails raises: nothing falls back to the eager call.
+capture then records ``fn`` over the real buffers without running it.
+Python's cyclic garbage collector is held off during the capture: a graph
+left in a reference cycle by an earlier owner, collected mid-capture,
+resets itself, which a capturing stream refuses, and the capture fails.
+(A full collection before each capture, as ``torch.cuda.graph`` runs,
+added 0.2-0.6 s a capture in ``chip_smoke.py`` on an H100.)  A capture that
+fails raises: nothing falls back to the eager call.
 
 The launch, fallback and collective counters are plain Python integers
 bumped where the work is issued, and a replay runs no Python.  So each
@@ -50,6 +55,7 @@ communicator until its graphs are freed (``StaticCall.release``).
 
 from __future__ import annotations
 
+import gc
 import sys
 import time
 
@@ -231,6 +237,8 @@ class StaticCall:
             torch.cuda.empty_cache()
             pool = (self.pool if self.pool is not None
                     else torch.cuda.graph_pool_handle())
+            collecting = gc.isenabled()
+            gc.disable()
             with torch.cuda.stream(torch.cuda.Stream(dev)):
                 chain = _active = _Chain(pool)
                 try:
@@ -242,6 +250,8 @@ class StaticCall:
                 finally:
                     _active = None
                     _set(before)
+                    if collecting:
+                        gc.enable()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.outputs, self._chain = outputs, chain
 

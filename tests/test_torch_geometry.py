@@ -6,11 +6,13 @@ import pytest
 import torch
 
 from kinematic_icp_tpu.ops import motion_model as jmm
+from kinematic_icp_tpu.ops import points as jpoints
 from kinematic_icp_tpu.ops import se3 as jse3
 from kinematic_icp_tpu.ops import threshold as jthr
 from kinematic_icp_tpu.ops.points import P3 as JP3
 from kinematic_icp_tpu.ops.points import transform as jtransform
 from kinematic_icp_tpu_torch.ops import motion_model as tmm
+from kinematic_icp_tpu_torch.ops import points as tpoints
 from kinematic_icp_tpu_torch.ops import se3 as tse3
 from kinematic_icp_tpu_torch.ops import threshold as tthr
 from kinematic_icp_tpu_torch.ops.points import P3 as TP3
@@ -132,3 +134,92 @@ def test_odometry_error_update_matches_jax(use_adaptive):
                                float(jstate.odom_sse), rtol=1e-5)
     assert float(tstate.num_samples) == float(jstate.num_samples) == (
         7.0 if use_adaptive else 3.0)
+
+
+def _planes(rng, shape):
+    return [rng.normal(0, 20.0, shape).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one", "batch"])
+@pytest.mark.parametrize("name", ["norm2", "norm", "sub", "dot", "where",
+                                  "zeros_like"])
+def test_point_helpers_bit_equal_to_jax(name, batched):
+    """Each P3 helper against JAX's on the same float32 planes, (N,) or a
+    (B, N) batch: bit-equal (elementwise, unfused on both sides).  ``where``
+    in a batch takes a per-point or a per-sequence (B,) condition, the
+    latter held to JAX's with the condition broadcast over the points."""
+    rng = np.random.default_rng(12)
+    shape = (3, 257) if batched else (257,)
+    a, b = _planes(rng, shape), _planes(rng, shape)
+    ta, tb = TP3(*map(torch.from_numpy, a)), TP3(*map(torch.from_numpy, b))
+    ja, jb = JP3(*map(jnp.asarray, a)), JP3(*map(jnp.asarray, b))
+    conds = [rng.uniform(size=shape) < 0.5]
+    if batched:
+        conds.append(np.array([True, False, True]))
+    for cond in conds:
+        if name in ("norm2", "norm", "zeros_like"):
+            got, want = getattr(tpoints, name)(ta), getattr(jpoints, name)(ja)
+        elif name == "where":
+            got = tpoints.where(torch.from_numpy(cond), ta, tb)
+            want = jpoints.where(jnp.asarray(np.broadcast_to(
+                cond.reshape(cond.shape + (1,) * (len(shape) - cond.ndim)),
+                shape)), ja, jb)
+        else:
+            got = getattr(tpoints, name)(ta, tb)
+            want = getattr(jpoints, name)(ja, jb)
+        if isinstance(got, TP3):
+            assert isinstance(want, JP3)
+            got, want = list(got), list(want)
+        else:
+            got, want = [got], [want]
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == shape and g.dtype == torch.float32
+            if name == "norm":
+                # torch's CPU float32 sqrt (a vector kernel) is not
+                # correctly rounded (~0.7 % of values 1 ulp off numpy's
+                # and XLA's): bit-equal to torch.sqrt of JAX's norm2 bits,
+                # within 1 ulp of JAX's norm
+                np.testing.assert_array_equal(g.numpy(), torch.sqrt(
+                    torch.from_numpy(np.asarray(jpoints.norm2(ja)))).numpy())
+                np.testing.assert_array_max_ulp(g.numpy(), np.asarray(w), 1)
+            else:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("n", [1000, 1024])
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+def test_row_sum_of_a_row_does_not_depend_on_the_batch(b, n):
+    """Row i of a (B, N) ``row_sum`` is the bits of that row summed alone,
+    and of it inside (B, 5, N) stacks as the loop lowering sums them."""
+    rng = np.random.default_rng(b * 10_000 + n)
+    x = torch.from_numpy(rng.normal(0, 3.0, (b, 5, n)).astype(np.float32))
+    got = tpoints.row_sum(x)
+    assert got.shape == (b, 5) and got.dtype == torch.float32
+    for i in range(b):
+        assert torch.equal(tpoints.row_sum(x[i]), got[i])
+        for k in range(5):
+            assert torch.equal(tpoints.row_sum(x[i, k]), got[i, k])
+            assert torch.equal(tpoints.row_sum(x[i, k:k + 1, :]),
+                               got[i, k:k + 1])
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 1000, 1024, 8192])
+def test_row_sum_agrees_with_torch_sum_in_float64(n):
+    """A pairwise tree of N terms rounds at most ceil(log2 N) times on the
+    way to each sum, so its error is at most ceil(log2 N) * u * sum|x_i|
+    (Higham, Accuracy and Stability of Numerical Algorithms, 4.2; u the
+    unit roundoff).  float32 is held to that bound, plus one rounding of
+    the inputs, against float64 ``torch.sum``; float64 likewise, u =
+    2**-53."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(0, 3.0, (4, n))
+    exact = torch.sum(torch.from_numpy(x), dim=-1).numpy()
+    steps = max(n - 1, 0).bit_length()
+    mag = np.abs(x).sum(-1)
+    got32 = tpoints.row_sum(torch.from_numpy(x.astype(np.float32)))
+    assert got32.dtype == torch.float32
+    np.testing.assert_array_less(np.abs(got32.double().numpy() - exact),
+                                 (steps + 1) * 2.0 ** -24 * mag + 1e-300)
+    got64 = tpoints.row_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_less(np.abs(got64 - exact),
+                                 (2 * steps + 1) * 2.0 ** -53 * mag + 1e-300)

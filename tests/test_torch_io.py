@@ -2,7 +2,9 @@
 the buffered bag reader) and the native ingestion bindings."""
 
 import io
+import os
 import struct
+import time
 
 import numpy as np
 import pytest
@@ -201,6 +203,48 @@ def test_decode_message_refuses_unknown_schema():
         bag.decode_message(m)
 
 
+#: the longest a test waits for JAX's ingestion library (s)
+JAX_LIB_WAIT_S = 60.0
+
+
+def _jax_native_lib():
+    """JAX's ingestion library, waiting out a concurrent build.
+
+    Every xdist worker collects tests/test_native.py, whose module-level
+    ``skipif`` calls JAX's ``get_lib``; on a tree without
+    ``native/libkicp_io.so`` each worker then runs ``make -C native`` in
+    the same directory.  A worker that loads the library while another's
+    ``make`` is still writing it gets None, and JAX caches that None.  So
+    while it is None: wait until the library file exists and has stopped
+    changing for a second, reset the cache as tests/test_native.py:58-63
+    does, and load again, for at most JAX_LIB_WAIT_S."""
+    deadline = time.monotonic() + JAX_LIB_WAIT_S
+    seen = None
+    while (lib := jnative.get_lib()) is None and time.monotonic() < deadline:
+        time.sleep(1.0)
+        try:
+            st = os.stat(jnative._LIB_PATH)
+        except FileNotFoundError:
+            # no build has written it yet: the next get_lib runs make
+            now = None
+        else:
+            now = (st.st_size, st.st_mtime_ns)
+        if now is None or now == seen:
+            jnative._lib, jnative._lib_attempted = None, False
+        seen = now
+    return lib
+
+
+def test_jax_native_lib_recovers_from_a_lost_build_race():
+    """A worker that lost the race holds JAX's cached None; the helper
+    loads the library once the build is done."""
+    jnative._lib, jnative._lib_attempted = None, True
+    t0 = time.monotonic()
+    assert _jax_native_lib() is not None
+    assert jnative.get_lib() is not None
+    assert time.monotonic() - t0 < JAX_LIB_WAIT_S
+
+
 @pytest.fixture
 def numpy_only(monkeypatch):
     """The port's numpy fallbacks, as on a host without a compiler."""
@@ -224,7 +268,7 @@ def test_native_xyz_bit_equal_to_numpy_and_jax(dtype, monkeypatch):
                                         timestamp_type=code)
     jm = jmsg.PointCloud2.decode(msg.encode())
     native_xyz = msg.xyz()
-    assert native.get_lib() is not None
+    assert native.get_lib() is not None and _jax_native_lib() is not None
     np.testing.assert_array_equal(native_xyz, pts)
     np.testing.assert_array_equal(native_xyz, jm.xyz())
     f = msg.field("t")
@@ -262,9 +306,9 @@ def test_native_project_laser_equals_jax_and_numpy(monkeypatch):
     with the numpy path to JAX's own bound (tests/test_native.py:64-68)."""
     scan = _scan()
     jscan = jmsg.LaserScan.decode(scan.encode())
+    assert native.get_lib() is not None and _jax_native_lib() is not None
     ours = project_laser(scan)
     theirs = jproject(jscan)
-    assert native.get_lib() is not None and jnative.get_lib() is not None
     assert ours.encode() == theirs.encode()
     monkeypatch.setattr(native, "get_lib", lambda: None)
     plain = project_laser(scan)

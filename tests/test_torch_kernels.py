@@ -623,6 +623,36 @@ def test_cooperative_gn_launch_captured_and_replayed(card):
     assert gn.LAUNCHES == before + 1000
 
 
+@pytest.mark.cuda
+def test_capture_survives_an_earlier_graph_in_a_reference_cycle(card):
+    """An earlier owner's captured graph left in a reference cycle, and a
+    collection during the next capture (``fn`` runs one whenever the
+    collector is on, as an allocation may): the capture holds the
+    collector off, so no graph is reset while the stream captures."""
+    import gc
+
+    from kinematic_icp_tpu_torch.utils.cuda_graph import StaticCall
+
+    def collect_then(x):
+        if torch.cuda.is_current_stream_capturing() and gc.isenabled():
+            gc.collect()
+        return (x + 1.0) * 3.0
+
+    gc.collect()
+    old = StaticCall(lambda x: x * 2.0, [torch.ones(8, device=card)], True)
+    old()
+    cycle = [old]
+    cycle.append(cycle)
+    del old, cycle
+    x = torch.arange(8.0, device=card)
+    call = StaticCall(collect_then, [x], True)
+    for _ in range(2):
+        out = call()
+    torch.cuda.synchronize()
+    assert call.graphs == 1 and gc.isenabled()
+    assert torch.equal(out, (torch.arange(8.0, device=card) + 1.0) * 3.0)
+
+
 def _headline_drive(frames, seed=0):
     from kinematic_icp_tpu_torch.utils import synthetic
 
@@ -679,6 +709,24 @@ def test_headline_drive_replayed_bit_equal_to_eager(card):
     again, _ = _run(card, seq, cfg, eager=False)
     np.testing.assert_array_equal(again, eager)
     assert step is make_sequence_runner(cfg, card)
+
+
+@pytest.mark.cuda
+def test_loop_lowering_batch_bit_equal_to_each_drive_alone(card):
+    """Four headline drives, 20 frames, through the GN loop lowering
+    (``gn_backend="torch"``: the sharded path's, pruned exact's and the
+    certified fallback's solve) at B = 4 and each alone at B = 1: every
+    frame bit-equal (its float sums are ``points.row_sum``'s fixed tree;
+    with ``torch.sum`` 71 of 80 frames were)."""
+    from kinematic_icp_tpu_torch import Config
+
+    cfg = Config(**HEADLINE, gn_backend="torch")
+    seqs = [_headline_drive(20, seed=s) for s in range(4)]
+    batched, launches = _run(card, seqs, cfg, eager=False)
+    assert launches == 0
+    for i, s in enumerate(seqs):
+        alone, _ = _run(card, [s], cfg, eager=False)
+        np.testing.assert_array_equal(batched[:, i], alone[:, 0])
 
 
 @pytest.mark.cuda
