@@ -8,8 +8,9 @@ Each phase prints one JSON line; any failure exits non-zero before the
 last line.  Phases:
 
   1. environment: the card, torch and CUDA versions;
-  2. build: every kernel of the main path, compiled from ``csrc/`` by nvcc;
-     fails if ptxas reports any spill;
+  2. build: every kernel of the main path, compiled from ``csrc/`` by nvcc
+     (``gn_solve.cu``, and ``graph_if.cu``, which builds the captured
+     frames' conditional nodes); fails if ptxas reports any spill;
   3. gn_solve: the CUDA kernel against its plain PyTorch version on the
      card at three shapes (main path V=10 K=20 N=1024; stock Config
      N=8192; exact-mode V=27 with the crossing certificate), with its
@@ -93,10 +94,16 @@ last line.  Phases:
      served certified headline (60) and the sharded runner on a one-rank
      NCCL group (2 drives, 20), each on the eager loop (``eager=True``)
      and on its CUDA graphs in one call: every frame bit-equal, the same
-     GN, ``check_crossing``, fallback and collective counts and fallback
-     frames, frames/s, host calls and syncs a frame and the device's idle
-     share over 20 frames under ``torch.profiler``, the capture's ms, the
-     graphs a static call and the graph pool's bytes;
+     GN, ``check_crossing`` and collective counts and fallback frames,
+     frames/s, host calls and syncs a frame (none in an offline frame
+     loop) and the device's idle share over 20 frames under
+     ``torch.profiler``, the capture's ms, one graph a static call and the
+     graph pool's bytes; on the paths that run the GN loop (the exact ones
+     and the sharded one) the frames again with the loop's work counted on
+     the device: the same loops on the same frames, eager running every
+     trip, the replay re-associating only as JAX's ``while_loop`` does
+     (the sharded loop keeps every trip), and a ``graph_reassociations``
+     line of re-associations against iterations a loop;
  14. cli: ``run_odometry.main`` (the offline CLI) over the 60 headline
      frames written to an uncompressed mcap by the port's writer (one GN
      launch per registered frame, the native ingestion library loaded,
@@ -115,18 +122,19 @@ last line.  Phases:
      the final ``{"ok": true, ...}`` line.
 
 Every entry point on the card runs its frames as replays of CUDA graphs
-(``pipeline.Step``, ``utils.cuda_graph``): one a frame under the default
-registration, its loop lowering and the sharded path on NCCL; two around
-the fallback flag's one read-back under the exact modes, and the full-27
-loop's graph between them on a frame that falls back.  Only
-``eager=True`` and the gloo ranks run op by op.  Each drive's line says
-which (``"path"``, read from the static calls the path ran).
+(``pipeline.Step``, ``utils.cuda_graph``): one a frame, under every
+registration and the sharded path on NCCL, with no host sync; the exact
+modes' full-27 fallback and the GN loop's early exit are conditional
+nodes inside it.  Only ``eager=True`` and the gloo ranks run op by op.
+Each drive's line says which (``"path"``, read from the static calls the
+path ran).
 
 It imports nothing of JAX; it needs one card and exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -215,6 +223,13 @@ DIFF_FRAMES = 15
 DIFF_ATE_M = 0.02
 DIFF_FRAME_M = 0.05
 
+
+#: the CUDA sources the paths run (``csrc/<name>.cu``, one nvcc each, all
+#: started together), each with its kernels' ptxas lines: gn_solve one
+#: template instance per check_crossing value; graph_if the kernel that
+#: sets a captured IF node's handle at each replay (graph machinery, not a
+#: port of a TPU kernel)
+KERNEL_SOURCES = {"gn_solve": 2, "graph_if": 1}
 
 #: the script's start, for each phase line's ``elapsed_s``
 T0 = time.perf_counter()
@@ -999,9 +1014,12 @@ def batched_exact_phase(torch, np, seqs):
     loop on the batched frames where some row's certificate failed; each
     drive against its own ``run_offline``.  Then PRUNED_BATCH drives in
     pruned exact, bit-equal to the batched full-27 loop.  The counts are
-    set to 0 just before the batched run and read just after."""
+    set to 0 just before the batched run and read just after; the full-27
+    loops it ran are counted on the device in a second run of the same
+    frames (``counted_run``)."""
     from kinematic_icp_tpu_torch import Config
-    from kinematic_icp_tpu_torch.ops import gn, registration
+    from kinematic_icp_tpu_torch.offline import make_batched_sequence_runner
+    from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = Config(**EXACT)
@@ -1010,11 +1028,14 @@ def batched_exact_phase(torch, np, seqs):
     run_batched(torch, np, drives, cfg, 3)  # warm-up
     gn.LAUNCHES = 0
     gn.CROSSING_LAUNCHES = 0
-    registration.FALLBACK_LOOPS = 0
     poses, overflow, stages, _, fallbacks = run_batched(torch, np, drives,
                                                         cfg, count)
     launches, crossing = gn.LAUNCHES, gn.CROSSING_LAUNCHES
-    loops = registration.FALLBACK_LOOPS
+    path = path_of(runner_calls(torch, cfg, batched=True))
+    loops = counted_run(
+        torch, make_batched_sequence_runner(cfg, torch.device("cuda"))
+        .step.release, lambda: run_batched(torch, np, drives, cfg, count),
+        lambda: run_batched(torch, np, drives, cfg, 3))
     per_seq = []
     for i, s in enumerate(drives):
         single, single_s, single_overflow, stats = run_drive(torch, s, cfg,
@@ -1040,10 +1061,10 @@ def batched_exact_phase(torch, np, seqs):
     equal = sum(bool(np.array_equal(a, b)) for a, b in zip(pruned, full))
     seconds = stages["seconds"]
     row = {"phase": "batched_exact", "B": EXACT_BATCH, "frames": count,
-           "path": path_of(runner_calls(torch, cfg, batched=True)),
+           "path": path,
            "config": EXACT, "gn_launches": launches,
            "gn_check_crossing_launches": crossing,
-           "fallback_loops": loops,
+           "loop_counts": loops,
            "exact_fallback_frames": fallbacks.tolist(),
            "overflow": overflow.tolist(), "seconds": seconds,
            "stages_s": stages,
@@ -1061,10 +1082,11 @@ def batched_exact_phase(torch, np, seqs):
         "finite": bool(np.isfinite(poses).all()),
         "one_check_crossing_launch_per_batched_frame":
             crossing == launches == count,
-        # the loop runs on a batched frame where some row crossed
-        # (stationary frames included, which the counts leave out)
+        # the loop runs on exactly the batched frames where some row
+        # crossed (stationary frames included, which the counts leave out)
         "fallback_loop_where_a_row_fell_back": (
-            loops <= count and (loops > 0 or not fallbacks.any())),
+            loops["gn_loops"] == loops["fallback_registrations"] <= count
+            and (loops["gn_loops"] > 0 or not fallbacks.any())),
         "zero_overflow": not overflow.any() and not any(
             any(p["run_offline_overflow"]) for p in per_seq),
         "each_within_5mm_of_run_offline": all(
@@ -1642,10 +1664,12 @@ def server_calls(server):
     return [call for _, call in server._calls.values()]
 
 
-def pool_bytes(torch, pool):
-    """Bytes the caching allocator holds in a graph memory pool."""
+def pool_bytes(torch, pool, calls):
+    """Bytes the caching allocator holds for an owner's graphs: its shared
+    memory pool and the pools of the static ``calls``' IF bodies."""
+    pools = {tuple(pool), *(tuple(p) for c in calls for p in c.body_pools)}
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+               if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
 def profiled(torch, run, frames, marker, per_marker):
@@ -1670,27 +1694,90 @@ def profiled(torch, run, frames, marker, per_marker):
 
 
 def reset_counts():
-    """Set the launch, fallback and collective counters to 0."""
-    from kinematic_icp_tpu_torch.ops import gn, registration
+    """Set the launch and collective counters to 0."""
+    from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.parallel import sharded
 
-    gn.LAUNCHES = gn.CROSSING_LAUNCHES = 0
-    registration.FALLBACK_LOOPS = sharded.COLLECTIVES = 0
+    gn.LAUNCHES = gn.CROSSING_LAUNCHES = sharded.COLLECTIVES = 0
 
 
 def read_counts():
     """The counters ``reset_counts`` zeroes: GN launches, ``check_crossing``
-    launches, full-27 fallback loops, collectives."""
-    from kinematic_icp_tpu_torch.ops import gn, registration
+    launches, collectives."""
+    from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.parallel import sharded
 
     return {"gn_launches": gn.LAUNCHES,
             "check_crossing_launches": gn.CROSSING_LAUNCHES,
-            "fallback_loops": registration.FALLBACK_LOOPS,
             "collectives": sharded.COLLECTIVES}
 
 
-def graph_drive(torch, np, seqs, config, count, eager, markers, mesh=None):
+#: the names of ``device_counts``' counts
+LOOP_COUNTS = ("gn_loops", "associations", "loop_iterations",
+               "fallback_registrations")
+
+
+@contextlib.contextmanager
+def device_counts(torch):
+    """Count, in a (4,) int64 tensor on the card, the GN loop's work that
+    a replay can no longer show the host: the ``registration.run_gn`` calls
+    that ran, the associations they made, each call's most iterations of a
+    row, summed, and the registrations whose exact-mode fallback flags
+    have a row set.  Each count is a device op where its work is, inside
+    whatever conditional node holds it, so a replay counts what it ran.
+    Graphs captured inside the ``with`` hold the counting ops; a capture's
+    warm-up counts too (zero the tensor after it)."""
+    from kinematic_icp_tpu_torch.ops import registration
+
+    counts = torch.zeros(4, dtype=torch.int64, device="cuda")
+    run_gn, motion = registration.run_gn, registration.compute_robot_motion
+
+    def counting_run_gn(associate, *args, **kw):
+        counts[0].add_(1)
+
+        def counted(pose):
+            counts[1].add_(1)
+            return associate(pose)
+
+        out = run_gn(counted, *args, **kw)
+        counts[2].add_(out[1].max().to(torch.int64))
+        return out
+
+    def counting_motion(*args, **kw):
+        pose, debug = motion(*args, **kw)
+        if debug.exact_fallback is not None:
+            counts[3].add_(debug.exact_fallback.any().to(torch.int64))
+        return pose, debug
+
+    registration.run_gn = counting_run_gn
+    registration.compute_robot_motion = counting_motion
+    try:
+        yield counts
+    finally:
+        registration.run_gn = run_gn
+        registration.compute_robot_motion = motion
+
+
+def counted_run(torch, release, run, warm):
+    """``run()`` under ``device_counts``, after ``release()`` (which frees
+    the graphs a run replays, so that ``warm()`` captures them anew with
+    the counting ops; its counts are dropped); the graphs are freed again
+    after, so a later run captures without them.  Returns the counts by
+    name (``LOOP_COUNTS``)."""
+    with device_counts(torch) as counts:
+        release()
+        try:
+            warm()
+            counts.zero_()
+            run()
+            got = counts.tolist()
+        finally:
+            release()
+    return dict(zip(LOOP_COUNTS, got))
+
+
+def graph_drive(torch, np, seqs, config, count, eager, markers, mesh=None,
+                loops=False):
     """The sequence runner over one drive (a dict), or the batched runner
     over a list of drives (with ``mesh``, the map-sharded runner on it),
     ``count`` frames, on its graphs or (``eager``) on the eager loop: a
@@ -1698,7 +1785,9 @@ def graph_drive(torch, np, seqs, config, count, eager, markers, mesh=None):
     inputs padded and on the card before the clock, the poses read back
     inside it), then GRAPH_PROFILED_FRAMES frames under the profiler,
     ``markers`` (marker, frames a marker) starting its frames.  The counts
-    are set to 0 just before the timed run and read just after."""
+    are set to 0 just before the timed run and read just after.  With
+    ``loops`` (a path that runs the GN loop) the ``count`` frames run once
+    more under ``device_counts``, on graphs captured again for it."""
     from kinematic_icp_tpu_torch.models import pipeline
     from kinematic_icp_tpu_torch.offline import (
         init_batched_state, make_batched_sequence_runner,
@@ -1752,22 +1841,29 @@ def graph_drive(torch, np, seqs, config, count, eager, markers, mesh=None):
     prof = profiled(torch, lambda: run(few), GRAPH_PROFILED_FRAMES,
                     *markers)
     calls = [] if runner.step is None else runner.step.calls
-    return {"poses": poses, "overflow": overflow, "seconds": seconds,
-            "fallback_frames": fallbacks[0] if fallbacks else None,
-            **counts, "profile": prof, "path": path_of(calls),
-            "capture_ms": [c.capture_ms for c in calls] or None,
-            "graphs": [c.graphs for c in calls],
-            "pool_bytes": pool_bytes(torch, runner.step.pool)
-            if calls else None}
+    row = {"poses": poses, "overflow": overflow, "seconds": seconds,
+           "fallback_frames": fallbacks[0] if fallbacks else None,
+           **counts, "profile": prof, "path": path_of(calls),
+           "capture_ms": [c.capture_ms for c in calls] or None,
+           "graphs": [c.graphs for c in calls],
+           "pool_bytes": pool_bytes(torch, runner.step.pool, calls)
+           if calls else None, "loop_counts": None}
+    if loops:
+        row["loop_counts"] = counted_run(
+            torch, runner.step.release if runner.step else lambda: None,
+            lambda: run(arrays), lambda: run(inputs(3)))
+    return row
 
 
-def graph_serve(torch, np, seq, config, count, mode, eager, markers):
+def graph_serve(torch, np, seq, config, count, mode, eager, markers,
+                loops=False):
     """The headline through ``LidarOdometryServer``, blocking or streamed
     in ``"scan"`` chunks, on its graphs or (``eager``) op by op: ``warmup``
     (which captures), the timed ``count`` frames with the counts set to 0
     just before and read just after, then a second server's first
     GRAPH_PROFILED_FRAMES frames under the profiler (``markers`` as
-    ``graph_drive``'s)."""
+    ``graph_drive``'s).  With ``loops`` a third server serves the
+    ``count`` frames under ``device_counts``, captured for it."""
     from kinematic_icp_tpu_torch.server import LidarOdometryServer
 
     blocking = mode == "blocking"
@@ -1796,25 +1892,37 @@ def graph_serve(torch, np, seq, config, count, mode, eager, markers):
 
     prof = profiled(torch, run, GRAPH_PROFILED_FRAMES, *markers)
     calls = server_calls(s)
-    return {"poses": stamped_poses(np, s), "seconds": seconds,
-            **counts, "fallback_frames": None,
-            "frames_registered": s.frames_registered,
-            "overflow": s.overflow_stats, "profile": prof,
-            "path": path_of(calls),
-            "capture_ms": None if eager else [c.capture_ms for c in calls],
-            "graphs": [c.graphs for c in calls],
-            "pool_bytes": None if eager else pool_bytes(torch, s._pool)}
+    row = {"poses": stamped_poses(np, s), "seconds": seconds,
+           **counts, "fallback_frames": None,
+           "frames_registered": s.frames_registered,
+           "overflow": s.overflow_stats, "profile": prof,
+           "path": path_of(calls),
+           "capture_ms": None if eager else [c.capture_ms for c in calls],
+           "graphs": [c.graphs for c in calls],
+           "pool_bytes": None if eager else pool_bytes(torch, s._pool,
+                                                       calls),
+           "loop_counts": None}
+    if loops:
+        counted = []
+
+        def warm():
+            counted.append(served())
+
+        def serve():
+            serve_frames(counted[0], seq, range(count), blocking=blocking)
+            counted[0].drain()
+
+        row["loop_counts"] = counted_run(torch, lambda: None, serve, warm)
+    return row
 
 
 #: the markers that start a profiled frame: the GN kernel's launch (one a
 #: frame) on an eager loop, a graph launch (one a frame, or a chunk-scan
 #: of SERVE_CHUNK) under graphs; every launch of the kernel-free eager
-#: loops (pruned, sharded), and an exact frame's two or three graph
-#: launches, start a varying number a frame
+#: loops (pruned, sharded) starts a varying number a frame
 COOPERATIVE = ("cudaLaunchCooperativeKernel", 1)
 REPLAY = ("cudaGraphLaunch", 1)
 ANY_LAUNCH = ("cudaLaunchKernel", None)
-REPLAYS = ("cudaGraphLaunch", None)
 
 
 def graph_phase(torch, np, seq, drives, card):
@@ -1826,11 +1934,13 @@ def graph_phase(torch, np, seq, drives, card):
     pruned frames, 4 drives of 20 frames certified under a batch, the
     served certified headline) and the map-sharded runner on a one-rank
     NCCL group (drives 0-1, 20 frames).  For each: every frame bit-equal,
-    the same GN, ``check_crossing``, fallback and collective counts (and
-    fallback frames), frames/s, host calls and syncs a frame and the
-    device's idle share over GRAPH_PROFILED_FRAMES frames under the
-    profiler, the capture's ms, the graphs a static call and the graph
-    pool's bytes.  One line a path, then a summary line."""
+    the same GN, ``check_crossing`` and collective counts (and fallback
+    frames), frames/s, host calls and syncs a frame and the device's idle
+    share over GRAPH_PROFILED_FRAMES frames under the profiler, the
+    capture's ms, one graph a static call and the graph pool's bytes; on
+    the paths that run the GN loop, its work counted on the device
+    (``device_counts``).  One line a path, a line of re-associations
+    against iterations a loop, then a summary line."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
                                                   make_mesh,
@@ -1844,14 +1954,13 @@ def graph_phase(torch, np, seq, drives, card):
     def drive(*a, markers=(COOPERATIVE, REPLAY), **kw):
         return lambda e: graph_drive(torch, np, *a, e, markers[1 - e], **kw)
 
-    def serve(config, mode, markers=(COOPERATIVE, REPLAY)):
+    def serve(config, mode, markers=(COOPERATIVE, REPLAY), **kw):
         return lambda e: graph_serve(torch, np, seq, config, MAIN_FRAMES,
-                                     mode, e, markers[1 - e])
+                                     mode, e, markers[1 - e], **kw)
 
     # (name, run(eager), frames, B, whether the GN kernel runs, whether
     # the frame loop never waits for the device under graphs: a server
-    # waits for its upload and its readback, an exact frame for its
-    # fallback flag)
+    # waits for its upload and its readback)
     cases = [
         ("headline", drive(seq, headline, MAIN_FRAMES), MAIN_FRAMES, 1,
          True, True),
@@ -1863,23 +1972,20 @@ def graph_phase(torch, np, seq, drives, card):
          True, False),
         ("serve_scan", serve(headline, "scan", (COOPERATIVE, (
             "cudaGraphLaunch", SERVE_CHUNK))), MAIN_FRAMES, 1, True, False),
-        ("exact_certified", drive(seq, exact, EXACT_FRAMES,
-                                  markers=(COOPERATIVE, REPLAYS)),
-         EXACT_FRAMES, 1, True, False),
+        ("exact_certified", drive(seq, exact, EXACT_FRAMES, loops=True),
+         EXACT_FRAMES, 1, True, True),
         ("exact_pruned", drive(seq, pruned, PRUNED_FRAMES,
-                               markers=(ANY_LAUNCH, REPLAYS)),
-         PRUNED_FRAMES, 1, False, False),
+                               markers=(ANY_LAUNCH, REPLAY), loops=True),
+         PRUNED_FRAMES, 1, False, True),
         (f"batched_exact_b{EXACT_BATCH}", drive(
-            drives[:EXACT_BATCH], exact, EXACT_BATCH_FRAMES,
-            markers=(COOPERATIVE, REPLAYS)), EXACT_BATCH_FRAMES,
-         EXACT_BATCH, True, False),
-        ("serve_exact_blocking", serve(exact, "blocking",
-                                       (COOPERATIVE, REPLAYS)),
+            drives[:EXACT_BATCH], exact, EXACT_BATCH_FRAMES, loops=True),
+         EXACT_BATCH_FRAMES, EXACT_BATCH, True, True),
+        ("serve_exact_blocking", serve(exact, "blocking", loops=True),
          MAIN_FRAMES, 1, True, False),
         ("sharded_1rank_nccl", drive(
             drives[:SHARD_BATCH], headline, SHARD_FRAMES,
-            markers=(ANY_LAUNCH, REPLAY), mesh=mesh), SHARD_FRAMES,
-         SHARD_BATCH, False, True)]
+            markers=(ANY_LAUNCH, REPLAY), mesh=mesh, loops=True),
+         SHARD_FRAMES, SHARD_BATCH, False, True)]
     summary = {}
     try:
         for name, run, count, b, kernel, quiet in cases:
@@ -1888,13 +1994,26 @@ def graph_phase(torch, np, seq, drives, card):
                                       eager, graph, card)
     finally:
         shutdown_distributed()
+    emit({"phase": "graph_reassociations", "nvidia_smi": card,
+          "paths": {name: {k: row[k] for k in (
+              "iterations_a_loop", "reassociations_a_loop")}
+              for name, row in summary.items()
+              if row["iterations_a_loop"] is not None}})
     emit({"phase": "graph", "nvidia_smi": card, "paths": summary})
     return summary
 
 
 def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
     """One path's line of the graph phase (it fails the run on a failed
-    check); returns its summary."""
+    check); returns its summary.  Where the path runs the GN loop
+    (``loop_counts``), the replay runs as many loops as eager, on the same
+    frames, and re-associates only as JAX's ``while_loop`` does: 1 + the
+    most (iterations - 1) of a row a loop, where eager runs every trip
+    (the sharded path, whose loop keeps its fixed trips, every trip
+    either way)."""
+    from kinematic_icp_tpu_torch import Config
+
+    trips = Config().max_num_iterations
     def both(key, of=None):
         src = (lambda r: r[of][key]) if of else (lambda r: r[key])
         return {"eager": src(eager), "graph": src(graph)}
@@ -1907,7 +2026,7 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
            "frames_per_s": {"eager": b * count / eager["seconds"],
                             "graph": b * count / graph["seconds"]},
            **{k: both(k) for k in ("gn_launches", "check_crossing_launches",
-                                   "fallback_loops", "collectives")},
+                                   "collectives", "loop_counts")},
            "exact_fallback_frames": {
                k: None if r["fallback_frames"] is None
                else r["fallback_frames"].tolist()
@@ -1922,8 +2041,7 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
            "capture_ms": graph["capture_ms"], "graphs": graph["graphs"],
            "pool_bytes": graph["pool_bytes"]}
     counts_equal = all(graph[k] == eager[k] for k in (
-        "gn_launches", "check_crossing_launches", "fallback_loops",
-        "collectives"))
+        "gn_launches", "check_crossing_launches", "collectives"))
     row["checks"] = {
         "every_frame_bit_equal": equal == len(eager["poses"]) > 0,
         "same_counts": counts_equal and (graph["gn_launches"] > 0) == kernel,
@@ -1941,7 +2059,26 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
         # the frame's launches, the GN kernel's among them, are inside
         # the replays
         "gn_launch_inside_the_replay": "cudaLaunchCooperativeKernel"
-        not in graph["profile"]["host_calls_by_name"]}
+        not in graph["profile"]["host_calls_by_name"],
+        "one_graph_a_static_call": graph["graphs"] != []
+        and all(g == 1 for g in graph["graphs"])}
+    loops = graph["loop_counts"]
+    if loops is not None:
+        done, made = loops["gn_loops"], loops["associations"]
+        row["checks"].update({
+            "same_loops_on_the_same_frames": all(
+                loops[k] == eager["loop_counts"][k]
+                for k in ("gn_loops", "loop_iterations",
+                          "fallback_registrations")) and done > 0,
+            "eager_runs_every_trip":
+                eager["loop_counts"]["associations"] == trips * done,
+            "replay_reassociates_as_the_while_loop": made == (
+                trips * done if name.startswith("sharded")
+                else loops["loop_iterations"])})
+        row["reassociations_a_loop"] = {
+            k: (r["loop_counts"]["associations"] - done) / done
+            for k, r in (("eager", eager), ("graph", graph))}
+        row["iterations_a_loop"] = loops["loop_iterations"] / done
     if quiet:
         row["checks"]["no_host_sync_in_the_frame_loop"] = (
             graph["profile"]["host_syncs_per_frame"] == 0)
@@ -1951,12 +2088,13 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
         raise SystemExit(f"graph_{name} failed: {row['checks']}")
     return {"gn_launches": graph["gn_launches"],
             "check_crossing_launches": graph["check_crossing_launches"],
-            "capture_ms": graph["capture_ms"],
+            "capture_ms": graph["capture_ms"], "graphs": graph["graphs"],
             "pool_mb": None if graph["pool_bytes"] is None
             else graph["pool_bytes"] / 2**20,
-            **{k: row[k] for k in ("frames_per_s", "host_calls_per_frame",
-                                   "host_syncs_per_frame",
-                                   "device_idle_share")}}
+            **{k: row.get(k) for k in (
+                "frames_per_s", "host_calls_per_frame",
+                "host_syncs_per_frame", "device_idle_share",
+                "reassociations_a_loop", "iterations_a_loop")}}
 
 
 def cli_drive(np, bag, out_dir, argv):
@@ -2201,19 +2339,19 @@ def main():
     # the host C++ (the ingestion library, the baseline) builds beside nvcc
     with ThreadPoolExecutor(1) as pool:
         host = pool.submit(native.build, "kicp_io", "kicp_baseline")
-        built = cuda_build.build("gn_solve")
+        built = cuda_build.build(*KERNEL_SOURCES)
         host_built = host.result()
     emit({"phase": "build_host", "targets": {
         name: {"seconds": b["seconds"], "path": b["path"]}
         for name, b in host_built.items()}})
-    # one template instance per check_crossing value, each with a line
     spill = {name: spills(b["log"]) for name, b in built.items()}
     emit({"phase": "build", "kernels": {
         name: {"seconds": b["seconds"], "spill_bytes": spill[name],
                "ptxas": [ln.strip() for ln in b["log"].splitlines()
                          if "registers" in ln or "spill" in ln]}
         for name, b in built.items()}})
-    if any(len(v) < 2 or any(v) for v in spill.values()):
+    if any(len(spill[name]) < lines or any(spill[name])
+           for name, lines in KERNEL_SOURCES.items()):
         raise SystemExit(f"ptxas reports spills (or no spill lines): {spill}")
 
     seq = synthetic.make_sequence(MAIN_FRAMES,

@@ -12,12 +12,11 @@ middle.
 ``make_step`` is the counterpart of the JAX package's jitted, donated step:
 a ``Step`` keeps the state and the inputs in buffers of its own, and on a
 CUDA device runs the frame as replays of CUDA graphs captured once per
-static shape (``utils.cuda_graph``), for every configuration.  The default
-registration reads nothing back: one replay a frame.  The certified and
-pruned exact modes branch to the full-27 loop where JAX's frame runs a
-``lax.cond``: their frame is two graphs around one read-back of the
-fallback flags, with the loop's graph replayed between them on the frames
-that set them.
+static shape (``utils.cuda_graph``), for every configuration: one replay
+a frame that reads nothing back.  Where JAX's frame runs a ``lax.cond``
+(the certified and pruned exact modes' full-27 fallback) or a
+``lax.while_loop`` (the GN loop lowering), the graph holds conditional
+nodes that decide on the device.
 """
 
 from __future__ import annotations
@@ -321,11 +320,10 @@ class Step:
     allocates the buffers; every call copies the state in (unless it is
     the state the step last returned) and each input that changed, then
     runs the frame over the buffers, writing the new state back into them.
-    On a CUDA device the frame is captured at that first call as CUDA
-    graphs and every call replays them: one replay with no host sync, or
-    under an exact mode two around the fallback flags' one read-back
-    (``utils.cuda_graph``); on the CPU it runs eagerly over the same
-    buffers.
+    On a CUDA device the frame is captured at that first call as a CUDA
+    graph and every call replays it: one replay with no host sync, under
+    every mode (``utils.cuda_graph``); on the CPU it runs eagerly over the
+    same buffers.
 
     ``donate=True`` returns the step's own state (and on a card its
     outputs): they hold this frame until the step's next call with the
@@ -357,9 +355,14 @@ class Step:
 
     def release(self):
         """Free the graphs of every static shape now (each captures again
-        at its next call); the buffers stay."""
+        at its next call, into a new memory pool: PyTorch refuses a capture
+        into a pool whose graphs are all freed); the buffers stay."""
         for call in self.calls:
             call.release()
+        if self.capture:
+            self.pool = torch.cuda.graph_pool_handle()
+            for call in self.calls:
+                call.pool = self.pool
 
     def _frame_for(self, state: OdometryState, inputs) -> _Frame:
         """The buffers and call of this state's and inputs' static shape

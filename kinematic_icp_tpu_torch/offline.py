@@ -59,12 +59,12 @@ def make_sequence_runner(config: Config, device=None, eager: bool = False):
     is where the inputs must live.
 
     Each frame runs through the runner's ``pipeline.Step``, under every
-    configuration: on a CUDA device the replays of CUDA graphs captured at
-    the first frame of each static shape (one a frame; under the certified
-    and pruned exact modes two around the fallback flag's one read-back,
-    and the full-27 loop's graph between them on a frame that falls back),
-    the state updated in place in the step's buffers and returned as a copy
-    at the end.  ``fallbacks`` reads each frame's ``exact_fallback`` output
+    configuration: on a CUDA device one replay a frame of a CUDA graph
+    captured at the first frame of each static shape (under the certified
+    and pruned exact modes the full-27 loop inside it, run on the device on
+    a frame that falls back, as JAX's ``lax.cond`` runs it), the state
+    updated in place in the step's buffers and returned as a copy at the
+    end.  ``fallbacks`` reads each frame's ``exact_fallback`` output
     on the device.  The runner is cached per (config, device) as JAX's is,
     so a later sequence of the same shapes replays the same graphs.
     ``eager=True`` runs ``register_frame`` op by op (the baseline a replay
@@ -90,9 +90,10 @@ def make_batched_sequence_runner(config: Config, device=None,
     pads with identity odometry: its frames past the end are stationary
     and leave its state as it was.  ``stationary_gate`` is the |log(rel)|
     below which a frame is stationary (JAX's ``run_device`` fixes it at
-    1e-3).  Under an exact mode a batched frame reads its (B,) fallback
-    flags back once (the full-27 loop runs on the batch where any is set),
-    and ``fallbacks`` counts each sequence's fallback frames.
+    1e-3).  Under an exact mode the full-27 loop runs on the batch where
+    any of a batched frame's (B,) fallback flags is set (on the device, or
+    eagerly after one read-back of the flags), and ``fallbacks`` counts
+    each sequence's fallback frames.
     """
     return _make_runner(config, resolve_device(device), stationary_gate,
                         True, eager)

@@ -4,8 +4,7 @@ The answer to "process many bags": instead of the reference's one bag at a
 time (offline_node.cpp), B sequences advance in lock-step, padded to shared
 static shapes, every frame of the batch in the launches of one frame
 (``offline.make_batched_sequence_runner``), on a card as CUDA graph
-replays (``pipeline.Step``: one a batched frame, or under an exact mode
-two around the fallback flags' read-back).  Given a (data, map) mesh, the
+replays (``pipeline.Step``: one a batched frame, under every mode).  Given a (data, map) mesh, the
 sequences are split over the data ranks and each sequence's map over the
 map ranks (``parallel.sharded``).
 """

@@ -25,9 +25,10 @@ replayed every frame, as JAX runs its sharded step as one jitted dispatch;
 gloo's collectives cannot be captured, so on gloo the frame runs eagerly.
 
 JAX's data-dependent ``while`` loop becomes ``registration.run_gn``'s
-``max_num_iterations`` masked trips, so every rank issues the same
-collectives in the same order whatever its data: a branch on the data
-would leave the other ranks waiting in a collective.  The GN kernel does
+``max_num_iterations`` masked trips, every one run (with a ``reduce`` hook
+the loop takes no early exit), so every rank issues the same collectives
+in the same order whatever its data: a branch on the data would leave the
+other ranks waiting in a collective.  The GN kernel does
 not run here, by design, as in the JAX package (``Config.gn_backend`` is
 ignored): each trip needs the cross-shard minimum, and no collective runs
 inside a kernel.

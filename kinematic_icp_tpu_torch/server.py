@@ -15,8 +15,8 @@ vector holding the pose's bits and the running overflow totals.  On a card
 a step is one replay of a CUDA graph, one per (bucket, codec, dtype) and
 one per chunk-scan (the counterpart of the JAX server's executables),
 captured at the bucket's first frame or by ``warmup``; under an exact mode
-a frame's graph is split at its fallback branch point (one read-back of
-the flag, ``utils.cuda_graph``); the server's state,
+the fallback runs inside the same graph, on the device, where the flag is
+set (a conditional node, ``utils.cuda_graph``); the server's state,
 its overflow totals, extrinsic and upload buffers are the graphs' fixed
 buffers, refilled in place (``state`` assignment, ``set_pose``).  Streaming
 mode stages ``stream_chunk`` frames host-side and uploads them as one
@@ -147,9 +147,9 @@ class LidarOdometryServer:
       eager: run each step op by op over the same buffers instead of
         replaying its CUDA graphs (the baseline a replay is held to), as
         the CPU always does.  Under the certified and pruned exact modes a
-        step's graphs are two segments around the fallback flag's one
-        read-back, with the full-27 loop's graph replayed between them
-        where the flag is set (a chunk-scan has a branch point a row).
+        step is still one graph: the full-27 loop runs inside it where the
+        fallback flag is set, a conditional node (a chunk-scan has one a
+        row); eagerly the flag is read back once a frame.
     """
 
     def __init__(self, config: Config | None = None,

@@ -1,67 +1,82 @@
-"""One call over fixed buffers, captured once as CUDA graphs and replayed.
+"""One call over fixed buffers, captured once as a CUDA graph and replayed.
 
 The counterpart of a jitted JAX program with donated arguments: the JAX
 package compiles a frame once per static shape and runs it as one dispatch
 that updates the donated state in place.  Here the owner (a pipeline step,
 a server bucket) allocates the buffers once; ``fn`` reads its inputs from
 them and writes the new state back into them, and on a CUDA device the
-first call captures ``fn`` as CUDA graphs that every later call replays:
-one host call in place of the frame's ~1,000 launches, the same kernels,
-so the same bits.
+first call captures ``fn`` as one CUDA graph that every later call
+replays: one host call in place of the frame's ~1,000 launches, the same
+kernels, so the same bits.
 
-A frame may hit branch points (``branch``): a (B,) flag, a fallback that
-recomputes some tensors, and those tensors.  This is where JAX's frame runs
-a device-side ``lax.cond`` (the exact modes' full-27 fallback); eager
-PyTorch has no such branch, so the frame is captured as a chain: segment 0
-up to the first branch point, ending in ``flag.any()``; a graph of the
-fallback of its own, writing its values into the branch point's tensors in
-place; the next segment up to the next branch point, or to the end.  A
-replay runs segment 0, copies the flag into pinned host memory and waits
-for it (the frame's one read-back a branch point), replays the fallback's
-graph only if some row is set, then the next segment.  Every graph of a
-chain shares one memory pool and replays in capture order; a fallback
-graph writes only into tensors that exist before it, so the memory of its
-temporaries is dead once it ends whether or not it ran.
+A frame's data-dependent control flow stays on the device, where JAX's
+``lax.cond`` and ``lax.while_loop`` keep it, as CUDA-graph conditional (IF)
+nodes:
+
+* ``when(pred, body)``: ``body()`` runs where the 0-d bool ``pred`` is set
+  (the GN loop's trips and re-associations, ``ops.registration.run_gn``);
+* ``branch(flag, fallback, tensors)``: ``tensors`` rewritten in place by
+  ``fallback()`` where some row of ``flag`` is set (the exact modes'
+  full-27 fallback), an IF node on ``flag.any()``.
+
+Under capture each becomes an IF node whose body graph is captured from
+``body`` (an IF node inside it where bodies nest), so a frame is one graph
+and a replay reads nothing back.  The node is built by the port's own
+``csrc/graph_if.cu`` through the CUDA runtime (a kernel that sets the
+node's handle from the predicate at each replay, the node, and the body's
+capture into its graph on a stream of its own, whose allocations go to a
+memory pool of its nesting depth, held as long as the graph).  A body runs
+on the replays whose predicate is set and not on the others, so whatever
+the frame reads after it must be written into tensors that exist before it
+(``copy_``): a tensor the body creates is garbage on a replay that skips
+it.  A capture that
+cannot build its IF node raises: nothing falls back to a read-back or to
+the eager call.
+
+Without capture (a CPU device, an owner that asks for the eager call, and
+the warm-up before a capture) ``when`` always runs its body and reads
+nothing back, so a body run where its predicate is clear must change
+nothing (a masked trip); ``branch`` reads its flag back once and runs the
+fallback only where some row is set (the eager baseline's one read-back).
 
 Capture follows PyTorch's recipe: ``fn`` is warmed up once on a side
 stream, over scratch clones of the buffers (the owner's state is not
-advanced), with every fallback run, so the kernels are built, the GN
-kernel's co-resident CTA count is queried, a process group's communicator
-is made and the allocator has seen the frame before the capture; the
-capture then records ``fn`` over the real buffers without running it.
-Python's cyclic garbage collector is held off during the capture: a graph
-left in a reference cycle by an earlier owner, collected mid-capture,
-resets itself, which a capturing stream refuses, and the capture fails.
-(A full collection before each capture, as ``torch.cuda.graph`` runs,
-added 0.2-0.6 s a capture in ``chip_smoke.py`` on an H100.)  A capture that
-fails raises: nothing falls back to the eager call.
+advanced), with every body run, so the kernels are built, the GN kernel's
+co-resident CTA count is queried, a process group's communicator is made
+and the allocator has seen the frame before the capture; the capture then
+records ``fn`` over the real buffers without running it.  Python's cyclic
+garbage collector is held off during the capture: a graph left in a
+reference cycle by an earlier owner, collected mid-capture, resets itself,
+which a capturing stream refuses, and the capture fails.  (A full
+collection before each capture, as ``torch.cuda.graph`` runs, added 0.2-0.6
+s a capture in ``chip_smoke.py`` on an H100.)  A capture that fails
+raises: nothing falls back to the eager call.
 
-The launch, fallback and collective counters are plain Python integers
-bumped where the work is issued, and a replay runs no Python.  So each
-module that owns such a counter registers it here at import time
-(``replayed``): each graph's capture records the counters' increments and
-the last values it set, every replay of it adds and sets them again, and
-the warm-up's and the capture's own are taken back out, so a count read
-around a run is that run's.
-
-Without capture (a CPU device, or an owner that asks for the eager call)
-each call runs ``fn`` over the same buffers, and a branch point reads its
-flag back and runs the fallback where set: the same protocol, testable on
-the CPU.
+The launch and collective counters are plain Python integers bumped where
+the work is issued, and a replay runs no Python.  So each module that owns
+such a counter registers it here at import time (``replayed``): the
+capture records the counters' increments and the last values it set, every
+replay adds and sets them again, and the warm-up's and the capture's own
+are taken back out, so a count read around a run is that run's.  A replay
+cannot tell whether an IF body ran, so a capture that moves a registered
+counter inside a body raises: such work is counted on the device.
 
 A captured frame that issues collectives holds its process group's
-communicator until its graphs are freed (``StaticCall.release``).
+communicator until its graph is freed (``StaticCall.release``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import sys
 import time
+import weakref
 
 import torch
 
-#: the chain being captured, or ``_WARMUP`` during a warm-up, else None
+#: the capture in progress (``_Capture``), or ``_WARMUP`` during a
+#: warm-up, else None
 _active = None
 _WARMUP = object()
 _UNSET = object()
@@ -116,83 +131,139 @@ class _Effects:
         _set(self.left)
 
 
+class _Capture:
+    """A static call's capture in progress, and its IF nodes: each body is
+    captured on a stream of its nesting depth, whose allocations the
+    caching allocator routes to a memory pool of that depth while the
+    capture lasts (PyTorch routes only the capturing stream's, and refuses
+    a second route to the graph's own pool).  The pools hold the bodies'
+    memory for as long as the graph lives (``_free_pools``).  The nodes
+    themselves are built by ``csrc/graph_if.cu`` through the CUDA runtime:
+    PyTorch before 2.13 has no call that captures into one."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        #: the bodies' memory pools, one a depth
+        self.pools = []
+        #: the body streams, one a depth, and those of the open nodes
+        self._streams, self._open = [], []
+        self._lib = None
+
+    def begin_if(self, pred):
+        """Open an IF node on ``pred`` (a bool on the card) on the current
+        stream; returns the stream to capture its body on."""
+        if self._lib is None:
+            from ..ops import cuda_build
+
+            self._lib = cuda_build.load("graph_if")
+            for fn in (self._lib.kicp_if_begin, self._lib.kicp_if_end):
+                fn.restype = ctypes.c_int
+            self._lib.kicp_if_begin.argtypes = [ctypes.c_void_p] * 3
+            self._lib.kicp_if_end.argtypes = [ctypes.c_void_p]
+        depth = len(self._open)
+        if depth == len(self._streams):
+            body = torch.cuda.Stream(self.dev)
+            pool = torch.cuda.graph_pool_handle()
+            with torch.cuda.stream(body):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(
+                    self.dev.index, pool)
+            self._streams.append(body)
+            self.pools.append(pool)
+        body = self._streams[depth]
+        if pred.device != self.dev:
+            raise ValueError(f"when: a predicate on {pred.device} in a "
+                             f"capture on {self.dev}")
+        rc = self._lib.kicp_if_begin(
+            torch.cuda.current_stream(self.dev).cuda_stream,
+            pred.data_ptr(), body.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"capturing a conditional node failed: CUDA "
+                               f"error {rc}")
+        self._open.append(body)
+        return body
+
+    def end_if(self):
+        """Close the innermost open IF node's body."""
+        rc = self._lib.kicp_if_end(self._open.pop().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ending a conditional node's capture "
+                               f"failed: CUDA error {rc}")
+
+    def close(self):
+        """Stop routing the body streams' allocations; the pools stay."""
+        for pool in self.pools[:len(self._streams)]:
+            torch._C._cuda_endAllocateToPool(self.dev.index, pool)
+        self._streams = []
+
+
+def _free_pools(dev, pools):
+    """Hand the IF bodies' memory ``pools`` back to the allocator, once no
+    graph that uses them will replay."""
+    for pool in pools:
+        torch._C._cuda_releasePool(dev.index, pool)
+
+
+def when(pred, body):
+    """``body()`` where the 0-d bool tensor ``pred`` is set.  ``body``
+    returns nothing: it writes what it computes into tensors that exist
+    before it.  Under a static call's capture an IF node on ``pred``,
+    whose body graph is captured from ``body``; otherwise ``body()``
+    runs, reading nothing back, so a body run where ``pred`` is clear
+    must change nothing."""
+    if pred.dtype != torch.bool or pred.numel() != 1:
+        raise ValueError(f"when: a one-element bool predicate, got "
+                         f"{pred.dtype} {tuple(pred.shape)}")
+    capture = _active
+    if capture is None or capture is _WARMUP:
+        body()
+        return
+    before = {**_counts(), **_latest()}
+    stream = capture.begin_if(pred)
+    try:
+        with torch.cuda.stream(stream):
+            body()
+    finally:
+        capture.end_if()
+    if {**_counts(), **_latest()} != before:
+        raise RuntimeError(
+            "a registered counter moved inside a conditional body, where "
+            "a replay cannot tell whether it ran: count it on the device")
+
+
 def branch(flag, fallback, tensors):
     """A branch point of a frame: ``tensors`` (a tuple) as they are, or
     ``fallback()``'s new values of them (a tuple of the same shapes, which
-    must keep each row whose ``flag`` is clear), run only where some row of
-    the (B,) or 0-d bool ``flag`` is set.
+    must keep each row whose ``flag`` is clear), computed only where some
+    row of the (B,) or 0-d bool ``flag`` is set.
 
-    Eager: one read-back of ``flag.any()``, then the fallback if set.  In a
-    static call's warm-up the fallback always runs; under its capture the
-    fallback becomes a graph of its own that writes into ``tensors`` in
-    place, replayed on the frames whose flag reads back set (see the
-    module's docstring).
+    Eager: one read-back of ``flag.any()``, then the fallback if set, its
+    values returned.  In a static call's warm-up and capture: ``when`` on
+    ``flag.any()`` over a body that copies the fallback's values into
+    ``tensors``, which are returned (under capture an IF node: no
+    read-back).
     """
     if _active is None:
         return fallback() if bool(flag.any()) else tensors
-    if _active is _WARMUP:
-        return fallback()
-    return _active.branch(flag, fallback, tensors)
 
-
-class _Chain:
-    """The graphs of one capture: ``segments`` (graph, effects), and
-    between each two a branch point's (``flag.any()`` on the device, its
-    pinned host copy, fallback graph, effects)."""
-
-    def __init__(self, pool):
-        self.pool = pool
-        self.segments = []
-        self.branches = []
-        self._begin()
-
-    def _begin(self):
-        self._graph, self._effects = torch.cuda.CUDAGraph(), _Effects()
-        self._graph.capture_begin(pool=self.pool)
-
-    def _end(self):
-        graph, self._graph = self._graph, None
-        graph.capture_end()
-        return graph, self._effects.end()
-
-    def end(self):
-        self.segments.append(self._end())
-
-    def abort(self):
-        """End a capture left open by a failure (which the caller
-        re-raises)."""
-        if self._graph is not None:
-            try:
-                self._graph.capture_end()
-            except RuntimeError:
-                pass
-            self._graph = None
-
-    def branch(self, flag, fallback, tensors):
-        any_set = flag.any()
-        self.end()
-        self._begin()
-        values = fallback()
-        for dst, src in zip(tensors, values):
+    def body():
+        for dst, src in zip(tensors, fallback()):
             dst.copy_(src)
-        del values
-        graph, effects = self._end()
-        host = torch.empty((), dtype=torch.bool, pin_memory=True)
-        self.branches.append((any_set, host, graph, effects))
-        self._begin()
-        return tensors
+
+    when(flag.any(), body)
+    return tensors
 
 
 class StaticCall:
-    """``fn(*buffers)`` over fixed ``buffers``, replayed as CUDA graphs
+    """``fn(*buffers)`` over fixed ``buffers``, replayed as one CUDA graph
     when ``capture`` is true (the buffers must then lie on one CUDA
     device), else called eagerly.
 
-    ``fn`` must read nothing back to the host outside its branch points
-    (``branch``), and its outputs (a tensor or a nested tuple of them,
-    returned by every call) live in the graphs' memory: each call
-    overwrites them.  ``pool`` (``torch.cuda.graph_pool_handle()``) lets
-    the graphs of one owner, replayed one at a time, share their memory.
+    ``fn`` must read nothing back to the host (its data-dependent control
+    flow goes through ``when`` and ``branch``), and its outputs (a tensor
+    or a nested tuple of them, returned by every call) live in the graph's
+    memory: each call overwrites them.  ``pool``
+    (``torch.cuda.graph_pool_handle()``) lets the graphs of one owner,
+    replayed one at a time, share their memory.
     """
 
     def __init__(self, fn, buffers, capture: bool, pool=None):
@@ -201,23 +272,25 @@ class StaticCall:
         self.capture = capture
         self.pool = pool
         self.outputs = None
-        self._chain = None
+        self._graph = None
+        self._effects = None
+        #: the memory pools of the graph's IF bodies (empty without them)
+        self.body_pools = []
+        self._free_pools = None
         #: host ms of the warm-up and the capture (None before them)
         self.capture_ms = None
 
     @property
     def graphs(self) -> int:
-        """CUDA graphs captured: the segments and the fallbacks between
-        them (0 before the capture, or without capture)."""
-        if self._chain is None:
-            return 0
-        return len(self._chain.segments) + len(self._chain.branches)
+        """CUDA graphs captured: 1, or 0 before the capture and without
+        capture."""
+        return int(self._graph is not None)
 
     def prepare(self):
         """Warm up and capture now (a no-op without capture or once
         captured); touches no buffer."""
         global _active
-        if not self.capture or self._chain is not None:
+        if not self.capture or self._graph is not None:
             return
         dev = self.buffers[0].device
         before = {**_counts(), **_latest()}
@@ -239,47 +312,51 @@ class StaticCall:
                     else torch.cuda.graph_pool_handle())
             collecting = gc.isenabled()
             gc.disable()
+            graph = torch.cuda.CUDAGraph()
             with torch.cuda.stream(torch.cuda.Stream(dev)):
-                chain = _active = _Chain(pool)
+                effects = _Effects()
+                graph.capture_begin(pool=pool)
+                capture = _active = _Capture(dev)
                 try:
                     outputs = self.fn(*self.buffers)
-                    chain.end()
                 except BaseException:
-                    chain.abort()
+                    try:  # end the capture the failure left open
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the failure is re-raised
+                    capture.close()
+                    _free_pools(dev, capture.pools)
                     raise
+                else:
+                    graph.capture_end()
+                    effects.end()
                 finally:
                     _active = None
+                    capture.close()
                     _set(before)
                     if collecting:
                         gc.enable()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.outputs, self._chain = outputs, chain
+        self.outputs, self._graph, self._effects = outputs, graph, effects
+        self.body_pools = capture.pools
+        self._free_pools = weakref.finalize(self, _free_pools, dev,
+                                            capture.pools)
 
     def release(self):
-        """Free the graphs now (a later call captures again): a graph that
+        """Free the graph now (a later call captures again): a graph that
         issues collectives holds its group's communicator until then."""
-        if self._chain is not None:
-            for graph, _ in self._chain.segments:
-                graph.reset()
-            for _, _, graph, _ in self._chain.branches:
-                graph.reset()
-        self.outputs = self._chain = None
+        if self._graph is not None:
+            self._graph.reset()
+            self._free_pools()
+        self.outputs = self._graph = self._effects = None
+        self.body_pools = []
 
     def __call__(self):
         if not self.capture:
             return self.fn(*self.buffers)
         self.prepare()
-        segments, branches = self._chain.segments, self._chain.branches
-        for i, (graph, effects) in enumerate(segments):
-            if i:
-                any_set, host, fallback, more = branches[i - 1]
-                host.copy_(any_set, non_blocking=True)
-                torch.cuda.current_stream().synchronize()
-                if host.item():
-                    fallback.replay()
-                    more.apply()
-            graph.replay()
-            effects.apply()
+        self._graph.replay()
+        self._effects.apply()
         return self.outputs
 
 

@@ -1,12 +1,13 @@
 """Port vs JAX: the reference-exact registration modes under a batch axis.
 
 JAX runs the exact modes under ``vmap``, where each ``lax.cond`` becomes a
-per-row select.  The port reads a batched frame's (B,) fallback flags back
-once and, where any is set, runs the full-27 loop on the whole batch and
-takes its rows where the flag is set.  Here the port's batched runner
-against JAX's (the full-27 and pruned loops: JAX's certified branch needs
-the Pallas kernel), and each row of the port's batched certified and
-pruned drives against that drive's own ``run_offline``.
+per-row select.  Where any of a batched frame's (B,) fallback flags is set,
+the port runs the full-27 loop on the whole batch and takes its rows where
+the flag is set (eagerly, as here, after one read-back of the flags).
+Here the port's batched runner against JAX's (the full-27 and pruned
+loops: JAX's certified branch needs the Pallas kernel), and each row of
+the port's batched certified and pruned drives against that drive's own
+``run_offline``.
 """
 
 import dataclasses
@@ -67,20 +68,32 @@ def sequences():
 @pytest.fixture(scope="module")
 def port_batched(sequences):
     """The port's batched runner over the drives under a configuration:
-    its outputs and the full-27 fallback loops it ran, once a
-    configuration."""
+    its outputs and the full-27 fallback loops it ran (the batched frames
+    whose fallback flags have some row set, read from each registration's
+    ``exact_fallback``), once a configuration."""
     runs = {}
 
     def run(cfg):
         if cfg not in runs:
             arrays = toffline.pad_batch(sequences, cfg)
             runner = toffline.make_batched_sequence_runner(cfg, device=CPU)
-            loops = registration.FALLBACK_LOOPS
-            out = runner(
-                toffline.init_batched_state(cfg, len(sequences), device=CPU),
-                *(torch.from_numpy(a) for a in arrays[:4]), torch.eye(4),
-                torch.from_numpy(arrays[4]))
-            runs[cfg] = out, registration.FALLBACK_LOOPS - loops
+            flags = []
+            motion = registration.compute_robot_motion
+
+            def spy(*args, **kw):
+                pose, debug = motion(*args, **kw)
+                if debug.exact_fallback is not None:
+                    flags.append(debug.exact_fallback.clone())
+                return pose, debug
+
+            with pytest.MonkeyPatch.context() as patch:
+                patch.setattr(registration, "compute_robot_motion", spy)
+                out = runner(
+                    toffline.init_batched_state(cfg, len(sequences),
+                                                device=CPU),
+                    *(torch.from_numpy(a) for a in arrays[:4]), torch.eye(4),
+                    torch.from_numpy(arrays[4]))
+            runs[cfg] = out, sum(bool(f.any()) for f in flags)
         return runs[cfg]
 
     return run

@@ -290,7 +290,7 @@ def test_batched_drive_equals_one_run_per_sequence(card):
 
 
 @pytest.mark.cuda
-def test_batched_certified_exact_one_launch_a_frame(card):
+def test_batched_certified_exact_one_launch_a_frame(card, monkeypatch):
     """The certified exact mode under a batch: one launch of the
     ``check_crossing`` instance a batched frame, the full-27 loop on the
     batched frames where some row's certificate failed, each drive within
@@ -308,14 +308,20 @@ def test_batched_certified_exact_one_launch_a_frame(card):
     seqs = [synthetic.make_sequence(6, world_seed=s, traj_seed=s + 10,
                                     noise_seed=s + 20) for s in range(3)]
     arrays = [torch.from_numpy(a).to(card) for a in pad_batch(seqs, cfg)]
-    before = (gn.LAUNCHES, gn.CROSSING_LAUNCHES, registration.FALLBACK_LOOPS)
-    _, poses, overflow, fallbacks = make_batched_sequence_runner(cfg, card)(
-        init_batched_state(cfg, 3, device=card), *arrays[:4],
-        torch.eye(4, device=card), arrays[4])
+    counts = _count_on_device(monkeypatch, card)
+    runner = make_batched_sequence_runner(cfg, card)
+    runner.step.release()  # captured again under the counting wrappers
+    for _ in range(2):  # the first run captures
+        counts.zero_()
+        before = (gn.LAUNCHES, gn.CROSSING_LAUNCHES)
+        _, poses, overflow, fallbacks = runner(
+            init_batched_state(cfg, 3, device=card), *arrays[:4],
+            torch.eye(4, device=card), arrays[4])
     assert (gn.LAUNCHES, gn.CROSSING_LAUNCHES) == (before[0] + 6,
                                                   before[1] + 6)
-    loops = registration.FALLBACK_LOOPS - before[2]
-    assert loops <= 6 and (loops > 0 or not fallbacks.any())
+    # the full-27 loop ran on exactly the batched frames some row crossed
+    loops, _, crossed = counts.tolist()
+    assert loops == crossed <= 6 and (loops > 0 or not fallbacks.any())
     assert not overflow.any()
     for i, s in enumerate(seqs):
         single = run_offline(s["frames"], s["rel_odometry"], cfg)[0]
@@ -596,6 +602,37 @@ def _bits(t):
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
+def _count_on_device(monkeypatch, dev):
+    """Wrap ``registration.run_gn`` and ``compute_robot_motion`` to count,
+    in a device tensor, [GN loops run, associations made, registrations
+    whose fallback flags have a row set].  The counts are device ops where
+    the work is, inside whatever conditional node holds it, so a replay
+    counts what it ran; a capture's warm-up counts too (zero the tensor
+    after a capture)."""
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    run_gn, motion = registration.run_gn, registration.compute_robot_motion
+
+    def counting_run_gn(associate, *args, **kw):
+        counts[0].add_(1)
+
+        def counted(pose):
+            counts[1].add_(1)
+            return associate(pose)
+
+        return run_gn(counted, *args, **kw)
+
+    def counting_motion(*args, **kw):
+        pose, debug = motion(*args, **kw)
+        if debug.exact_fallback is not None:
+            counts[2].add_(debug.exact_fallback.any().to(torch.int64))
+        return pose, debug
+
+    monkeypatch.setattr(registration, "run_gn", counting_run_gn)
+    monkeypatch.setattr(registration, "compute_robot_motion",
+                        counting_motion)
+    return counts
+
+
 @pytest.mark.cuda
 def test_cooperative_gn_launch_captured_and_replayed(card):
     """The GN kernel's cooperative launch inside a CUDA graph: a replay
@@ -689,6 +726,39 @@ def _run(card, seqs, cfg, eager, count=None):
     torch.cuda.synchronize()
     assert not overflow.any()
     return poses.cpu().numpy(), gn.LAUNCHES - before
+
+
+@pytest.mark.cuda
+def test_released_step_captures_again(card):
+    """A step whose graphs were freed (``Step.release``, as a process
+    group's teardown does) captures again at its next call, into a new
+    memory pool, and replays the same bits."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import pad_sequence
+
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 13, max_range=60.0, deskew=True,
+                 neighbor_candidates=27, exact_gn_reassociation=True,
+                 exact_prune_candidates=14, gn_backend="torch")
+    seq = _headline_drive(3)
+    pts, ts, mask, has_ts, rels = (
+        torch.from_numpy(a).to(card)
+        for a in pad_sequence(seq["frames"], seq["rel_odometry"], cfg))
+    ext = torch.tensor(np.asarray(seq["extrinsic"], np.float32),
+                       device=card)
+    step = pipeline.Step(cfg, device=card, donate=False)
+    runs = []
+    for _ in range(2):
+        state = pipeline.init_state(cfg, device=card)
+        for f in range(3):
+            state, _ = step(state, pts[f], ts[f], mask[f], has_ts[f], ext,
+                            rels[f])
+        runs.append(_bits(state.pose))
+        pool = step.pool
+        step.release()
+        assert [c.graphs for c in step.calls] == [0] and step.pool != pool
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda
@@ -833,12 +903,13 @@ EXACT = dict(HEADLINE, neighbor_candidates=27, exact_gn_reassociation=True,
              map_capacity=1 << 16, max_probes=4)
 
 
-def _exact_frames(card, cfg, seqs, eager, count):
+def _exact_frames(card, cfg, seqs, eager, count, counts):
     """``count`` frames of one drive (a dict) or a batch of drives (a
-    list) through a fresh ``pipeline.Step`` (captured) or
-    ``register_frame`` (``eager``).  Returns, a frame each: the pose's
-    bits, the fallback flags, and the full-27 loops and ``check_crossing``
-    launches the frame ran."""
+    list) through a fresh ``pipeline.Step`` (captured ahead, on a copy of
+    the state; no frame syncs the host) or ``register_frame`` (``eager``).
+    Returns, a frame each: the pose's bits, the fallback flags, the GN
+    loops and associations the frame ran (``counts``, from
+    ``_count_on_device``) and its ``check_crossing`` launches."""
     from kinematic_icp_tpu_torch.models import pipeline
     from kinematic_icp_tpu_torch.offline import (init_batched_state,
                                                  pad_batch, pad_sequence)
@@ -858,31 +929,42 @@ def _exact_frames(card, cfg, seqs, eager, count):
     pts, ts, mask, has_ts, rels = (torch.from_numpy(a).to(card)
                                    for a in arrays)
     ext = torch.tensor(np.asarray(ext, np.float32), device=card)
-    register = (functools.partial(pipeline.register_frame, config=cfg)
-                if eager else pipeline.Step(cfg, device=card))
+    if eager:
+        register = functools.partial(pipeline.register_frame, config=cfg)
+    else:
+        register = pipeline.Step(cfg, device=card)
+        register(pipeline.clone_state(state), pts[0], ts[0], mask[0],
+                 has_ts[0], ext, rels[0])
+        assert [c.graphs for c in register.calls] == [1]
     frames = []
     for f in range(count):
-        before = (registration.FALLBACK_LOOPS, gn.CROSSING_LAUNCHES)
-        state, out = register(state, pts[f], ts[f], mask[f], has_ts[f], ext,
-                              rels[f])
+        counts.zero_()
+        before = gn.CROSSING_LAUNCHES
+        torch.cuda.set_sync_debug_mode("default" if eager else "error")
+        try:
+            state, out = register(state, pts[f], ts[f], mask[f], has_ts[f],
+                                  ext, rels[f])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         frames.append((_bits(state.pose).cpu(),
                        out.debug.exact_fallback.cpu(),
-                       registration.FALLBACK_LOOPS - before[0],
-                       gn.CROSSING_LAUNCHES - before[1]))
-    if not eager:
-        assert [c.graphs for c in register.calls] == [3]
+                       *counts[:2].tolist(),
+                       gn.CROSSING_LAUNCHES - before))
     return frames
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,batch", [("certified", 0), ("pruned", 0),
                                         ("certified", 4)])
-def test_exact_frames_replayed_bit_equal_to_eager(card, mode, batch):
+def test_exact_frames_replayed_bit_equal_to_eager(card, monkeypatch, mode,
+                                                 batch):
     """The certified (one drive and B = 4) and pruned exact modes through
-    the step: two segments and the full-27 loop's graph, every frame's
-    pose bit-equal to the eager frame's with the same fallback flags; the
-    fallback graph replays on exactly the frames whose flag is set, and
-    the fallback and ``check_crossing`` counts equal eager's."""
+    the step: one graph a frame, no host sync, every frame's pose
+    bit-equal to the eager frame's with the same fallback flags.  The
+    fallback's full-27 loop (a conditional node) runs on exactly the
+    frames whose flag is set, and the replay's ``check_crossing`` launches
+    equal eager's; where eager runs every trip of every loop, the replay
+    associates 1 + (iterations - 1) of the slowest row a loop, fewer."""
     from kinematic_icp_tpu_torch import Config
 
     cfg = Config(**EXACT)
@@ -891,41 +973,155 @@ def test_exact_frames_replayed_bit_equal_to_eager(card, mode, batch):
     count = 20
     seqs = ([_headline_drive(count, s) for s in range(batch)] if batch
             else _headline_drive(count))
-    eager = _exact_frames(card, cfg, seqs, True, count)
-    graph = _exact_frames(card, cfg, seqs, False, count)
+    counts = _count_on_device(monkeypatch, card)
+    eager = _exact_frames(card, cfg, seqs, True, count, counts)
+    graph = _exact_frames(card, cfg, seqs, False, count, counts)
     for f, (e, g) in enumerate(zip(eager, graph)):
         assert torch.equal(e[0], g[0]), f
         assert torch.equal(e[1], g[1]), f
-        assert e[2:] == g[2:] == (int(g[1].any()),
-                                  int(mode == "certified")), f
+        fell = int(g[1].any())
+        loops = fell + (mode == "pruned")
+        assert e[2] == g[2] == loops, f
+        assert e[3] == 10 * loops and g[3] <= e[3], f
+        assert e[4] == g[4] == int(mode == "certified"), f
     assert any(g[1].any() for g in graph)  # the fallback ran
+    assert sum(g[3] for g in graph) < sum(e[3] for e in eager)
 
 
 @pytest.mark.cuda
-def test_served_exact_drive_replayed_bit_equal_to_eager(card):
+def test_served_exact_drive_replayed_bit_equal_to_eager(card, monkeypatch):
     """20 headline frames through a blocking server under the certified
-    exact mode: graph replays bit-equal to the eager steps, with the same
-    ``check_crossing`` launches and fallback loops."""
+    exact mode: one graph, replays bit-equal to the eager steps, with the
+    same ``check_crossing`` launches and full-27 loops, each loop on a
+    frame whose flag is set."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.server import LidarOdometryServer
 
     seq = _headline_drive(20)
+    counts = _count_on_device(monkeypatch, card)
     runs = {}
     for eager in (True, False):
         s = LidarOdometryServer(Config(**EXACT), extrinsic=seq["extrinsic"],
                                 device=card, eager=eager)
         s.warmup(len(seq["frames"][0][0]))
-        before = (gn.CROSSING_LAUNCHES, registration.FALLBACK_LOOPS)
+        counts.zero_()
+        before = gn.CROSSING_LAUNCHES
         for i, (p, t) in enumerate(seq["frames"]):
             s.register_frame(p, t, seq["rel_odometry"][i], stamp=0.1 * i)
+        loops, _, crossed = counts.tolist()
         runs[eager] = (np.asarray([p for _, p in s.poses_with_stamps]),
-                       gn.CROSSING_LAUNCHES - before[0],
-                       registration.FALLBACK_LOOPS - before[1])
+                       gn.CROSSING_LAUNCHES - before, loops)
+        assert loops == crossed
         if not eager:
-            assert [c.graphs for _, c in s._calls.values()] == [3]
+            assert [c.graphs for _, c in s._calls.values()] == [1]
     np.testing.assert_array_equal(runs[False][0], runs[True][0])
     assert runs[False][1:] == runs[True][1:]
     assert runs[False][1] == 19 and runs[False][2] > 0
+
+
+def _captured_motion(card, b, **kw):
+    """``compute_robot_motion`` under ``MOTION`` and ``kw`` as one static
+    call over buffers for a map table, sources and mask of ``_scene``'s
+    shapes, guesses, taus and last poses (identity), ``b`` rows (0:
+    unbatched).  Returns (call, buffers)."""
+    from kinematic_icp_tpu_torch.utils.cuda_graph import StaticCall
+
+    m, source, mask = _scene(card, seed=2)
+    lead = (b,) if b else ()
+    bufs = [m.table.expand(*lead, *m.table.shape).clone(),
+            *(p.expand(*lead, -1).clone() for p in source),
+            mask.expand(*lead, -1).clone(),
+            torch.eye(4, device=card).expand(*lead, 4, 4).clone(),
+            torch.eye(4, device=card).expand(*lead, 4, 4).clone(),
+            torch.zeros(lead, device=card)]
+
+    def fn(table, x, y, z, mask, last, guess, tau):
+        return registration.compute_robot_motion(
+            hashmap.MapState(table, m.bucket_slots), P3(x, y, z), mask, last,
+            guess, tau, **{**MOTION, **kw})
+
+    return StaticCall(fn, bufs, capture=True), bufs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(exact_gn_reassociation=False, num_candidate_voxels=10,
+         gn_backend="torch"),
+    dict(gn_backend="torch")], ids=["loop", "full_27"])
+def test_replayed_gn_loop_reassociates_as_jax_while_loop(card, monkeypatch,
+                                                         kw):
+    """A batched GN loop (B = 4) captured once and replayed over three
+    sets of guesses: each replay bit-equal to the eager solve over the same
+    buffers, and the associations it makes, counted on the device inside
+    the conditional nodes, are 1 + the most re-associations of a row (the
+    most iterations of a row), as JAX's ``while_loop`` makes them, where
+    the eager solve makes 10."""
+    sets = [[(1e-4, 0, 0), (0.01, 0, 0.005), (0.02, 0.01, 0.01),
+             (0.01, 0, 0.005)],
+            [(1e-4, 0, 0)] * 4,
+            [(0.45, 0, 0), (1e-4, 0, 0), (0.02, 0.01, 0.01),
+             (0.01, 0, 0.005)]]
+    counts = _count_on_device(monkeypatch, card)
+    call, bufs = _captured_motion(card, 4, **kw)
+    bufs[-1].fill_(2.0)
+    call.prepare()
+    made = []
+    for offsets in sets:
+        bufs[-2].copy_(torch.stack([_guess(card, *o) for o in offsets]))
+        counts.zero_()
+        pose, debug = call()
+        graph = ((_bits(pose).clone(), debug.iterations.clone(),
+                  debug.num_correspondences.clone()), counts[:2].tolist())
+        counts.zero_()
+        pose, debug = call.fn(*bufs)
+        eager = ((_bits(pose), debug.iterations, debug.num_correspondences),
+                 counts[:2].tolist())
+        for a, b in zip(graph[0], eager[0]):
+            assert torch.equal(a, b)
+        its = graph[0][1].tolist()
+        assert graph[1] == [1, max(its)] and eager[1] == [1, 10]
+        made.append(max(its))
+    assert made[1] == 1 and made[2] == 10 and 1 < made[0] < 10
+
+
+@pytest.mark.cuda
+def test_certified_fallback_captured_as_nested_if_nodes(card, monkeypatch):
+    """The certified solve captured once: the full-27 fallback an IF node
+    on the kernel's flag, the loop's trips and re-associations IF nodes
+    nested inside it.  Replayed over a frame whose certificate holds and
+    one whose certificate fails, in turns, each replay is bit-equal to the
+    eager solve over the same buffers; the loop runs (counted on the
+    device) only where the flag is set, with 1 + (iterations - 1)
+    associations, and every replay launches the ``check_crossing``
+    kernel once."""
+    m_hold, src_hold, mask_hold = _scene(
+        card, **dict(zip(("map_pts", "src", "mask"), _margin_setup(n=512))))
+    m_cross, src_cross, mask_cross = _scene(card, seed=2)
+    frames = {False: (m_hold.table, *src_hold, mask_hold,
+                      _guess(card, 1e-4, 0.0, 0.0), 0.7),
+              True: (m_cross.table, *src_cross, mask_cross,
+                     _guess(card, 0.45, 0.0, 0.0), 2.0)}
+    counts = _count_on_device(monkeypatch, card)
+    call, bufs = _captured_motion(card, 0, gn_backend="cuda")
+    call.prepare()
+    assert call.graphs == 1
+    for crosses in (True, False, True, False):
+        table, x, y, z, mask, guess, tau = frames[crosses]
+        for buf, value in zip(bufs[:5], (table, x, y, z, mask)):
+            buf.copy_(value)
+        bufs[6].copy_(guess)
+        bufs[7].fill_(tau)
+        counts.zero_()
+        before = gn.CROSSING_LAUNCHES
+        pose, debug = call()
+        graph = [_bits(pose).clone(), *(t.clone() for t in debug[:4])]
+        loops, made, flagged = counts.tolist()
+        assert gn.CROSSING_LAUNCHES == before + 1
+        assert bool(graph[4]) == crosses == bool(loops) == bool(flagged)
+        assert made == (int(graph[1]) if crosses else 0)
+        pose, debug = call.fn(*bufs)
+        for a, b in zip(graph, (_bits(pose), *debug[:4])):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

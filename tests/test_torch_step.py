@@ -326,9 +326,53 @@ class _HostTraffic(TorchDispatchMode):
 @pytest.mark.parametrize("batch", [0, 2])
 def test_frame_has_no_host_sync(seqs, kw, branch_points, batch):
     """A frame of every configuration the step takes, unbatched and
-    batched, copies no host value in and reads nothing back but its
-    branch points' flags (``cuda_graph.branch``), one read-back each: the
-    exact modes' one branch point, none elsewhere."""
+    batched, run eagerly, copies no host value in and reads nothing back
+    but its branch points' flags (``cuda_graph.branch``), one read-back
+    each: the exact modes' one branch point, none elsewhere."""
+    _assert_host_traffic(seqs, kw, batch, ["_local_scalar_dense.default"]
+                         * branch_points)
+
+
+class _Capture:
+    """Stands in for a static call's capture: counts the IF nodes (reading
+    no predicate) and lets every body run on the current stream, as a
+    capture records it."""
+
+    def __init__(self):
+        self.nodes = 0
+
+    def begin_if(self, pred):
+        self.nodes += 1
+
+    def end_if(self):
+        pass
+
+
+@pytest.mark.parametrize("kw,nodes", [
+    ({}, 18), (dict(gn_backend="torch", gn_candidates_per_voxel=4), 18),
+    (dict(deskew=False, neighbor_candidates=27, exact_gn_reassociation=True,
+          gn_backend="torch"), 18),
+    (dict(EXACT, gn_backend="cuda"), 19),
+    (dict(EXACT, gn_backend="torch", exact_prune_candidates=14), 37)],
+    ids=["kernel_branch", "loop", "full_27_loop", "certified", "pruned"])
+@pytest.mark.parametrize("batch", [0, 2])
+def test_captured_frame_reads_nothing_back(seqs, kw, nodes, batch):
+    """The same frames as a capture records them: no read-back and no
+    host value at all; the exact modes' fallback, and the GN loop's 8
+    later trips and 9 re-associations, as conditional nodes (two loops and
+    the fallback's node under pruned exact; on CPU tensors the default
+    registration is the loop)."""
+    capture = _Capture()
+    _assert_host_traffic(seqs, kw, batch, [], capture)
+    assert capture.nodes == nodes
+
+
+def _assert_host_traffic(seqs, kw, batch, reads, capture=None):
+    """A frame under ``CFG.replace(**kw)`` (a batch of ``batch`` copies,
+    or unbatched), run as ``capture`` records it if given, else eagerly,
+    records exactly ``reads``, each a read-back in ``cuda_graph.branch``."""
+    from kinematic_icp_tpu_torch.utils import cuda_graph
+
     cfg = CFG.replace(**kw)
     pts, ts, mask, has_ts, rels = _frames(cfg, seqs[0])
     state, _ = tpipe.register_frame(tpipe.init_state(cfg, device=CPU),
@@ -345,13 +389,17 @@ def test_frame_has_no_host_sync(seqs, kw, branch_points, batch):
             type(state.threshold)(*(t.expand(batch).clone()
                                     for t in state.threshold)))
         args = [a.expand(batch, *a.shape).clone() for a in args]
-    with _HostTraffic() as mode:
-        tpipe.register_frame(state, *args[:4], torch.eye(4), args[4], cfg,
-                             active=args[5], rel_twist_in_lidar=args[6])
-    reads = [name for name, where in mode.found
-             if "cuda_graph.py" in where and "in branch" in where]
-    assert reads == ["_local_scalar_dense.default"] * branch_points
-    assert len(mode.found) == branch_points
+    cuda_graph._active = capture
+    try:
+        with _HostTraffic() as mode:
+            tpipe.register_frame(state, *args[:4], torch.eye(4), args[4],
+                                 cfg, active=args[5],
+                                 rel_twist_in_lidar=args[6])
+    finally:
+        cuda_graph._active = None
+    assert [name for name, where in mode.found
+            if "cuda_graph.py" in where and "in branch" in where] == reads
+    assert len(mode.found) == len(reads)
 
 
 @pytest.mark.parametrize("upload", ["f32", "u16"])
@@ -372,29 +420,29 @@ def test_replays_redo_what_their_capture_recorded():
     own them (``cuda_graph.replayed``), and a graph's recorded effects
     redo its capture's: the counters' increments added, the last values
     set again, whatever happened in between."""
-    from kinematic_icp_tpu_torch.ops import gn, registration
+    from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.parallel import sharded
     from kinematic_icp_tpu_torch.utils import cuda_graph
 
     assert set(cuda_graph._COUNTERS) == {
         (gn, "LAUNCHES"), (gn, "FRAMES"), (gn, "CROSSING_LAUNCHES"),
-        (registration, "FALLBACK_LOOPS"), (sharded, "COLLECTIVES")}
+        (sharded, "COLLECTIVES")}
     assert cuda_graph._LATEST == [(gn, "LAST_CTAS")]
     saved = {**cuda_graph._counts(), **cuda_graph._latest()}
     try:
         gn.LAUNCHES, gn.LAST_CTAS, sharded.COLLECTIVES = 5, 3, 9
+        gn.FRAMES = 4
         effects = cuda_graph._Effects()
         gn.LAUNCHES += 2
-        registration.FALLBACK_LOOPS += 1
+        sharded.COLLECTIVES += 1
         gn.LAST_CTAS = 7
         effects.end()
         cuda_graph._set({(gn, "LAUNCHES"): 0, (gn, "LAST_CTAS"): 1})
         effects.apply()
         effects.apply()
-        assert (gn.LAUNCHES, gn.LAST_CTAS, sharded.COLLECTIVES) == (4, 7, 9)
-        assert registration.FALLBACK_LOOPS == saved[
-            (registration, "FALLBACK_LOOPS")] + 3
+        assert (gn.LAUNCHES, gn.LAST_CTAS, sharded.COLLECTIVES,
+                gn.FRAMES) == (4, 7, 12, 4)
         assert effects.added == {(gn, "LAUNCHES"): 2,
-                                 (registration, "FALLBACK_LOOPS"): 1}
+                                 (sharded, "COLLECTIVES"): 1}
     finally:
         cuda_graph._set(saved)
