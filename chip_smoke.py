@@ -55,13 +55,21 @@ last line.  Phases:
      of its own ``run_offline``, fallback counts beside that drive's own,
      aggregate frames/s); 2 drives, 10 frames, pruned exact, bit-equal to
      the batched full-27 loop;
+ 10b. peer_reduce: the map axis's all-reduce over peer memory
+     (``csrc/peer_reduce.cu``, what a map group on NCCL reduces with, so
+     that the GN loop's conditional nodes can hold it): 1, 2 and 4 ranks
+     of a peer group on this card, each launching on a stream of its own,
+     at the sharded path's shapes (the normal equations' float32 sums, the
+     packed keys' int32 minima), bit-equal to the plain version; ms of the
+     kernel (one rank and four) and of the plain version;
  11. sharded_1rank: a one-rank NCCL group and a (1, 1) mesh,
      ``parallel.BatchedOdometryRunner(mesh=...)`` over 2 of the drives, 20
      frames (``run`` within 1e-5 of ``run_device``, bit-equal to the
      unsharded runner's loop lowering, each drive within 5 mm of its
      ``run_offline``, the frame captured with its collectives, no GN
-     launch: the sharded path runs none, by design; ms and collectives a
-     frame);
+     launch: the sharded path runs none, by design; ms a frame, and
+     collectives a frame on the host and, inside the GN loop's conditional
+     nodes, on the device);
  11b. loop_batch: the unsharded ``parallel.BatchedOdometryRunner`` on the
      GN loop lowering (``gn_backend="torch"``, what the sharded path, pruned
      exact and the certified fallback run) over 4 of the drives, 20
@@ -102,8 +110,10 @@ last line.  Phases:
      and the sharded one) the frames again with the loop's work counted on
      the device: the same loops on the same frames, eager running every
      trip, the replay re-associating only as JAX's ``while_loop`` does
-     (the sharded loop keeps every trip), and a ``graph_reassociations``
-     line of re-associations against iterations a loop;
+     (the sharded loop too: its later trips' SUMs and its re-associations'
+     MINs, counted on the device, as many as JAX's trips make, where eager
+     issues every trip's), and a ``graph_reassociations`` line of
+     re-associations against iterations a loop;
  14. cli: ``run_odometry.main`` (the offline CLI) over the 60 headline
      frames written to an uncompressed mcap by the port's writer (one GN
      launch per registered frame, the native ingestion library loaded,
@@ -228,8 +238,11 @@ DIFF_FRAME_M = 0.05
 #: started together), each with its kernels' ptxas lines: gn_solve one
 #: template instance per check_crossing value; graph_if the kernel that
 #: sets a captured IF node's handle at each replay (graph machinery, not a
-#: port of a TPU kernel)
-KERNEL_SOURCES = {"gn_solve": 2, "graph_if": 1}
+#: port of a TPU kernel); peer_reduce the map axis's all-reduce over peer
+#: memory on NCCL meshes, one instance per reduction (float32, float64 and
+#: int32 sums, int32 minimum; it stands for JAX's psum and pmin, not a TPU
+#: kernel)
+KERNEL_SOURCES = {"gn_solve": 2, "graph_if": 1, "peer_reduce": 4}
 
 #: the script's start, for each phase line's ``elapsed_s``
 T0 = time.perf_counter()
@@ -1118,8 +1131,8 @@ def sharded_runner(torch, np, mesh, drives, ext, how="run_device"):
     config) by ``how``: over their first 3 frames (which captures the
     frame on NCCL), then from a fresh state over the whole drives, the
     collective count set to 0 just before and read just after.  Returns
-    (poses (B, F, 4, 4), seconds, collectives, overflow warnings, the
-    runner)."""
+    (poses (B, F, 4, 4), seconds, collectives (on the host, inside
+    conditional bodies), overflow warnings, the runner)."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner, sharded
 
@@ -1133,14 +1146,105 @@ def sharded_runner(torch, np, mesh, drives, ext, how="run_device"):
         warnings.simplefilter("always")
         torch.cuda.synchronize()
         sharded.COLLECTIVES = 0
+        sharded.reset_gated_collectives()
         t0 = time.perf_counter()
         poses = getattr(runner, how)(drives)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        collectives = sharded.COLLECTIVES
+        collectives = (sharded.COLLECTIVES, sharded.gated_collectives())
     overflow = [str(w.message) for w in caught
                 if "capacity overflow" in str(w.message)]
     return np.asarray(poses), seconds, collectives, overflow, runner
+
+
+def peer_phase(torch, np):
+    """The map axis's all-reduce over peer memory on this card: peer groups
+    of 1, 2 and 4 ranks (``parallel.peer.local_groups``), each rank's
+    kernel launched on a stream of its own, at the sharded path's shapes
+    (SHARD_BATCH sequences: 6 float32 sums each, an int32 minimum a
+    query), three rounds each, every rank bit-equal to the plain version
+    (``peer.reference``: rank-order sums and minima); the kernel's ms at one
+    rank and at four (each round's launches between two events) and the
+    plain version's."""
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.parallel import peer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    shapes = {"normal_equations": (torch.float32, dist.ReduceOp.SUM,
+                                   SHARD_BATCH * 6),
+              "packed_keys": (torch.int32, dist.ReduceOp.MIN,
+                              SHARD_BATCH * HEADLINE["max_source"])}
+
+    def parts(dtype, n, size):
+        if dtype == torch.int32:
+            return [torch.from_numpy(rng.integers(
+                0, 2**31 - 1, n, dtype=np.int32)).to(dev)
+                for _ in range(size)]
+        return [torch.from_numpy(rng.normal(0, 100.0, n).astype(
+            np.float32)).to(dev) for _ in range(size)]
+
+    def launch_all(groups, streams, tensors, op):
+        for g, st, t in zip(groups, streams, tensors):
+            with torch.cuda.stream(st):
+                g.all_reduce(t, op)
+
+    equal, ms = {}, {}
+    for size in (1, 2, 4):
+        groups = peer.local_groups(dev, size)
+        streams = [torch.cuda.Stream(dev) for _ in range(size)]
+        try:
+            for name, (dtype, op, n) in shapes.items():
+                ok = True
+                for _ in range(3):
+                    given = parts(dtype, n, size)
+                    want = peer.reference(given, op)
+                    got = [t.clone() for t in given]
+                    torch.cuda.synchronize()
+                    launch_all(groups, streams, got, op)
+                    torch.cuda.synchronize()
+                    ok &= all(bits_equal(torch, t, want) for t in got)
+                equal[f"{name}_{size}_ranks"] = bool(ok)
+                if size in (1, 4):
+                    times = []
+                    here = torch.cuda.current_stream()
+                    for _ in range(TIMED_RUNS):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        torch.cuda.synchronize()
+                        # ~10 ms of spin, longer than the launches take to
+                        # issue: the events time the device work alone
+                        torch.cuda._sleep(20_000_000)
+                        start.record()
+                        for st in streams:
+                            st.wait_stream(here)
+                        for _ in range(CALLS_PER_RUN):
+                            launch_all(groups, streams, got, op)
+                        for st in streams:
+                            here.wait_stream(st)
+                        end.record()
+                        end.synchronize()
+                        times.append(start.elapsed_time(end) / CALLS_PER_RUN)
+                    ms[f"{name}_{size}_ranks"] = sorted(times)[
+                        len(times) // 2]
+                    if size == 1:
+                        ms[f"{name}_plain"] = median_ms(
+                            lambda: peer.reference(given, op))
+        finally:
+            torch.cuda.synchronize()
+            for g in groups:
+                g.free()
+    row = {"phase": "peer_reduce", "route": "cuda",
+           "source": "kinematic_icp_tpu_torch/csrc/peer_reduce.cu",
+           "shapes": {k: [str(d), str(o), n] for k, (d, o, n)
+                      in shapes.items()},
+           "ms": ms, "checks": {f"bit_equal_to_plain_{k}": v
+                                for k, v in equal.items()}}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"peer_reduce failed: {row['checks']}")
+    return row
 
 
 def sharded_1rank_phase(torch, np, seqs):
@@ -1192,7 +1296,8 @@ def sharded_1rank_phase(torch, np, seqs):
            "B": SHARD_BATCH, "frames": SHARD_FRAMES, "config": HEADLINE,
            "seconds": seconds, "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
            "run_ms_per_frame": step_s * 1e3 / SHARD_FRAMES,
-           "collectives_per_frame": collectives / SHARD_FRAMES,
+           "collectives_per_frame": collectives[0] / SHARD_FRAMES,
+           "gated_collectives_per_frame": collectives[1] / SHARD_FRAMES,
            "gn_launches": launches,
            "frames_bit_equal_to_unsharded_loop": bits,
            "run_vs_run_device_max_abs": step_diff,
@@ -1205,6 +1310,8 @@ def sharded_1rank_phase(torch, np, seqs):
         "each_within_5mm_of_run_offline": max(ate) < 5e-3,
         "zero_overflow": not overflow and not step_overflow,
         "captured_on_nccl": row["path"] == "graph",
+        # the GN loop's later trips and re-associations, on the device
+        "gated_collectives_counted": collectives[1] > 0,
         # collectives cannot run inside a kernel
         "no_gn_kernel_by_design": launches == 0}
     emit(row)
@@ -1355,7 +1462,9 @@ def sharded_2rank_phase(torch, np, one_rank):
            "mesh": [1, 2], "B": SHARD_BATCH, "frames": SHARD_FRAMES,
            "devices": [m["device"] for m in meta], "seconds": seconds,
            "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
-           "collectives_per_frame": meta[0]["collectives"] / SHARD_FRAMES,
+           "collectives_per_frame": meta[0]["collectives"][0] / SHARD_FRAMES,
+           "gated_collectives_per_frame":
+               meta[0]["collectives"][1] / SHARD_FRAMES,
            "ate_vs_one_rank_m": ate,
            "max_abs_vs_one_rank": float(np.abs(poses[0] - one_rank).max()),
            "voxels_per_shard": [m["voxels"] for m in meta],
@@ -1699,22 +1808,26 @@ def reset_counts():
     from kinematic_icp_tpu_torch.parallel import sharded
 
     gn.LAUNCHES = gn.CROSSING_LAUNCHES = sharded.COLLECTIVES = 0
+    sharded.reset_gated_collectives()
 
 
 def read_counts():
     """The counters ``reset_counts`` zeroes: GN launches, ``check_crossing``
-    launches, collectives."""
+    launches, collectives outside conditional bodies (a host count) and
+    inside them (a device count)."""
     from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.parallel import sharded
 
     return {"gn_launches": gn.LAUNCHES,
             "check_crossing_launches": gn.CROSSING_LAUNCHES,
-            "collectives": sharded.COLLECTIVES}
+            "collectives": sharded.COLLECTIVES,
+            "gated_collectives": sharded.gated_collectives()}
 
 
-#: the names of ``device_counts``' counts
+#: the names of ``device_counts``' counts, and of the collectives issued
+#: inside conditional bodies (``parallel.sharded``'s device count)
 LOOP_COUNTS = ("gn_loops", "associations", "loop_iterations",
-               "fallback_registrations")
+               "fallback_registrations", "gated_collectives")
 
 
 @contextlib.contextmanager
@@ -1724,7 +1837,8 @@ def device_counts(torch):
     that ran, the associations they made, each call's most iterations of a
     row, summed, and the registrations whose exact-mode fallback flags
     have a row set.  Each count is a device op where its work is, inside
-    whatever conditional node holds it, so a replay counts what it ran.
+    whatever conditional node holds it, so a replay counts what it ran
+    (as ``parallel.sharded`` counts the collectives inside the nodes).
     Graphs captured inside the ``with`` hold the counting ops; a capture's
     warm-up counts too (zero the tensor after it)."""
     from kinematic_icp_tpu_torch.ops import registration
@@ -1763,14 +1877,18 @@ def counted_run(torch, release, run, warm):
     the graphs a run replays, so that ``warm()`` captures them anew with
     the counting ops; its counts are dropped); the graphs are freed again
     after, so a later run captures without them.  Returns the counts by
-    name (``LOOP_COUNTS``)."""
+    name (``LOOP_COUNTS``), the collectives inside conditional bodies
+    among them."""
+    from kinematic_icp_tpu_torch.parallel import sharded
+
     with device_counts(torch) as counts:
         release()
         try:
             warm()
             counts.zero_()
+            sharded.reset_gated_collectives()
             run()
-            got = counts.tolist()
+            got = counts.tolist() + [sharded.gated_collectives()]
         finally:
             release()
     return dict(zip(LOOP_COUNTS, got))
@@ -1996,7 +2114,8 @@ def graph_phase(torch, np, seq, drives, card):
         shutdown_distributed()
     emit({"phase": "graph_reassociations", "nvidia_smi": card,
           "paths": {name: {k: row[k] for k in (
-              "iterations_a_loop", "reassociations_a_loop")}
+              "iterations_a_loop", "reassociations_a_loop",
+              "collectives_a_frame", "gated_collectives_a_frame")}
               for name, row in summary.items()
               if row["iterations_a_loop"] is not None}})
     emit({"phase": "graph", "nvidia_smi": card, "paths": summary})
@@ -2008,9 +2127,10 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
     check); returns its summary.  Where the path runs the GN loop
     (``loop_counts``), the replay runs as many loops as eager, on the same
     frames, and re-associates only as JAX's ``while_loop`` does: 1 + the
-    most (iterations - 1) of a row a loop, where eager runs every trip
-    (the sharded path, whose loop keeps its fixed trips, every trip
-    either way)."""
+    most (iterations - 1) of a row a loop, where eager runs every trip;
+    on the sharded path each trip after the first issues a SUM and each
+    re-association a MIN inside the loop's conditional nodes, 2 (trips -
+    1) a loop counted on the device, as JAX's trips make them."""
     from kinematic_icp_tpu_torch import Config
 
     trips = Config().max_num_iterations
@@ -2026,7 +2146,8 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
            "frames_per_s": {"eager": b * count / eager["seconds"],
                             "graph": b * count / graph["seconds"]},
            **{k: both(k) for k in ("gn_launches", "check_crossing_launches",
-                                   "collectives", "loop_counts")},
+                                   "collectives", "gated_collectives",
+                                   "loop_counts")},
            "exact_fallback_frames": {
                k: None if r["fallback_frames"] is None
                else r["fallback_frames"].tolist()
@@ -2072,9 +2193,18 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
                           "fallback_registrations")) and done > 0,
             "eager_runs_every_trip":
                 eager["loop_counts"]["associations"] == trips * done,
-            "replay_reassociates_as_the_while_loop": made == (
-                trips * done if name.startswith("sharded")
-                else loops["loop_iterations"])})
+            "replay_reassociates_as_the_while_loop":
+                made == loops["loop_iterations"] < trips * done})
+        if name.startswith("sharded"):
+            gated = {k: r["loop_counts"]["gated_collectives"]
+                     for k, r in (("eager", eager), ("graph", graph))}
+            row["checks"].update({
+                "gated_collectives_every_trip_eager":
+                    gated["eager"] == 2 * (trips - 1) * done
+                    == eager["gated_collectives"],
+                "gated_collectives_as_the_while_loop":
+                    gated["graph"] == 2 * (loops["loop_iterations"] - done)
+                    == graph["gated_collectives"]})
         row["reassociations_a_loop"] = {
             k: (r["loop_counts"]["associations"] - done) / done
             for k, r in (("eager", eager), ("graph", graph))}
@@ -2091,6 +2221,10 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
             "capture_ms": graph["capture_ms"], "graphs": graph["graphs"],
             "pool_mb": None if graph["pool_bytes"] is None
             else graph["pool_bytes"] / 2**20,
+            "collectives_a_frame": graph["collectives"] / count,
+            "gated_collectives_a_frame": {
+                k: r["gated_collectives"] / count
+                for k, r in (("eager", eager), ("graph", graph))},
             **{k: row.get(k) for k in (
                 "frames_per_s", "host_calls_per_frame",
                 "host_syncs_per_frame", "device_idle_share",
@@ -2370,6 +2504,7 @@ def main():
     batched_kernel, batched_drive, drives = batched_phase(torch, np, seq,
                                                           card)
     batched_exact = batched_exact_phase(torch, np, drives)
+    peer_phase(torch, np)
     _, one_rank = sharded_1rank_phase(torch, np, drives)
     loop_batch_phase(torch, np, drives)
     sharded_2rank_phase(torch, np, one_rank)

@@ -183,17 +183,17 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
 
     ``reduce`` (the map-sharded path's sum over the shards) is applied to
     the residual sums, each trip's normal-equation sums and the final
-    correspondence count; with it every trip runs, so every call issues
-    it the same number of times, whatever the data.
+    correspondence count, and ``associate`` may issue collectives of its
+    own (the sharded path's minimum over the shards).  The loop gates
+    them as it gates everything else, and that is safe because every
+    predicate it gates on is computed from reduced values only: ``conv``
+    from ``dx``, ``dx`` from the reduced normal equations, ``use`` from
+    ``conv`` and the trip's ``new_conv``.  So every rank of a map group
+    takes the same branch at every gate and issues the same collectives
+    in the same order.  A value local to a rank (such as the certificate
+    ``viol``, None on the sharded path) never gates a body.
     """
     total = reduce if reduce is not None else (lambda sums: sums)
-
-    def gate(pred, body):
-        if reduce is None:
-            cuda_graph.when(pred(), body)
-        else:
-            body()
-
     targets, corr_mask, viol = associate(guess)
     if use_adaptive_odometry_regularization:
         beta = regularization_from_sums(total(partial_residual_sse(
@@ -223,7 +223,7 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
                 if viol is not None:
                     viol.copy_(viol | (use & v2))
 
-            gate(use.any, reassociate)
+            cuda_graph.when(use.any(), reassociate)
         pose.copy_(torch.where(per_row(live, 2), new_pose, pose))
         it.copy_(torch.where(live, it + 1, it))
         conv.copy_(conv | (live & new_conv))
@@ -233,7 +233,7 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
         if n == 0:
             trip(last)
         else:
-            gate(lambda: (~conv).any(), functools.partial(trip, last))
+            cuda_graph.when((~conv).any(), functools.partial(trip, last))
     return pose, it, total(corr_mask.sum(-1).to(torch.int32)), viol
 
 

@@ -11,7 +11,9 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the default
 process group, one rank a process.  Start the processes with ``torchrun``
 (``initialize_distributed()`` reads its environment) or pass the
 coordinator's address, the process count and this process's index, and
-leave the group with ``shutdown_distributed``.
+leave the group with ``shutdown_distributed``.  On NCCL the map axis
+reduces over peer memory (``parallel.peer``, set up by ``make_mesh``), so
+that a captured frame can hold its reductions inside conditional nodes.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ TIMEOUT = datetime.timedelta(seconds=120)
 #: the live steps whose captured frames issue collectives of the default
 #: group's ranks (``parallel.sharded``)
 _captured = weakref.WeakSet()
+#: the map groups' peer regions (``parallel.peer.PeerGroup``) by group name
+_peers = {}
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
@@ -71,9 +75,17 @@ def track_captured(step):
     _captured.add(step)
 
 
+def peer_group(group):
+    """The ``parallel.peer.PeerGroup`` a map ``group`` reduces over, or
+    None (gloo)."""
+    return _peers.get(group.group_name)
+
+
 def shutdown_distributed():
     """Leave the default process group: free the graphs of every captured
-    frame that issues collectives first, then ``destroy_process_group``.
+    frame that issues collectives first, then the map groups' peer
+    regions (every rank unmaps the others' before any rank frees its own),
+    then ``destroy_process_group``.
 
     A captured NCCL frame holds its communicator, and NCCL's teardown waits
     for it: on four ranks ``destroy_process_group`` hangs while such a
@@ -85,6 +97,14 @@ def shutdown_distributed():
     _captured.clear()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+    if _peers:
+        dist.barrier()
+        for peers in _peers.values():
+            peers.close()
+        dist.barrier()
+        for peers in _peers.values():
+            peers.free()
+        _peers.clear()
     dist.destroy_process_group()
 
 
@@ -103,5 +123,12 @@ def make_mesh(data: int | None = None, map: int = 1, device_type=None):
         data = n // map
     if data * map != n:
         raise ValueError(f"mesh {data}x{map} != {n} ranks")
-    return init_device_mesh(device_type, (data, map),
+    mesh = init_device_mesh(device_type, (data, map),
                             mesh_dim_names=("data", "map"))
+    group = mesh.get_group("map")
+    if dist.get_backend(group) == "nccl":
+        from . import peer
+
+        _peers[group.group_name] = peer.attach(
+            group, torch.device("cuda", torch.cuda.current_device()))
+    return mesh

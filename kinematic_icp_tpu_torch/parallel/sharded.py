@@ -5,7 +5,9 @@ The voxel hash map's buckets are partitioned over the ``map`` mesh axis
 inside each shard keeps using the low bits of its own hash); independent
 sequences are partitioned over the ``data`` axis.  A rank holds its
 ``batch // data`` sequences and, of each, ``map_capacity // map`` slots.
-Per GN trip, on ``torch.distributed`` collectives over the map group:
+Per GN trip, on collectives over the map group (on NCCL the port's own
+all-reduce over peer memory, ``parallel.peer``, which a conditional graph
+node can hold; on gloo ``torch.distributed``'s):
 
   * every shard searches its local table for all query points (a voxel
     another shard owns is simply absent),
@@ -24,14 +26,26 @@ the frame is captured as a CUDA graph, its collectives inside it, and
 replayed every frame, as JAX runs its sharded step as one jitted dispatch;
 gloo's collectives cannot be captured, so on gloo the frame runs eagerly.
 
-JAX's data-dependent ``while`` loop becomes ``registration.run_gn``'s
-``max_num_iterations`` masked trips, every one run (with a ``reduce`` hook
-the loop takes no early exit), so every rank issues the same collectives
-in the same order whatever its data: a branch on the data would leave the
-other ranks waiting in a collective.  The GN kernel does
-not run here, by design, as in the JAX package (``Config.gn_backend`` is
-ignored): each trip needs the cross-shard minimum, and no collective runs
-inside a kernel.
+JAX's data-dependent ``while`` loop is ``registration.run_gn``'s, as on
+one device: in a captured frame each later trip, with its SUM, and each
+re-association, with its MIN, sits inside a conditional graph node
+(``utils.cuda_graph.when``), so the loop stops on the device where JAX's
+stops and skips the re-associations JAX's ``lax.cond`` skips.  Every
+predicate of those nodes is computed from reduced values only, so every
+rank of a map group takes the same branch and issues the same collectives
+in the same order (a branch on one rank's data would leave the other
+ranks waiting in a collective).  Eagerly every trip runs, masked, and
+issues its collectives.  The GN kernel does not run here, by design, as in
+the JAX package (``Config.gn_backend`` is ignored): each trip needs the
+cross-shard minimum, which the GN kernel cannot take inside it.
+
+Collectives are counted where a reader can see them: ``COLLECTIVES`` on
+the host for those outside conditional bodies (β's SUM before the loop,
+the first trip's SUM and the first association's MIN, the final
+correspondence SUM, the insert failures' SUM and the data-axis gathers),
+which a replay advances by what its capture issued; ``gated_collectives()``
+on the device for those inside a body (the later trips' SUMs and the
+re-associations' MINs), which a replay counts only where the body ran.
 
 Three differences from the JAX package's sharded path, each a fault there:
 the downsample honours ``Config.downsample_tiebreak``; the exact mode
@@ -57,10 +71,14 @@ from ..ops.points import per_row, transform
 from ..utils import cuda_graph
 from . import mesh as _mesh
 
-#: collectives issued so far (a plain count, for reading how many a frame
-#: takes; as ``gn.LAUNCHES`` counts kernel launches)
+#: collectives issued so far outside conditional bodies (a plain count,
+#: for reading how many a frame takes; as ``gn.LAUNCHES`` counts kernel
+#: launches)
 COLLECTIVES = 0
 cuda_graph.replayed(__name__, counters=("COLLECTIVES",))
+#: the collectives issued inside conditional bodies, an int64 on each
+#: device that issued one (``gated_collectives``)
+_GATED = {}
 
 
 class _Axes(NamedTuple):
@@ -88,23 +106,55 @@ def _axes(mesh) -> _Axes:
                  mesh.get_group("map"), dev)
 
 
-def _all_reduce(t, op, group):
-    """``t`` reduced in place over ``group`` (every rank gets the same
-    bits), and returned; counted in ``COLLECTIVES`` (by each replay of a
-    captured frame as ``gn.LAUNCHES`` is)."""
+def gated_collectives() -> int:
+    """The collectives issued inside conditional bodies since the last
+    ``reset_gated_collectives`` (read from the device: a sync)."""
+    return sum(int(count) for count in _GATED.values())
+
+
+def reset_gated_collectives():
+    for count in _GATED.values():
+        count.zero_()
+
+
+def _count(device):
+    """Count one collective: on the host outside a conditional body, on
+    ``device`` inside one (the count is made by the first, eagerly or in
+    the warm-up that runs every body before a capture)."""
     global COLLECTIVES
-    COLLECTIVES += 1
-    dist.all_reduce(t, op=op, group=group)
+    if not cuda_graph.in_body():
+        COLLECTIVES += 1
+        return
+    count = _GATED.get(device)
+    if count is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a collective inside a conditional body "
+                               "before any eager run made its count")
+        count = _GATED[device] = torch.zeros((), dtype=torch.int64,
+                                             device=device)
+    count.add_(1)
+
+
+def _all_reduce(t, op, group):
+    """``t`` reduced in place over the map ``group`` (every rank gets the
+    same bits), and returned; counted by ``_count``.  On NCCL the port's
+    kernel over peer memory (``parallel.peer``), which a conditional body
+    can hold; gloo's ``all_reduce`` otherwise."""
+    _count(t.device)
+    peers = _mesh.peer_group(group)
+    if peers is None:
+        dist.all_reduce(t, op=op, group=group)
+    else:
+        peers.all_reduce(t, op)
     return t
 
 
 def _gather_rows(local, dim: int, axes: _Axes):
     """Every data rank's ``local`` rows, concatenated along ``dim`` in rank
     order (the whole batch, the same on every rank)."""
-    global COLLECTIVES
     if axes.data == 1:
         return local
-    COLLECTIVES += 1
+    _count(local.device)
     parts = [torch.empty_like(local) for _ in range(axes.data)]
     dist.all_gather(parts, local.contiguous(), group=axes.data_group)
     return torch.cat(parts, dim)
@@ -286,11 +336,14 @@ def make_sharded_step(config: Config, mesh):
     overflow are the step's too.  Where the map group is NCCL's the frame
     is captured as a CUDA graph at its first call of each static shape and
     replayed every frame, its collectives inside the graph, with no host
-    sync; on gloo, whose collectives a CUDA graph cannot hold, or on the
-    CPU, the same frame runs eagerly over the same buffers.  The gathers
-    over the data axis run outside the frame.  A captured frame holds the
-    map group's communicator: leave the group with
-    ``parallel.shutdown_distributed``, which frees the graphs first.
+    sync, the GN loop's later trips and re-associations inside conditional
+    nodes (a replay makes JAX's trips; ``gated_collectives`` counts their
+    collectives, ``COLLECTIVES`` the others); on gloo, whose collectives a
+    CUDA graph cannot hold, or on the CPU, the same frame runs eagerly over
+    the same buffers, every trip.  The gathers over the data axis run
+    outside the frame.  A captured frame refers to the map group's peer
+    regions: leave the group with ``parallel.shutdown_distributed``, which
+    frees the graphs first.
     """
     axes = _axes(mesh)
     frame = _frame_step(config, mesh, axes)
@@ -340,7 +393,9 @@ def make_sharded_sequence_runner(config: Config, mesh,
     replay of a CUDA graph a frame where the map group is NCCL's, the
     same frame eagerly over the same buffers on gloo or the CPU; the state
     is copied out at the end.  ``eager=True`` runs
-    ``sharded_register_frame`` op by op (the baseline a replay is held to).
+    ``sharded_register_frame`` op by op (the baseline a replay is held to:
+    every GN trip, where a replay makes JAX's; both count their
+    collectives as ``make_sharded_step``'s do).
     """
     axes = _axes(mesh)
 

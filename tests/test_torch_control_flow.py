@@ -11,7 +11,10 @@ version; each ``run_gn`` call's associations to 1 + (iterations - 1) of
 its slowest row, which is what JAX's ``while_loop`` and its ``lax.cond``
 make; and the iterations and poses to JAX's ``compute_robot_motion`` on
 the same inputs (tolerances as tests/test_torch_registration.py's).  A
-stand-in for the capturing graph checks what a capture builds.
+stand-in for the capturing graph checks what a capture builds.  The
+solves and the capture also run with a ``reduce`` hook over a one-rank
+gloo group (the map-sharded path's), which gates its collectives as the
+loop without one gates its work.
 """
 
 import functools
@@ -21,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from kinematic_icp_tpu.ops import hashmap as jhm
 from kinematic_icp_tpu.ops import registration as jreg
@@ -87,6 +91,37 @@ def solves(monkeypatch):
 
     monkeypatch.setattr(treg, "run_gn", counting)
     return calls
+
+
+@pytest.fixture(scope="module")
+def one_rank_group():
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(params=[None, "gloo"], ids=["local", "reduce"])
+def reduced(request, monkeypatch):
+    """None, or (the ``reduce`` hook's calls so far, a list) with every
+    ``run_gn`` call given a one-rank gloo ``all_reduce(SUM)`` as its
+    ``reduce`` hook (an identity on one rank)."""
+    if request.param is None:
+        return None
+    group = request.getfixturevalue("one_rank_group")
+    issued = []
+    run_gn = treg.run_gn
+
+    def reduce(sums):
+        issued.append(sums.shape)
+        dist.all_reduce(sums, group=group)
+        return sums
+
+    monkeypatch.setattr(treg, "run_gn", lambda *a, **kw: run_gn(
+        *a, reduce=reduce, **kw))
+    return issued
 
 
 def _map(map_pts):
@@ -174,20 +209,28 @@ def _assert_same(a, b):
 
 @pytest.mark.parametrize("batch", [0, 4], ids=["single", "b4"])
 @pytest.mark.parametrize("mode", list(MODES))
-def test_gated_solve_bit_equal_to_always_run(monkeypatch, solves, mode,
-                                             batch):
+def test_gated_solve_bit_equal_to_always_run(monkeypatch, solves, reduced,
+                                             mode, batch):
     """Each trip and re-association skipped where no row needs it, as the
     IF nodes skip them: every output bit-equal to the always-run loop,
     whose every call makes MAX_IT associations; the gated call makes 1 +
-    (iterations - 1) of its slowest row."""
+    (iterations - 1) of its slowest row.  With a ``reduce`` hook the same,
+    and the hook runs once a trip made, beside β's sums and the final
+    count: MAX_IT + 2 a call always run, 1 + iterations of the slowest
+    row gated."""
     always = _port(batch, mode)
     assert all(n == MAX_IT for n, _ in solves)
+    if reduced is not None:
+        assert len(reduced) == (MAX_IT + 2) * len(solves)
+        reduced.clear()
     solves.clear()
     monkeypatch.setattr(cuda_graph, "when", _if_node)
     gated = _port(batch, mode)
     _assert_same(gated, always)
     assert solves and all(n == max(its) for n, its in solves)
     assert min(n for n, _ in solves) < MAX_IT  # something was skipped
+    if reduced is not None:
+        assert len(reduced) == sum(max(its) + 2 for _, its in solves)
     if mode in ("pruned", "certified"):
         # the first row's certificate fails: the full-27 loop ran
         assert bool(gated[1].exact_fallback.reshape(-1)[0])
@@ -396,11 +439,16 @@ def _loop(depth):
     ("loop", _loop(0)), ("full_27", _loop(0)),
     ("pruned", _loop(0) + [0] + _loop(1)), ("certified", [0] + _loop(1))])
 def test_capture_builds_the_while_loop_and_the_fallback_as_if_nodes(
-        monkeypatch, mode, nodes):
+        monkeypatch, reduced, mode, nodes):
     """The IF nodes a captured batched solve holds: the loop's trips and
     re-associations, and the exact modes' fallback as one node around the
-    full-27 loop's."""
+    full-27 loop's; with a ``reduce`` hook the same nodes, the hook's
+    collectives of the later trips inside them."""
     capture = _Capture()
     monkeypatch.setattr(cuda_graph, "_active", capture)
     _port(4, mode)
     assert capture.nodes == nodes and capture.depth == 0
+    if reduced is not None:
+        # every trip's sums (MAX_IT a loop) and β's and the count's
+        loops = 1 + (mode == "pruned")
+        assert len(reduced) == (MAX_IT + 2) * loops

@@ -40,7 +40,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "utils.io.sqlite_bag", "utils.io.bag", "utils.io.native",
                  "utils.progress", "utils.viewer", "utils.visualization",
                  "utils.profiling", "parallel.mesh", "parallel.sharded",
-                 "utils.cuda_graph"):
+                 "parallel.peer", "utils.cuda_graph"):
         assert f"kinematic_icp_tpu_torch.{name}" in res["modules"]
 
 

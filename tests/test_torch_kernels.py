@@ -1128,7 +1128,8 @@ def test_certified_fallback_captured_as_nested_if_nodes(card, monkeypatch):
 def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card):
     """A one-rank NCCL group: the sharded runner's frame captured as one
     CUDA graph, collectives inside, bit-equal to its eager loop with the
-    same collective count."""
+    same collectives outside the GN loop's conditional nodes (5 a frame)
+    and fewer inside them (eager issues every trip's: 18 a frame)."""
     import socket
 
     from kinematic_icp_tpu_torch import Config
@@ -1154,15 +1155,200 @@ def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card):
             run = sharded.make_sharded_sequence_runner(cfg, mesh,
                                                        eager=eager)
             before = sharded.COLLECTIVES
+            sharded.reset_gated_collectives()
             out = run(sharded.init_sharded_state(cfg, mesh, 2),
                       *arrays[:4], torch.eye(4, device=card), arrays[4])
             torch.cuda.synchronize()
-            runs[eager] = out, sharded.COLLECTIVES - before
+            runs[eager] = out, (sharded.COLLECTIVES - before,
+                                sharded.gated_collectives())
         assert [c.graphs for c in run.step.calls] == [1]
     finally:
         shutdown_distributed()
     (want, n_want), (got, n_got) = runs[True], runs[False]
-    assert n_got == n_want == 5 * 23
+    assert n_got[0] == n_want[0] == 5 * 5
+    assert n_want[1] == 5 * 18 and 0 < n_got[1] < n_want[1]
     for a, b in zip((*got[1:], got[0].map.table),
                     (*want[1:], want[0].map.table)):
         assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_sharded_one_rank_nccl_frames_replayed_exit_early(card, monkeypatch):
+    """A one-rank NCCL group: ``make_sharded_step``'s frame captured once,
+    then each frame replayed under ``set_sync_debug_mode("error")``,
+    bit-equal to the eager frame (``sharded_register_frame`` op by op)
+    with the same iterations.  Counted on the device: the replay
+    associates as JAX's ``while_loop`` (the most iterations of a row, below
+    ``max_num_iterations`` on some frame) where eager associates 10 times a
+    loop, and issues 2 (trips - 1) collectives inside the loop's
+    conditional nodes where eager issues 18."""
+    import socket
+
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import pad_batch
+    from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
+                                                  make_mesh, mesh as tmesh,
+                                                  sharded,
+                                                  shutdown_distributed)
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 13, max_range=60.0, deskew=True)
+    frames = 6
+    seqs = [synthetic.make_sequence(frames, world_seed=w, traj_seed=w + 10,
+                                    noise_seed=w + 20) for w in range(2)]
+    pts, ts, mask, has_ts, rels = (torch.from_numpy(a).to(card)
+                                   for a in pad_batch(seqs, cfg))
+    ext = torch.eye(4, device=card)
+    active = torch.ones(2, dtype=torch.bool, device=card)
+    # [associations, the most iterations of a row], a loop at a time
+    counts = torch.zeros(2, dtype=torch.int64, device=card)
+    run_gn = registration.run_gn
+
+    def counting(associate, *args, **kw):
+        def counted(pose):
+            counts[0].add_(1)
+            return associate(pose)
+
+        out = run_gn(counted, *args, **kw)
+        counts[1].add_(out[1].max().to(torch.int64))
+        return out
+
+    monkeypatch.setattr(registration, "run_gn", counting)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(1, 1)
+        step = sharded.make_sharded_step(cfg, mesh)
+        state = sharded.init_sharded_state(cfg, mesh, 2)
+        eager = pipeline.clone_state(state)
+        step(pipeline.clone_state(state), pts[0], ts[0], mask[0], has_ts[0],
+             ext, rels[0], active)  # the capture
+        assert [c.graphs for s in tmesh._captured for c in s.calls] == [1]
+        trips = []
+        for f in range(frames):
+            inputs = (pts[f], ts[f], mask[f], has_ts[f], ext, rels[f])
+            counts.zero_()
+            sharded.reset_gated_collectives()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, poses, _ = step(state, *inputs, active)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            graph = (_bits(poses).clone(), counts.tolist(),
+                     sharded.gated_collectives())
+            counts.zero_()
+            sharded.reset_gated_collectives()
+            eager, out = sharded.sharded_register_frame(
+                eager, *inputs, cfg, mesh, active=active)
+            its = int(out.debug.iterations.max())
+            assert torch.equal(graph[0], _bits(out.pose)), f
+            assert graph[1] == [its, its], f
+            assert counts.tolist() == [10, its], f
+            assert graph[2] == 2 * (its - 1), f
+            assert sharded.gated_collectives() == 18, f
+            trips.append(its)
+    finally:
+        shutdown_distributed()
+    assert min(trips) < 10
+
+
+#: the map axis's reductions (dtype, op, elements) at the sharded path's
+#: shapes (B = 2): β's sums, the normal equations, the packed keys of 1,024
+#: queries a row, the correspondence count; and a float64 state's sums
+PEER_REDUCTIONS = [("float32", "SUM", 4), ("float32", "SUM", 12),
+                   ("int32", "MIN", 2048), ("int32", "SUM", 2),
+                   ("float64", "SUM", 12)]
+
+
+def _peer_parts(card, rng, size, dtype, n):
+    if dtype == "int32":
+        return [torch.from_numpy(rng.integers(-2**30, 2**30, n,
+                                              dtype=np.int32)).to(card)
+                for _ in range(size)]
+    return [torch.from_numpy(rng.normal(0, 100.0, n).astype(dtype)).to(card)
+            for _ in range(size)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_peer_all_reduce_matches_its_plain_version(card, size):
+    """``size`` ranks of a peer group on one card, each launching the
+    kernel on a stream of its own at once, over five rounds of the map
+    axis's reductions (both slots, every kind): every rank's result is the
+    plain version's (rank-order sums and minima) bit for bit."""
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.parallel import peer
+
+    groups = peer.local_groups(card, size)
+    streams = [torch.cuda.Stream(card) for _ in range(size)]
+    rng = np.random.default_rng(size)
+    try:
+        for _ in range(5):
+            for dtype, op, n in PEER_REDUCTIONS:
+                op = getattr(dist.ReduceOp, op)
+                parts = _peer_parts(card, rng, size, dtype, n)
+                want = peer.reference(parts, op)
+                got = [p.clone() for p in parts]
+                torch.cuda.synchronize()
+                for g, s, t in zip(groups, streams, got):
+                    with torch.cuda.stream(s):
+                        g.all_reduce(t, op)
+                torch.cuda.synchronize()
+                for t in got:
+                    assert torch.equal(_bits(t), _bits(want)), (dtype, n)
+    finally:
+        for g in groups:
+            g.free()
+
+
+@pytest.mark.cuda
+def test_peer_all_reduce_runs_inside_a_captured_if_node(card):
+    """Two ranks of a peer group on one card, each with its own graph
+    holding the reduction inside an IF node (``cuda_graph.when``), the two
+    replayed at once on two streams: the sums where the predicate is set,
+    the data untouched where it is clear, over alternating replays."""
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.parallel import peer
+    from kinematic_icp_tpu_torch.utils import cuda_graph
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    groups = peer.local_groups(card, 2)
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    data = [torch.zeros(12, device=card) for _ in range(2)]
+    pred = torch.zeros((), dtype=torch.bool, device=card)
+    graphs = []
+    try:
+        for g, s, t in zip(groups, streams, data):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(s):
+                graph.capture_begin()
+                capture = cuda_graph._active = cuda_graph._Capture(card)
+                try:
+                    cuda_graph.when(pred, functools.partial(
+                        g.all_reduce, t, dist.ReduceOp.SUM))
+                finally:
+                    cuda_graph._active = None
+                    graph.capture_end()
+                    capture.close()
+            graphs.append(graph)
+        for k in range(6):
+            for r, t in enumerate(data):
+                t.fill_(r + 1.0 + k)
+            pred.fill_(k % 2 == 1)
+            torch.cuda.synchronize()
+            for graph, s in zip(graphs, streams):
+                with torch.cuda.stream(s):
+                    graph.replay()
+            torch.cuda.synchronize()
+            for r, t in enumerate(data):
+                want = 3.0 + 2 * k if k % 2 else r + 1.0 + k
+                assert t.tolist() == [want] * 12, k
+    finally:
+        for g in groups:
+            g.free()

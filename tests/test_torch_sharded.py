@@ -4,8 +4,10 @@ The ownership hash and the packed-key combine against JAX's under
 ``shard_map`` on the 8-device CPU mesh; a one-rank gloo group in this
 process against the port's unsharded runner; four gloo worker processes on
 a (data, map) = (2, 2) mesh against JAX's sharded step and runner on the
-same mesh shape; and the three faults of JAX's sharded path the port does
-not copy, one test each.
+same mesh shape, and, with the GN loop's trips and re-associations skipped
+as a captured frame's IF nodes skip them, against the always-run loop and
+JAX's sharded ``while_loop``; and the three faults of JAX's sharded path
+the port does not copy, one test each.
 """
 
 import dataclasses
@@ -376,6 +378,42 @@ eager = sharded.make_sharded_sequence_runner(cfg, mesh, eager=True)(
 res["eager_poses"] = eager[1].numpy()
 for k, v in zip("ptos", state_to_numpy(eager[0])):
     res["eager_state_" + k] = v
+
+# 3. run_device again with cuda_graph.when patched to what a captured IF
+#    node does (read the predicate back, run the body only where it is
+#    set); each frame's GN loop records its gates' decisions in order, its
+#    trips, its associations and its rows' iterations
+from kinematic_icp_tpu_torch.ops import registration
+from kinematic_icp_tpu_torch.utils import cuda_graph
+loops = []
+run_gn, normal = registration.run_gn, registration.partial_normal_equations
+
+def if_node(pred, body):
+    loops[-1]["decisions"].append(bool(pred))
+    if loops[-1]["decisions"][-1]:
+        body()
+
+def tripped(*a):
+    loops[-1]["trips"] += 1
+    return normal(*a)
+
+def recorded(associate, *a, **kw):
+    loop = {"decisions": [], "trips": 0, "associations": 0}
+    loops.append(loop)
+    def counted(pose):
+        loop["associations"] += 1
+        return associate(pose)
+    out = run_gn(counted, *a, **kw)
+    loop["iterations"] = out[1].reshape(-1).tolist()
+    return out
+
+cuda_graph.when, registration.run_gn = if_node, recorded
+registration.partial_normal_equations = tripped
+gated = BatchedOdometryRunner(cfg, 2, mesh=mesh).run_device(ragged)
+for i in range(2):
+    res[f"gated_{i}"] = np.asarray(gated[i])
+with open(os.path.join(out_dir, f"loops_{rank}.json"), "w") as f:
+    json.dump(loops, f)
 np.savez(os.path.join(out_dir, f"out_{rank}.npz"), **res)
 torch.distributed.destroy_process_group()
 print(f"rank {rank}: OK", flush=True)
@@ -388,16 +426,38 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _jax_inputs(sequences):
-    """JAX's sharded step on a (2, 2) mesh over the first PREFIX frames,
-    then one more step: the state before it, its inputs and its outputs."""
-    packed = toffline.pad_batch(sequences, _port_cfg(CFG))
+def _jax_step():
+    """JAX's sharded step on a (2, 2) mesh: (mesh, step)."""
     mesh = j_mesh(data=2, map=2, devices=jax.devices()[:4])
-    step = j_step(CFG, mesh, donate=False)
+    return mesh, j_step(CFG, mesh, donate=False)
+
+
+def _active(sequences):
+    """(F, B) JAX's stationary gate on each frame's odometry."""
     norms = np.linalg.norm(np.stack([[se3_log(np.asarray(r, np.float64))
                                       for r in s["rel_odometry"]]
                                      for s in sequences], axis=1), axis=-1)
-    active = norms > 1e-3
+    return norms > 1e-3
+
+
+def _jax_iterations(mesh, step, packed, active):
+    """(F, B) the GN iterations of JAX's sharded step over the padded
+    drives ``packed`` from a fresh state: under ``vmap`` its ``while_loop``
+    makes a rank's most iterations of a row of trips."""
+    state, its = j_init(CFG, mesh, 2), []
+    for f in range(len(active)):
+        state, out = step(state, *(jnp.asarray(a[f]) for a in packed[:4]),
+                          jnp.eye(4), jnp.asarray(packed[4][f]),
+                          jnp.asarray(active[f]))
+        its.append(np.asarray(out.debug.iterations))
+    return np.stack(its)
+
+
+def _jax_inputs(sequences, mesh, step):
+    """JAX's sharded step over the first PREFIX frames, then one more
+    step: the state before it, its inputs and its outputs."""
+    packed = toffline.pad_batch(sequences, _port_cfg(CFG))
+    active = _active(sequences)
     state = j_init(CFG, mesh, 2)
     for f in range(PREFIX + 1):
         if f == PREFIX:
@@ -428,7 +488,8 @@ def four_ranks(sequences, tmp_path_factory):
     the drives (the second cut short) against JAX's sharded runner, which
     runs while the workers do."""
     out_dir = str(tmp_path_factory.mktemp("sharded"))
-    before, x, jax_step = _jax_inputs(sequences)
+    mesh, step = _jax_step()
+    before, x, jax_step = _jax_inputs(sequences, mesh, step)
     np.savez(os.path.join(out_dir, "inputs.npz"), frames=NUM_FRAMES,
              short=SHORT, **{"s_" + k: a for k, a in zip("ptos", before)},
              **{"x_" + k: a for k, a in x.items()})
@@ -445,21 +506,27 @@ def four_ranks(sequences, tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(4)]
     try:
-        mesh = j_mesh(data=2, map=2, devices=jax.devices()[:4])
-        packed = toffline.pad_batch(_ragged(sequences), _port_cfg(CFG))
+        ragged = _ragged(sequences)
+        packed = toffline.pad_batch(ragged, _port_cfg(CFG))
         run = jsharded.make_sharded_sequence_runner(CFG, mesh, donate=False)
         _, jposes, jover = run(j_init(CFG, mesh, 2),
                                *(jnp.asarray(a) for a in packed[:4]),
                                jnp.eye(4), jnp.asarray(packed[4]))
-        jax_run = (np.asarray(jposes), np.asarray(jover))
+        jax_run = (np.asarray(jposes), np.asarray(jover),
+                   _jax_iterations(mesh, step, packed, _active(
+                       [dict(r, rel_odometry=packed[4][:, i])
+                        for i, r in enumerate(ragged)])))
         logs = [p.communicate(timeout=WORKER_TIMEOUT_S)[0] for p in procs]
     finally:
         for p in procs:
             p.kill()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0 and f"rank {r}: OK" in log, log[-3000:]
-    outs = [dict(np.load(os.path.join(out_dir, f"out_{r}.npz")))
-            for r in range(4)]
+    outs = []
+    for r in range(4):
+        outs.append(dict(np.load(os.path.join(out_dir, f"out_{r}.npz"))))
+        with open(os.path.join(out_dir, f"loops_{r}.json")) as f:
+            outs[-1]["loops"] = json.load(f)
     return outs, jax_step, jax_run, before
 
 
@@ -506,7 +573,7 @@ def test_four_ranks_runner_matches_jax(four_ranks):
     """``run_device`` (the sharded sequence runner) against JAX's on the
     same padded drives: 1e-5 over each drive's frames; the gathered poses
     are the same on every rank."""
-    outs, _, (jposes, _), _ = four_ranks
+    outs, _, (jposes, _, _), _ = four_ranks
     assert jposes.shape == (NUM_FRAMES, 2, 4, 4)
     for o in outs:
         for i in range(2):
@@ -528,6 +595,45 @@ def test_four_ranks_buffered_runner_bit_equal_to_eager(four_ranks):
         for k in "ptos":
             np.testing.assert_array_equal(o["run_state_" + k],
                                           o["eager_state_" + k])
+
+
+def test_four_ranks_gated_loop_bit_equal_to_always_run(four_ranks):
+    """With the GN loop's trips and re-associations skipped as a captured
+    frame's IF nodes skip them, every rank's ``run_device`` poses are the
+    always-run loop's bit for bit on every frame."""
+    outs = four_ranks[0]
+    for o in outs:
+        for i in range(2):
+            np.testing.assert_array_equal(o[f"gated_{i}"],
+                                          o[f"run_device_{i}"])
+
+
+def test_four_ranks_gates_decide_alike_on_a_map_group(four_ranks):
+    """Every gate of the loop reads reduced values only, so the two ranks
+    of each map group (ranks 2d and 2d + 1) make the same decision at
+    every trip and re-association of every frame, and skip some."""
+    outs = four_ranks[0]
+    for d in range(2):
+        a, b = outs[2 * d]["loops"], outs[2 * d + 1]["loops"]
+        assert len(a) == len(b) == NUM_FRAMES
+        assert [x["decisions"] for x in a] == [x["decisions"] for x in b]
+        assert not all(all(x["decisions"]) for x in a)
+
+
+def test_four_ranks_trips_as_jax_sharded_while_loop(four_ranks):
+    """Each frame's gated loop makes as many trips, and associations, as
+    the most iterations of the rank's rows (one row a rank here), which
+    is what JAX's vmapped sharded ``while_loop`` and its ``lax.cond`` run
+    on the same drive: its step's iterations for the row, frame by
+    frame."""
+    outs, _, (_, _, jits), _ = four_ranks
+    assert jits.shape == (NUM_FRAMES, 2)
+    for r, o in enumerate(outs):
+        trips = [x["trips"] for x in o["loops"]]
+        assert trips == [x["associations"] for x in o["loops"]]
+        assert trips == [max(x["iterations"]) for x in o["loops"]]
+        assert trips == jits[:, r // 2].tolist(), r
+    assert jits.min() < CFG.max_num_iterations
 
 
 def test_four_ranks_run_equals_run_device(four_ranks):
