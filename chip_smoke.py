@@ -60,16 +60,17 @@ last line.  Phases:
      that the GN loop's conditional nodes can hold it): 1, 2 and 4 ranks
      of a peer group on this card, each launching on a stream of its own,
      at the sharded path's shapes (the normal equations' float32 sums, the
-     packed keys' int32 minima), bit-equal to the plain version; ms of the
+     packed keys' int32 minima, the correspondence counts' int32 sums, a
+     float64 state's sums), bit-equal to the plain version; ms of the
      kernel (one rank and four) and of the plain version;
  11. sharded_1rank: a one-rank NCCL group and a (1, 1) mesh,
      ``parallel.BatchedOdometryRunner(mesh=...)`` over 2 of the drives, 20
      frames (``run`` within 1e-5 of ``run_device``, bit-equal to the
      unsharded runner's loop lowering, each drive within 5 mm of its
      ``run_offline``, the frame captured with its collectives, no GN
-     launch: the sharded path runs none, by design; ms a frame, and
-     collectives a frame on the host and, inside the GN loop's conditional
-     nodes, on the device);
+     launch: the sharded path runs none, by design; ms a frame, and the
+     collectives a frame outside the GN loop, a host count; a map group
+     of one rank reduces nothing, so the frame launches no peer kernel);
  11b. loop_batch: the unsharded ``parallel.BatchedOdometryRunner`` on the
      GN loop lowering (``gn_backend="torch"``, what the sharded path, pruned
      exact and the certified fallback run) over 4 of the drives, 20
@@ -78,7 +79,10 @@ last line.  Phases:
      overflow;
  12. sharded_2rank: this script again as two worker processes on the one
      card (``--sharded-worker RANK PORT DIR``; gloo, a (1, 2) mesh, a wall
-     limit each): gloo's CUDA int32 MIN and float32 SUM, each drive within
+     limit each): gloo's CUDA int32 MIN and float32 SUM; the peer kernel
+     across the two processes (``peer.attach`` maps each other's region
+     with CUDA IPC over the gloo group; every reduction of ``peer_shapes``
+     bit-equal to the plain version; unmapped, then freed); each drive within
      5 mm of the one-rank run, zero overflow, every stored voxel on its
      owner's rank, the frame run eagerly (gloo's collectives cannot be
      captured), each shard's voxel count, ms a frame;
@@ -110,8 +114,8 @@ last line.  Phases:
      and the sharded one) the frames again with the loop's work counted on
      the device: the same loops on the same frames, eager running every
      trip, the replay re-associating only as JAX's ``while_loop`` does
-     (the sharded loop too: its later trips' SUMs and its re-associations'
-     MINs, counted on the device, as many as JAX's trips make, where eager
+     (the sharded loop too: its trips' SUMs and its associations' MINs,
+     counted on the device, as many as JAX's trips make, where eager
      issues every trip's), and a ``graph_reassociations`` line of
      re-associations against iterations a loop;
  14. cli: ``run_odometry.main`` (the offline CLI) over the 60 headline
@@ -1131,8 +1135,8 @@ def sharded_runner(torch, np, mesh, drives, ext, how="run_device"):
     config) by ``how``: over their first 3 frames (which captures the
     frame on NCCL), then from a fresh state over the whole drives, the
     collective count set to 0 just before and read just after.  Returns
-    (poses (B, F, 4, 4), seconds, collectives (on the host, inside
-    conditional bodies), overflow warnings, the runner)."""
+    (poses (B, F, 4, 4), seconds, collectives outside the GN loop (the
+    host count), overflow warnings, the runner)."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner, sharded
 
@@ -1146,44 +1150,90 @@ def sharded_runner(torch, np, mesh, drives, ext, how="run_device"):
         warnings.simplefilter("always")
         torch.cuda.synchronize()
         sharded.COLLECTIVES = 0
-        sharded.reset_gated_collectives()
         t0 = time.perf_counter()
         poses = getattr(runner, how)(drives)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        collectives = (sharded.COLLECTIVES, sharded.gated_collectives())
+        collectives = sharded.COLLECTIVES
     overflow = [str(w.message) for w in caught
                 if "capacity overflow" in str(w.message)]
     return np.asarray(poses), seconds, collectives, overflow, runner
 
 
-def peer_phase(torch, np):
-    """The map axis's all-reduce over peer memory on this card: peer groups
-    of 1, 2 and 4 ranks (``parallel.peer.local_groups``), each rank's
-    kernel launched on a stream of its own, at the sharded path's shapes
-    (SHARD_BATCH sequences: 6 float32 sums each, an int32 minimum a
-    query), three rounds each, every rank bit-equal to the plain version
-    (``peer.reference``: rank-order sums and minima); the kernel's ms at one
-    rank and at four (each round's launches between two events) and the
-    plain version's."""
+def peer_shapes(torch):
+    """The map axis's reductions at the sharded path's shapes, by name:
+    (dtype, op, elements) for SHARD_BATCH sequences: 6 float32 sums each
+    (the normal equations), an int32 minimum a query (the packed keys),
+    an int32 sum each (the correspondence count), and a float64 state's 6
+    sums each: every instance of the kernel."""
+    import torch.distributed as dist
+
+    return {"normal_equations": (torch.float32, dist.ReduceOp.SUM,
+                                 SHARD_BATCH * 6),
+            "packed_keys": (torch.int32, dist.ReduceOp.MIN,
+                            SHARD_BATCH * HEADLINE["max_source"]),
+            "correspondences": (torch.int32, dist.ReduceOp.SUM, SHARD_BATCH),
+            "normal_equations_f64": (torch.float64, dist.ReduceOp.SUM,
+                                     SHARD_BATCH * 6)}
+
+
+def peer_parts(torch, np, rng, dtype, n, size, dev):
+    """``size`` random parts of one reduction, one a rank, on ``dev``."""
+    if dtype == torch.int32:
+        return [torch.from_numpy(rng.integers(
+            0, 2**31 - 1, n, dtype=np.int32)).to(dev) for _ in range(size)]
+    return [torch.from_numpy(rng.normal(0, 100.0, n)).to(dtype).to(dev)
+            for _ in range(size)]
+
+
+def peer_across_processes(torch, np, group, dev):
+    """The peer kernel over ``group`` (one rank a process): regions mapped
+    with CUDA IPC by ``peer.attach``, three rounds of each of
+    ``peer_shapes``' reductions (the same seeded parts on every rank) held
+    bit for bit to the plain version, then every rank unmaps before any
+    frees, as ``parallel.shutdown_distributed`` does.  Returns whether
+    every round matched."""
     import torch.distributed as dist
 
     from kinematic_icp_tpu_torch.parallel import peer
 
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    mine = peer.attach(group, dev)
+    ok = True
+    try:
+        for k, (dtype, op, n) in enumerate(peer_shapes(torch).values()):
+            for r in range(3):
+                parts = peer_parts(torch, np, np.random.default_rng(
+                    [k, r]), dtype, n, size, dev)
+                got = parts[rank].clone()
+                mine.all_reduce(got, op)
+                torch.cuda.synchronize()
+                ok &= bits_equal(torch, got, peer.reference(parts, op))
+    finally:
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        mine.close()
+        dist.barrier(group)
+        mine.free()
+    return bool(ok)
+
+
+def peer_phase(torch, np):
+    """The map axis's all-reduce over peer memory on this card: peer groups
+    of 1, 2 and 4 ranks (``parallel.peer.local_groups``), each rank's
+    kernel launched on a stream of its own, at ``peer_shapes``, three
+    rounds each, every rank bit-equal to the plain version
+    (``peer.reference``: rank-order sums and minima); the kernel's ms at one
+    rank and at four (each round's launches between two events) and the
+    plain version's.  (``sharded_2rank`` runs it across two processes.)"""
+    from kinematic_icp_tpu_torch.parallel import peer
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    shapes = {"normal_equations": (torch.float32, dist.ReduceOp.SUM,
-                                   SHARD_BATCH * 6),
-              "packed_keys": (torch.int32, dist.ReduceOp.MIN,
-                              SHARD_BATCH * HEADLINE["max_source"])}
+    shapes = peer_shapes(torch)
 
     def parts(dtype, n, size):
-        if dtype == torch.int32:
-            return [torch.from_numpy(rng.integers(
-                0, 2**31 - 1, n, dtype=np.int32)).to(dev)
-                for _ in range(size)]
-        return [torch.from_numpy(rng.normal(0, 100.0, n).astype(
-            np.float32)).to(dev) for _ in range(size)]
+        return peer_parts(torch, np, rng, dtype, n, size, dev)
 
     def launch_all(groups, streams, tensors, op):
         for g, st, t in zip(groups, streams, tensors):
@@ -1296,8 +1346,7 @@ def sharded_1rank_phase(torch, np, seqs):
            "B": SHARD_BATCH, "frames": SHARD_FRAMES, "config": HEADLINE,
            "seconds": seconds, "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
            "run_ms_per_frame": step_s * 1e3 / SHARD_FRAMES,
-           "collectives_per_frame": collectives[0] / SHARD_FRAMES,
-           "gated_collectives_per_frame": collectives[1] / SHARD_FRAMES,
+           "collectives_per_frame": collectives / SHARD_FRAMES,
            "gn_launches": launches,
            "frames_bit_equal_to_unsharded_loop": bits,
            "run_vs_run_device_max_abs": step_diff,
@@ -1310,8 +1359,10 @@ def sharded_1rank_phase(torch, np, seqs):
         "each_within_5mm_of_run_offline": max(ate) < 5e-3,
         "zero_overflow": not overflow and not step_overflow,
         "captured_on_nccl": row["path"] == "graph",
-        # the GN loop's later trips and re-associations, on the device
-        "gated_collectives_counted": collectives[1] > 0,
+        # the insert failures' SUM a frame (the GN loop's collectives are
+        # counted on the device, in the graph phase's sharded row)
+        "one_collective_a_frame_outside_the_loop":
+            collectives == SHARD_FRAMES,
         # collectives cannot run inside a kernel
         "no_gn_kernel_by_design": launches == 0}
     emit(row)
@@ -1364,8 +1415,9 @@ def loop_batch_phase(torch, np, seqs):
 def sharded_worker(rank, port, out_dir):
     """One rank of the two-rank phase (``chip_smoke.py --sharded-worker
     RANK PORT DIR``): a gloo group of two processes on the one card, a
-    (1, 2) mesh, the sharded runner over the SHARD_BATCH headline drives;
-    writes its poses and counts to DIR."""
+    (1, 2) mesh, the peer kernel across the two processes
+    (``peer_across_processes``), the sharded runner over the SHARD_BATCH
+    headline drives; writes its poses and counts to DIR."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1390,6 +1442,8 @@ def sharded_worker(rank, port, out_dir):
         dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
         gloo_cuda = (least.is_cuda and least.tolist() == [1, 3]
                      and sums.tolist() == [1.5] * 3)
+        # the peer kernel across the two processes, over the gloo group
+        peer_ok = peer_across_processes(torch, np, group, dev)
         seqs = [headline_drive(s) for s in range(SHARD_BATCH)]
         drives = sharded_drives(seqs)
         ext = seqs[0]["extrinsic"]
@@ -1402,6 +1456,7 @@ def sharded_worker(rank, port, out_dir):
         owner = sharded._owner_of(keys[:, 0], keys[:, 1], keys[:, 2], 2)
         meta = {"rank": rank, "backend": dist.get_backend(),
                 "device": str(dev), "gloo_cuda_int32_min_f32_sum": gloo_cuda,
+                "peer_across_processes_bit_equal_to_plain": peer_ok,
                 "seconds": seconds, "collectives": collectives,
                 "path": path_of(runner._seq_runner.step.calls),
                 "overflow": overflow or [0, 0, 0],
@@ -1462,9 +1517,7 @@ def sharded_2rank_phase(torch, np, one_rank):
            "mesh": [1, 2], "B": SHARD_BATCH, "frames": SHARD_FRAMES,
            "devices": [m["device"] for m in meta], "seconds": seconds,
            "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
-           "collectives_per_frame": meta[0]["collectives"][0] / SHARD_FRAMES,
-           "gated_collectives_per_frame":
-               meta[0]["collectives"][1] / SHARD_FRAMES,
+           "collectives_per_frame": meta[0]["collectives"] / SHARD_FRAMES,
            "ate_vs_one_rank_m": ate,
            "max_abs_vs_one_rank": float(np.abs(poses[0] - one_rank).max()),
            "voxels_per_shard": [m["voxels"] for m in meta],
@@ -1472,6 +1525,8 @@ def sharded_2rank_phase(torch, np, one_rank):
     row["checks"] = {
         "gloo_takes_cuda_int32_min_and_f32_sum": all(
             m["gloo_cuda_int32_min_f32_sum"] for m in meta),
+        "peer_kernel_across_processes_bit_equal_to_plain": all(
+            m["peer_across_processes_bit_equal_to_plain"] for m in meta),
         "finite": all(bool(np.isfinite(p).all()) for p in poses),
         "ranks_agree": bool(np.array_equal(poses[0], poses[1])),
         "each_within_5mm_of_one_rank": max(ate) < 5e-3,
@@ -1808,43 +1863,45 @@ def reset_counts():
     from kinematic_icp_tpu_torch.parallel import sharded
 
     gn.LAUNCHES = gn.CROSSING_LAUNCHES = sharded.COLLECTIVES = 0
-    sharded.reset_gated_collectives()
 
 
 def read_counts():
     """The counters ``reset_counts`` zeroes: GN launches, ``check_crossing``
-    launches, collectives outside conditional bodies (a host count) and
-    inside them (a device count)."""
+    launches and the sharded frame's collectives outside its GN loop (host
+    counts)."""
     from kinematic_icp_tpu_torch.ops import gn
     from kinematic_icp_tpu_torch.parallel import sharded
 
     return {"gn_launches": gn.LAUNCHES,
             "check_crossing_launches": gn.CROSSING_LAUNCHES,
-            "collectives": sharded.COLLECTIVES,
-            "gated_collectives": sharded.gated_collectives()}
+            "collectives": sharded.COLLECTIVES}
 
 
-#: the names of ``device_counts``' counts, and of the collectives issued
-#: inside conditional bodies (``parallel.sharded``'s device count)
+#: the names of ``device_counts``' counts
 LOOP_COUNTS = ("gn_loops", "associations", "loop_iterations",
-               "fallback_registrations", "gated_collectives")
+               "fallback_registrations", "loop_collectives")
 
 
 @contextlib.contextmanager
-def device_counts(torch):
-    """Count, in a (4,) int64 tensor on the card, the GN loop's work that
+def device_counts(torch, device="cuda"):
+    """Count, in a (5,) int64 tensor on ``device``, the GN loop's work that
     a replay can no longer show the host: the ``registration.run_gn`` calls
     that ran, the associations they made, each call's most iterations of a
-    row, summed, and the registrations whose exact-mode fallback flags
-    have a row set.  Each count is a device op where its work is, inside
-    whatever conditional node holds it, so a replay counts what it ran
-    (as ``parallel.sharded`` counts the collectives inside the nodes).
-    Graphs captured inside the ``with`` hold the counting ops; a capture's
-    warm-up counts too (zero the tensor after it)."""
+    row, summed, the registrations whose exact-mode fallback flags have a
+    row set, and the map-axis collectives issued while ``run_gn`` runs
+    (``parallel.sharded._all_reduce``: β's, each trip's and the
+    correspondence count's SUM, each association's MIN).  Each count is a
+    device op where its work is, inside whatever conditional node holds
+    it, so a replay counts what it ran.  Graphs captured inside the
+    ``with`` hold the counting ops; a capture's warm-up counts too (zero
+    the tensor after it)."""
     from kinematic_icp_tpu_torch.ops import registration
+    from kinematic_icp_tpu_torch.parallel import sharded
 
-    counts = torch.zeros(4, dtype=torch.int64, device="cuda")
+    counts = torch.zeros(5, dtype=torch.int64, device=device)
     run_gn, motion = registration.run_gn, registration.compute_robot_motion
+    all_reduce = sharded._all_reduce
+    in_loop = [False]
 
     def counting_run_gn(associate, *args, **kw):
         counts[0].add_(1)
@@ -1853,7 +1910,11 @@ def device_counts(torch):
             counts[1].add_(1)
             return associate(pose)
 
-        out = run_gn(counted, *args, **kw)
+        in_loop[0] = True
+        try:
+            out = run_gn(counted, *args, **kw)
+        finally:
+            in_loop[0] = False
         counts[2].add_(out[1].max().to(torch.int64))
         return out
 
@@ -1863,13 +1924,20 @@ def device_counts(torch):
             counts[3].add_(debug.exact_fallback.any().to(torch.int64))
         return pose, debug
 
+    def counting_all_reduce(t, op, group):
+        if in_loop[0]:
+            counts[4].add_(1)
+        return all_reduce(t, op, group)
+
     registration.run_gn = counting_run_gn
     registration.compute_robot_motion = counting_motion
+    sharded._all_reduce = counting_all_reduce
     try:
         yield counts
     finally:
         registration.run_gn = run_gn
         registration.compute_robot_motion = motion
+        sharded._all_reduce = all_reduce
 
 
 def counted_run(torch, release, run, warm):
@@ -1877,18 +1945,14 @@ def counted_run(torch, release, run, warm):
     the graphs a run replays, so that ``warm()`` captures them anew with
     the counting ops; its counts are dropped); the graphs are freed again
     after, so a later run captures without them.  Returns the counts by
-    name (``LOOP_COUNTS``), the collectives inside conditional bodies
-    among them."""
-    from kinematic_icp_tpu_torch.parallel import sharded
-
+    name (``LOOP_COUNTS``)."""
     with device_counts(torch) as counts:
         release()
         try:
             warm()
             counts.zero_()
-            sharded.reset_gated_collectives()
             run()
-            got = counts.tolist() + [sharded.gated_collectives()]
+            got = counts.tolist()
         finally:
             release()
     return dict(zip(LOOP_COUNTS, got))
@@ -2115,7 +2179,7 @@ def graph_phase(torch, np, seq, drives, card):
     emit({"phase": "graph_reassociations", "nvidia_smi": card,
           "paths": {name: {k: row[k] for k in (
               "iterations_a_loop", "reassociations_a_loop",
-              "collectives_a_frame", "gated_collectives_a_frame")}
+              "collectives_a_frame", "loop_collectives_a_frame")}
               for name, row in summary.items()
               if row["iterations_a_loop"] is not None}})
     emit({"phase": "graph", "nvidia_smi": card, "paths": summary})
@@ -2128,12 +2192,16 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
     (``loop_counts``), the replay runs as many loops as eager, on the same
     frames, and re-associates only as JAX's ``while_loop`` does: 1 + the
     most (iterations - 1) of a row a loop, where eager runs every trip;
-    on the sharded path each trip after the first issues a SUM and each
-    re-association a MIN inside the loop's conditional nodes, 2 (trips -
-    1) a loop counted on the device, as JAX's trips make them."""
+    on the sharded path each trip issues a SUM and each association a
+    MIN, besides β's and the correspondence count's SUMs, counted on the
+    device: 2 trips + 2 a loop, as JAX's trips make them, where eager
+    issues every trip's."""
     from kinematic_icp_tpu_torch import Config
 
     trips = Config().max_num_iterations
+    # β's SUM before the first trip (the adaptive regularization) and the
+    # correspondence count's after the last
+    around = int(Config().use_adaptive_odometry_regularization) + 1
     def both(key, of=None):
         src = (lambda r: r[of][key]) if of else (lambda r: r[key])
         return {"eager": src(eager), "graph": src(graph)}
@@ -2146,8 +2214,7 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
            "frames_per_s": {"eager": b * count / eager["seconds"],
                             "graph": b * count / graph["seconds"]},
            **{k: both(k) for k in ("gn_launches", "check_crossing_launches",
-                                   "collectives", "gated_collectives",
-                                   "loop_counts")},
+                                   "collectives", "loop_counts")},
            "exact_fallback_frames": {
                k: None if r["fallback_frames"] is None
                else r["fallback_frames"].tolist()
@@ -2196,15 +2263,13 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
             "replay_reassociates_as_the_while_loop":
                 made == loops["loop_iterations"] < trips * done})
         if name.startswith("sharded"):
-            gated = {k: r["loop_counts"]["gated_collectives"]
-                     for k, r in (("eager", eager), ("graph", graph))}
             row["checks"].update({
-                "gated_collectives_every_trip_eager":
-                    gated["eager"] == 2 * (trips - 1) * done
-                    == eager["gated_collectives"],
-                "gated_collectives_as_the_while_loop":
-                    gated["graph"] == 2 * (loops["loop_iterations"] - done)
-                    == graph["gated_collectives"]})
+                "loop_collectives_every_trip_eager":
+                    eager["loop_counts"]["loop_collectives"]
+                    == (2 * trips + around) * done,
+                "loop_collectives_as_the_while_loop":
+                    loops["loop_collectives"]
+                    == 2 * loops["loop_iterations"] + around * done})
         row["reassociations_a_loop"] = {
             k: (r["loop_counts"]["associations"] - done) / done
             for k, r in (("eager", eager), ("graph", graph))}
@@ -2222,8 +2287,8 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
             "pool_mb": None if graph["pool_bytes"] is None
             else graph["pool_bytes"] / 2**20,
             "collectives_a_frame": graph["collectives"] / count,
-            "gated_collectives_a_frame": {
-                k: r["gated_collectives"] / count
+            "loop_collectives_a_frame": None if loops is None else {
+                k: r["loop_counts"]["loop_collectives"] / count
                 for k, r in (("eager", eager), ("graph", graph))},
             **{k: row.get(k) for k in (
                 "frames_per_s", "host_calls_per_frame",

@@ -11,9 +11,12 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the default
 process group, one rank a process.  Start the processes with ``torchrun``
 (``initialize_distributed()`` reads its environment) or pass the
 coordinator's address, the process count and this process's index, and
-leave the group with ``shutdown_distributed``.  On NCCL the map axis
-reduces over peer memory (``parallel.peer``, set up by ``make_mesh``), so
-that a captured frame can hold its reductions inside conditional nodes.
+leave the group with ``shutdown_distributed``.  On NCCL a map axis of
+more than one rank reduces over peer memory (``parallel.peer``, mapped by
+``make_mesh``), so that a captured frame can hold its reductions inside
+conditional nodes; so its ranks must share one host, with peer access
+between their cards (``make_mesh`` raises otherwise).  The data axis may
+span hosts.
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ def track_captured(step):
 
 def peer_group(group):
     """The ``parallel.peer.PeerGroup`` a map ``group`` reduces over, or
-    None (gloo)."""
+    None (gloo, or a group of one rank, which reduces nothing)."""
     return _peers.get(group.group_name)
 
 
@@ -113,7 +116,10 @@ def make_mesh(data: int | None = None, map: int = 1, device_type=None):
 
     ``data=None`` puts the ranks ``map`` does not take on the data axis;
     ``data * map`` must equal the world size.  ``device_type`` ``None``
-    means "cuda" (raises without a card); pass "cpu" for CPU tensors.
+    means "cuda" (raises without a card); pass "cpu" for CPU tensors.  On
+    NCCL each map group of more than one rank maps its ranks' peer
+    regions (``parallel.peer.attach``, which raises where a group spans
+    hosts or two of its cards lack peer access).
     """
     device_type = resolve_device(device_type).type
     n = dist.get_world_size()
@@ -126,7 +132,7 @@ def make_mesh(data: int | None = None, map: int = 1, device_type=None):
     mesh = init_device_mesh(device_type, (data, map),
                             mesh_dim_names=("data", "map"))
     group = mesh.get_group("map")
-    if dist.get_backend(group) == "nccl":
+    if dist.get_backend(group) == "nccl" and map > 1:
         from . import peer
 
         _peers[group.group_name] = peer.attach(

@@ -20,12 +20,16 @@ collective over ``group``: the 64-byte IPC handles are exchanged once, when
 the mesh is made, ``parallel.mesh.make_mesh``); ``PeerGroup.all_reduce``
 launches the kernel; ``PeerGroup.close`` unmaps the others' regions and
 ``PeerGroup.free`` frees the rank's own (after every rank's last
-reduction: ``parallel.shutdown_distributed``).  ``reference``
-is the kernel's plain version: the parts of every rank combined in rank
-order.  The kernel's launches are the map axis's collectives on an NCCL
-mesh, which ``parallel.sharded`` counts (on the host outside a conditional
-body, on the device inside one, where a replay cannot tell the host
-whether it ran).
+reduction: ``parallel.shutdown_distributed``).  ``reference`` is the
+kernel's plain version: the parts of every rank combined in rank order.
+
+Two limits follow from the route, and each raises with its name:
+  * every rank of the group is on one host and each pair of their cards
+    can map the other's memory (CUDA IPC, ``cudaDeviceCanAccessPeer``);
+    ``attach`` checks that on every rank before it maps anything, so a
+    map group that spans hosts is refused when the mesh is made;
+  * one reduction holds at most ``SLOT_BYTES`` (the packed keys of
+    ``batch // data * max_source`` queries, 4 bytes each).
 """
 
 from __future__ import annotations
@@ -131,7 +135,8 @@ class PeerGroup:
                              f"{self.device}, got {t.device}")
         if t.numel() * t.element_size() > SLOT_BYTES:
             raise ValueError(f"peer all-reduce: {t.numel()} elements "
-                             f"exceed a {SLOT_BYTES}-byte slot")
+                             f"exceed a {SLOT_BYTES}-byte slot "
+                             f"(peer.SLOT_BYTES)")
         lib = _load()
         _check(lib.kicp_peer_all_reduce(
             torch.cuda.current_stream(self.device).cuda_stream, t.data_ptr(),
@@ -165,15 +170,55 @@ def local_groups(device, size: int):
     return [PeerGroup(device, r, regions, [regions[r]]) for r in range(size)]
 
 
+def unreachable(cards, rank: int, local, can_access):
+    """Why the rank ``rank`` of a group cannot map every other rank's
+    region, or None.  ``cards`` holds each rank's card UUID in group
+    order, ``local`` the UUIDs of the cards this process sees (by index),
+    ``can_access(i, j)`` whether card ``i`` can map card ``j``'s memory.
+    Ranks that share a card need no peer access."""
+    mine = local.index(cards[rank])
+    for r, card in enumerate(cards):
+        if card == cards[rank]:
+            continue
+        if card not in local:
+            return (f"rank {r}'s card {card} is on another host or not "
+                    f"visible here")
+        j = local.index(card)
+        if not can_access(mine, j):
+            return f"card {mine} cannot map the memory of card {j} (rank {r})"
+    return None
+
+
+def _card_uuid(index: int) -> str:
+    return str(torch.cuda.get_device_properties(index).uuid)
+
+
 def attach(group, device) -> PeerGroup:
-    """This rank's ``PeerGroup`` over ``group`` (an NCCL process group,
-    one card a rank): its region made, the handles exchanged over
-    ``group``, the other ranks' regions mapped.  Every rank of ``group``
-    calls it together."""
+    """This rank's ``PeerGroup`` over ``group`` (a process group, one card
+    a rank): its region made, the handles exchanged over ``group``, the
+    other ranks' regions mapped.  Every rank of ``group`` calls it
+    together.  First every rank checks that it can map every other rank's
+    card (``unreachable``), and if any cannot, every rank raises, naming
+    the limit, before anything is mapped."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    local = [_card_uuid(i) for i in range(torch.cuda.device_count())]
+    cards = [None] * size
+    dist.all_gather_object(cards, local[device.index], group=group)
+    why = [None] * size
+    dist.all_gather_object(why, unreachable(
+        cards, rank, local, torch.cuda.can_device_access_peer), group=group)
+    refused = [f"rank {r}: {w}" for r, w in enumerate(why) if w]
+    if refused:
+        raise RuntimeError(
+            "a map group on NCCL reduces over peer memory mapped with CUDA "
+            "IPC, so its ranks must share one host and each pair of their "
+            "cards must have peer access: " + "; ".join(refused))
     ptr, handle = make_region(device)
-    handles = [None] * dist.get_world_size(group)
+    handles = [None] * size
     dist.all_gather_object(handles, handle, group=group)
-    rank = dist.get_rank(group)
     lib = _load()
     pointers, imported = [], []
     with torch.cuda.device(device):

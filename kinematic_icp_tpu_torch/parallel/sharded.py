@@ -39,13 +39,16 @@ issues its collectives.  The GN kernel does not run here, by design, as in
 the JAX package (``Config.gn_backend`` is ignored): each trip needs the
 cross-shard minimum, which the GN kernel cannot take inside it.
 
-Collectives are counted where a reader can see them: ``COLLECTIVES`` on
-the host for those outside conditional bodies (β's SUM before the loop,
-the first trip's SUM and the first association's MIN, the final
-correspondence SUM, the insert failures' SUM and the data-axis gathers),
-which a replay advances by what its capture issued; ``gated_collectives()``
-on the device for those inside a body (the later trips' SUMs and the
-re-associations' MINs), which a replay counts only where the body ran.
+``COLLECTIVES`` counts, on the host, the collectives a frame issues
+outside the GN loop (the insert failures' SUM and the data-axis gathers);
+a replay advances it by what its capture issued.  The loop's own (β's and
+each trip's SUM, each association's MIN, the final correspondence SUM)
+run inside and around its conditional nodes, where a replay cannot tell
+the host whether they ran, and a production frame counts nothing there: a
+caller that wants them counts them on the device by wrapping
+``_all_reduce`` while ``registration.run_gn`` runs, as ``chip_smoke.py``'s
+``device_counts`` counts the loop's associations.  A map group of one
+rank reduces nothing (its ``_all_reduce`` returns its input).
 
 Three differences from the JAX package's sharded path, each a fault there:
 the downsample honours ``Config.downsample_tiebreak``; the exact mode
@@ -71,14 +74,11 @@ from ..ops.points import per_row, transform
 from ..utils import cuda_graph
 from . import mesh as _mesh
 
-#: collectives issued so far outside conditional bodies (a plain count,
-#: for reading how many a frame takes; as ``gn.LAUNCHES`` counts kernel
+#: collectives issued so far outside the GN loop (a plain count, for
+#: reading how many a frame takes; as ``gn.LAUNCHES`` counts kernel
 #: launches)
 COLLECTIVES = 0
 cuda_graph.replayed(__name__, counters=("COLLECTIVES",))
-#: the collectives issued inside conditional bodies, an int64 on each
-#: device that issued one (``gated_collectives``)
-_GATED = {}
 
 
 class _Axes(NamedTuple):
@@ -106,41 +106,13 @@ def _axes(mesh) -> _Axes:
                  mesh.get_group("map"), dev)
 
 
-def gated_collectives() -> int:
-    """The collectives issued inside conditional bodies since the last
-    ``reset_gated_collectives`` (read from the device: a sync)."""
-    return sum(int(count) for count in _GATED.values())
-
-
-def reset_gated_collectives():
-    for count in _GATED.values():
-        count.zero_()
-
-
-def _count(device):
-    """Count one collective: on the host outside a conditional body, on
-    ``device`` inside one (the count is made by the first, eagerly or in
-    the warm-up that runs every body before a capture)."""
-    global COLLECTIVES
-    if not cuda_graph.in_body():
-        COLLECTIVES += 1
-        return
-    count = _GATED.get(device)
-    if count is None:
-        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("a collective inside a conditional body "
-                               "before any eager run made its count")
-        count = _GATED[device] = torch.zeros((), dtype=torch.int64,
-                                             device=device)
-    count.add_(1)
-
-
 def _all_reduce(t, op, group):
     """``t`` reduced in place over the map ``group`` (every rank gets the
-    same bits), and returned; counted by ``_count``.  On NCCL the port's
-    kernel over peer memory (``parallel.peer``), which a conditional body
-    can hold; gloo's ``all_reduce`` otherwise."""
-    _count(t.device)
+    same bits), and returned; ``t`` itself on a group of one rank.  On
+    NCCL the port's kernel over peer memory (``parallel.peer``), which a
+    conditional body can hold; gloo's ``all_reduce`` otherwise."""
+    if dist.get_world_size(group) == 1:
+        return t
     peers = _mesh.peer_group(group)
     if peers is None:
         dist.all_reduce(t, op=op, group=group)
@@ -152,9 +124,10 @@ def _all_reduce(t, op, group):
 def _gather_rows(local, dim: int, axes: _Axes):
     """Every data rank's ``local`` rows, concatenated along ``dim`` in rank
     order (the whole batch, the same on every rank)."""
+    global COLLECTIVES
     if axes.data == 1:
         return local
-    _count(local.device)
+    COLLECTIVES += 1
     parts = [torch.empty_like(local) for _ in range(axes.data)]
     dist.all_gather(parts, local.contiguous(), group=axes.data_group)
     return torch.cat(parts, dim)
@@ -263,6 +236,7 @@ def sharded_register_frame(state: pipeline.OdometryState, points, timestamps,
     (they are the same).  ``active`` False (the stationary gate) leaves a
     sequence's state as it was: the map update is write-masked.
     """
+    global COLLECTIVES
     axes = _axes(mesh)
     prep = pipeline.prepare_frame(state, points, timestamps, mask,
                                   has_timestamps, lidar_to_base,
@@ -274,6 +248,7 @@ def sharded_register_frame(state: pipeline.OdometryState, points, timestamps,
     new_map, failed = _update_shard(state.map, prep.frame_ds,
                                     prep.frame_ds_mask, new_pose, config,
                                     axes, active)
+    COLLECTIVES += 1
     failed = _all_reduce(failed, dist.ReduceOp.SUM, axes.map_group)
     return pipeline.finish_frame(state, prep, relative_odometry, new_pose,
                                  debug, new_map, failed, config, active)
@@ -337,8 +312,7 @@ def make_sharded_step(config: Config, mesh):
     is captured as a CUDA graph at its first call of each static shape and
     replayed every frame, its collectives inside the graph, with no host
     sync, the GN loop's later trips and re-associations inside conditional
-    nodes (a replay makes JAX's trips; ``gated_collectives`` counts their
-    collectives, ``COLLECTIVES`` the others); on gloo, whose collectives a
+    nodes (a replay makes JAX's trips); on gloo, whose collectives a
     CUDA graph cannot hold, or on the CPU, the same frame runs eagerly over
     the same buffers, every trip.  The gathers over the data axis run
     outside the frame.  A captured frame refers to the map group's peer
@@ -394,8 +368,7 @@ def make_sharded_sequence_runner(config: Config, mesh,
     same frame eagerly over the same buffers on gloo or the CPU; the state
     is copied out at the end.  ``eager=True`` runs
     ``sharded_register_frame`` op by op (the baseline a replay is held to:
-    every GN trip, where a replay makes JAX's; both count their
-    collectives as ``make_sharded_step``'s do).
+    every GN trip, where a replay makes JAX's).
     """
     axes = _axes(mesh)
 

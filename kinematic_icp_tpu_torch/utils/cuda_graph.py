@@ -59,8 +59,7 @@ capture records the counters' increments and the last values it set, every
 replay adds and sets them again, and the warm-up's and the capture's own
 are taken back out, so a count read around a run is that run's.  A replay
 cannot tell whether an IF body ran, so a capture that moves a registered
-counter inside a body raises: such work is counted on the device
-(``in_body`` tells where that is).
+counter inside a body raises: such work is counted on the device.
 
 A captured frame that issues collectives holds its process group's
 communicator until its graph is freed (``StaticCall.release``).
@@ -81,8 +80,6 @@ import torch
 _active = None
 _WARMUP = object()
 _UNSET = object()
-#: the ``when`` bodies the running code is inside, in every mode
-_bodies = 0
 
 #: (module, name) of each counter a replay advances by what its capture
 #: added, and of each value a replay sets to what its capture left
@@ -216,35 +213,21 @@ def when(pred, body):
     if pred.dtype != torch.bool or pred.numel() != 1:
         raise ValueError(f"when: a one-element bool predicate, got "
                          f"{pred.dtype} {tuple(pred.shape)}")
-    global _bodies
     capture = _active
     if capture is None or capture is _WARMUP:
-        _bodies += 1
-        try:
-            body()
-        finally:
-            _bodies -= 1
+        body()
         return
     before = {**_counts(), **_latest()}
     stream = capture.begin_if(pred)
-    _bodies += 1
     try:
         with torch.cuda.stream(stream):
             body()
     finally:
-        _bodies -= 1
         capture.end_if()
     if {**_counts(), **_latest()} != before:
         raise RuntimeError(
             "a registered counter moved inside a conditional body, where "
             "a replay cannot tell whether it ran: count it on the device")
-
-
-def in_body() -> bool:
-    """Whether the running code is inside a ``when`` body, in every mode
-    (eager, warm-up and capture): work issued here runs on a replay only
-    where its predicate is set, so it is counted on the device."""
-    return _bodies > 0
 
 
 def branch(flag, fallback, tensors):

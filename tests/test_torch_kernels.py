@@ -1124,18 +1124,62 @@ def test_certified_fallback_captured_as_nested_if_nodes(card, monkeypatch):
             assert torch.equal(a, b)
 
 
+def _count_sharded_loop(monkeypatch, dev):
+    """Wrap ``registration.run_gn`` and ``sharded._all_reduce`` to count,
+    in a device tensor, [associations, the most iterations of a row, the
+    map-axis collectives issued while ``run_gn`` runs], summed over the
+    loops.  Device ops where the work is, inside whatever conditional node
+    holds it, so a replay counts what it ran."""
+    from kinematic_icp_tpu_torch.parallel import sharded
+
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    run_gn, all_reduce = registration.run_gn, sharded._all_reduce
+    in_loop = [False]
+
+    def counting(associate, *args, **kw):
+        def counted(pose):
+            counts[0].add_(1)
+            return associate(pose)
+
+        in_loop[0] = True
+        try:
+            out = run_gn(counted, *args, **kw)
+        finally:
+            in_loop[0] = False
+        counts[1].add_(out[1].max().to(torch.int64))
+        return out
+
+    def counting_all_reduce(t, op, group):
+        if in_loop[0]:
+            counts[2].add_(1)
+        return all_reduce(t, op, group)
+
+    monkeypatch.setattr(registration, "run_gn", counting)
+    monkeypatch.setattr(sharded, "_all_reduce", counting_all_reduce)
+    return counts
+
+
+#: the GN loop's collectives besides a SUM a trip and a MIN an association:
+#: β's SUM before the first trip and the correspondence count's after the
+#: last
+AROUND_THE_LOOP = 2
+
+
 @pytest.mark.cuda
-def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card):
+def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card,
+                                                           monkeypatch):
     """A one-rank NCCL group: the sharded runner's frame captured as one
-    CUDA graph, collectives inside, bit-equal to its eager loop with the
-    same collectives outside the GN loop's conditional nodes (5 a frame)
-    and fewer inside them (eager issues every trip's: 18 a frame)."""
+    CUDA graph, bit-equal to its eager loop with the same collectives
+    outside the GN loop (the insert failures' SUM: 1 a frame) and fewer
+    inside it, counted on the device (eager issues every trip's: 2 x 10 +
+    2 a frame)."""
     import socket
 
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import pad_batch
     from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
-                                                  make_mesh, sharded,
+                                                  make_mesh, mesh as tmesh,
+                                                  sharded,
                                                   shutdown_distributed)
     from kinematic_icp_tpu_torch.utils import synthetic
 
@@ -1144,29 +1188,33 @@ def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card):
     seqs = [synthetic.make_sequence(5, world_seed=w, traj_seed=w + 10,
                                     noise_seed=w + 20) for w in range(2)]
     arrays = [torch.from_numpy(a).to(card) for a in pad_batch(seqs, cfg)]
+    counts = _count_sharded_loop(monkeypatch, card)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl")
     try:
         mesh = make_mesh(1, 1)
+        # a map group of one rank reduces nothing: no peer regions
+        assert tmesh.peer_group(mesh.get_group("map")) is None
         runs = {}
         for eager in (True, False):
             run = sharded.make_sharded_sequence_runner(cfg, mesh,
                                                        eager=eager)
             before = sharded.COLLECTIVES
-            sharded.reset_gated_collectives()
+            counts.zero_()
             out = run(sharded.init_sharded_state(cfg, mesh, 2),
                       *arrays[:4], torch.eye(4, device=card), arrays[4])
             torch.cuda.synchronize()
             runs[eager] = out, (sharded.COLLECTIVES - before,
-                                sharded.gated_collectives())
+                                int(counts[2]))
         assert [c.graphs for c in run.step.calls] == [1]
     finally:
         shutdown_distributed()
     (want, n_want), (got, n_got) = runs[True], runs[False]
-    assert n_got[0] == n_want[0] == 5 * 5
-    assert n_want[1] == 5 * 18 and 0 < n_got[1] < n_want[1]
+    assert n_got[0] == n_want[0] == 5
+    assert n_want[1] == 5 * (2 * 10 + AROUND_THE_LOOP)
+    assert 0 < n_got[1] < n_want[1]
     for a, b in zip((*got[1:], got[0].map.table),
                     (*want[1:], want[0].map.table)):
         assert torch.equal(_bits(a), _bits(b))
@@ -1180,8 +1228,9 @@ def test_sharded_one_rank_nccl_frames_replayed_exit_early(card, monkeypatch):
     with the same iterations.  Counted on the device: the replay
     associates as JAX's ``while_loop`` (the most iterations of a row, below
     ``max_num_iterations`` on some frame) where eager associates 10 times a
-    loop, and issues 2 (trips - 1) collectives inside the loop's
-    conditional nodes where eager issues 18."""
+    loop, and its loop issues a SUM a trip and a MIN an association
+    besides β's and the correspondence count's SUMs (2 trips + 2) where
+    eager issues 2 x 10 + 2."""
     import socket
 
     from kinematic_icp_tpu_torch import Config
@@ -1202,20 +1251,9 @@ def test_sharded_one_rank_nccl_frames_replayed_exit_early(card, monkeypatch):
                                    for a in pad_batch(seqs, cfg))
     ext = torch.eye(4, device=card)
     active = torch.ones(2, dtype=torch.bool, device=card)
-    # [associations, the most iterations of a row], a loop at a time
-    counts = torch.zeros(2, dtype=torch.int64, device=card)
-    run_gn = registration.run_gn
-
-    def counting(associate, *args, **kw):
-        def counted(pose):
-            counts[0].add_(1)
-            return associate(pose)
-
-        out = run_gn(counted, *args, **kw)
-        counts[1].add_(out[1].max().to(torch.int64))
-        return out
-
-    monkeypatch.setattr(registration, "run_gn", counting)
+    # [associations, the most iterations of a row, the loop's
+    # collectives], a loop at a time
+    counts = _count_sharded_loop(monkeypatch, card)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -1232,24 +1270,20 @@ def test_sharded_one_rank_nccl_frames_replayed_exit_early(card, monkeypatch):
         for f in range(frames):
             inputs = (pts[f], ts[f], mask[f], has_ts[f], ext, rels[f])
             counts.zero_()
-            sharded.reset_gated_collectives()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 state, poses, _ = step(state, *inputs, active)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            graph = (_bits(poses).clone(), counts.tolist(),
-                     sharded.gated_collectives())
+            graph = (_bits(poses).clone(), counts.tolist())
             counts.zero_()
-            sharded.reset_gated_collectives()
             eager, out = sharded.sharded_register_frame(
                 eager, *inputs, cfg, mesh, active=active)
             its = int(out.debug.iterations.max())
             assert torch.equal(graph[0], _bits(out.pose)), f
-            assert graph[1] == [its, its], f
-            assert counts.tolist() == [10, its], f
-            assert graph[2] == 2 * (its - 1), f
-            assert sharded.gated_collectives() == 18, f
+            assert graph[1] == [its, its, 2 * its + AROUND_THE_LOOP], f
+            assert counts.tolist() == [10, its,
+                                       2 * 10 + AROUND_THE_LOOP], f
             trips.append(its)
     finally:
         shutdown_distributed()
@@ -1352,3 +1386,83 @@ def test_peer_all_reduce_runs_inside_a_captured_if_node(card):
     finally:
         for g in groups:
             g.free()
+
+
+#: one rank of ``test_peer_group_attached_across_two_processes``: ARGV
+#: rank, port, the reductions as JSON
+_PEER_WORKER = r'''
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from kinematic_icp_tpu_torch.parallel import peer
+
+rank, port, reductions = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+torch.cuda.set_device(0)
+dev = torch.device("cuda", 0)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=2)
+mine = peer.attach(dist.group.WORLD, dev)
+bad = []
+try:
+    for k, (dtype, op, n) in enumerate(reductions):
+        op = getattr(dist.ReduceOp, op)
+        for r in range(3):
+            rng = np.random.default_rng([k, r])  # the same on both ranks
+            if dtype == "int32":
+                parts = [rng.integers(-2**30, 2**30, n, dtype=np.int32)
+                         for _ in range(2)]
+            else:
+                parts = [rng.normal(0, 100.0, n).astype(dtype)
+                         for _ in range(2)]
+            parts = [torch.from_numpy(p).to(dev) for p in parts]
+            got = parts[rank].clone()
+            mine.all_reduce(got, op)
+            torch.cuda.synchronize()
+            want = peer.reference(parts, op)
+            if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+                bad.append([dtype, n, r])
+finally:
+    torch.cuda.synchronize()
+    dist.barrier()
+    mine.close()
+    dist.barrier()
+    mine.free()
+    dist.destroy_process_group()
+print(f"rank {rank}: " + ("OK" if not bad else json.dumps(bad)), flush=True)
+'''
+
+
+@pytest.mark.cuda
+def test_peer_group_attached_across_two_processes(card):
+    """Two processes on one card, a gloo group between them:
+    ``peer.attach`` checks both ranks' reach, exchanges the IPC handles
+    and maps each other's region; three rounds of every reduction the
+    sharded path makes (``PEER_REDUCTIONS``) give both ranks the plain
+    version's bits; then both unmap before either frees, as
+    ``parallel.shutdown_distributed`` does, and both exit cleanly."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PEER_WORKER, str(r), str(port),
+         json.dumps(PEER_REDUCTIONS)], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"rank {r}: OK" in log, log[-3000:]

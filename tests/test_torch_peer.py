@@ -66,9 +66,10 @@ def test_reference_refuses_other_ops():
 
 
 def test_gloo_mesh_reduces_without_a_peer_group():
-    """A gloo map group has no peer group: ``_all_reduce`` goes through
-    ``torch.distributed``, counted on the host outside a conditional body
-    and on the device inside one (as the IF nodes' bodies are)."""
+    """A gloo map group has no peer group, and a map group of one rank
+    reduces nothing: ``_all_reduce`` hands its input back untouched, in a
+    conditional body too, and counts nothing on the host (the GN loop's
+    collectives are counted on the device by a caller that asks)."""
     from kinematic_icp_tpu_torch.utils import cuda_graph
 
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
@@ -78,15 +79,68 @@ def test_gloo_mesh_reduces_without_a_peer_group():
         group = mesh.get_group("map")
         assert tmesh.peer_group(group) is None
         before = sharded.COLLECTIVES
-        sharded.reset_gated_collectives()
         t = torch.arange(6.0)
         assert sharded._all_reduce(t, dist.ReduceOp.SUM, group) is t
         assert torch.equal(t, torch.arange(6.0))
-        assert sharded.COLLECTIVES == before + 1
-        assert sharded.gated_collectives() == 0
         cuda_graph.when(torch.tensor(True), lambda: sharded._all_reduce(
             t, dist.ReduceOp.MIN, group))
-        assert sharded.COLLECTIVES == before + 1
-        assert sharded.gated_collectives() == 1
+        assert torch.equal(t, torch.arange(6.0))
+        assert sharded.COLLECTIVES == before
     finally:
         tmesh.shutdown_distributed()
+
+
+#: four cards of one host, their UUIDs by index
+HOST = ["GPU-a", "GPU-b", "GPU-c", "GPU-d"]
+
+
+def _every_pair(i, j):
+    return True
+
+
+@pytest.mark.parametrize("cards,rank", [
+    (HOST, 0), (HOST, 3), (["GPU-b", "GPU-d"], 1),
+    (["GPU-a", "GPU-a"], 1)])
+def test_ranks_on_one_host_with_peer_access_are_reachable(cards, rank):
+    """Every rank's card on this host, each pair with peer access (or two
+    ranks on one card, which need none): nothing to refuse."""
+    assert peer.unreachable(cards, rank, HOST, _every_pair) is None
+
+
+def test_a_rank_on_another_host_is_refused():
+    """A card this process cannot see is on another host (or hidden from
+    it): CUDA IPC cannot map its memory, and the rank says which."""
+    why = peer.unreachable(["GPU-a", "GPU-x"], 0, HOST, _every_pair)
+    assert "rank 1" in why and "another host" in why
+
+
+def test_cards_without_peer_access_are_refused():
+    """Two cards of one host without peer access between them (as
+    ``cudaDeviceCanAccessPeer`` says): refused, naming both cards; a third
+    card that has access is not named."""
+    blocked = {(0, 2), (2, 0)}
+    why = peer.unreachable(["GPU-a", "GPU-b", "GPU-c"], 0, HOST,
+                           lambda i, j: (i, j) not in blocked)
+    assert "card 0" in why and "card 2" in why and "rank 2" in why
+    assert peer.unreachable(["GPU-a", "GPU-b"], 0, HOST,
+                            lambda i, j: (i, j) not in blocked) is None
+
+
+def test_attach_refuses_on_every_rank_before_mapping(monkeypatch):
+    """``attach`` checks every rank's reach before it maps anything, and a
+    refusal on any rank raises on every rank with the limit named (here a
+    one-rank gloo group whose card is not on this host)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(peer, "_card_uuid",
+                        {0: "GPU-a"}.__getitem__)
+    monkeypatch.setattr(peer, "make_region", lambda device: pytest.fail(
+        "mapped before the check"))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        monkeypatch.setattr(peer, "unreachable",
+                            lambda *a: "rank 0's card is elsewhere")
+        with pytest.raises(RuntimeError, match="share one host"):
+            peer.attach(dist.group.WORLD, torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()

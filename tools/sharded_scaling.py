@@ -18,18 +18,19 @@ conditional nodes; the same drives then run through
 ``make_sharded_sequence_runner(eager=True)``, op by op, every trip, and
 every rank checks the two bit-equal.  Each rank counts, on the device, the
 trips JAX's ``while_loop`` makes (the most GN iterations of its rows a
-frame) and the collectives issued inside the conditional nodes, captured
-and eager: a replay issues 2 (trips - 1) a frame, eager 2
-(``max_num_iterations`` - 1).  The ranks leave the group
+frame) and the GN loop's collectives (``chip_smoke.device_counts``),
+captured and eager: a replay issues a SUM a trip and a MIN an
+association, 2 trips + 2 a frame with β's and the correspondence count's
+SUMs, eager 2 ``max_num_iterations`` + 2.  The ranks leave the group
 with ``parallel.shutdown_distributed`` with the last mesh's runners alive.
 Rank 0 then runs the same drives through the unsharded runner's loop
 lowering on its own card, the yardstick (the sharded path is that loop
 with collectives), at B = world and at B = 1 on each drive alone.  Rank 0
 prints one JSON line a mesh: wall ms a batched frame captured and eager,
-aggregate frames/s, collectives a frame (on the host, and inside the
-conditional nodes, captured and eager) and trips a frame by rank, whether
-every rank's captured poses were bit-equal to its eager ones and its gated
-collectives were its trips', each drive's ATE and the largest
+aggregate frames/s, collectives a frame (outside the GN loop on the host,
+and the loop's on the device, captured and eager) and trips a frame by
+rank, whether every rank's captured poses were bit-equal to its eager ones
+and its loop's collectives were its trips', each drive's ATE and the largest
 pose difference from the unsharded run, the frames bit-equal to it at
 B = world and to each drive's B = 1 run, and each shard's voxel count;
 then the unsharded run's line and the cards' ``nvidia-smi`` name and power
@@ -100,32 +101,19 @@ def timed(torch, runner, runs, sync):
                             if "capacity overflow" in str(w.message)]
 
 
-def count_trips(torch, registration, dev):
-    """Wrap ``registration.run_gn`` to add each loop's most iterations of a
-    row (the trips JAX's ``while_loop`` makes) to a device count, outside
-    the loop's conditional nodes; returns the count."""
-    trips = torch.zeros((), dtype=torch.int64, device=dev)
-    run_gn = registration.run_gn
+def counted(torch, sharded, counts, run):
+    """``run()`` with the host collective count and ``counts`` (a
+    ``chip_smoke.device_counts`` tensor) set to 0 just before; returns (its
+    result, [trips, collectives outside the GN loop on the host, the GN
+    loop's collectives on the device])."""
+    from chip_smoke import LOOP_COUNTS
 
-    def counting(*args, **kw):
-        out = run_gn(*args, **kw)
-        trips.add_(out[1].max().to(torch.int64))
-        return out
-
-    registration.run_gn = counting
-    return trips
-
-
-def counted(torch, sharded, trips, run):
-    """``run()`` with the collective counts and ``trips`` set to 0 just
-    before; returns (its result, [trips, collectives on the host, inside
-    conditional bodies])."""
     sharded.COLLECTIVES = 0
-    sharded.reset_gated_collectives()
-    trips.zero_()
+    counts.zero_()
     out = run()
-    return out, [int(trips), sharded.COLLECTIVES,
-                 sharded.gated_collectives()]
+    got = dict(zip(LOOP_COUNTS, counts.tolist()))
+    return out, [got["loop_iterations"], sharded.COLLECTIVES,
+                 got["loop_collectives"]]
 
 
 def worker(args):
@@ -133,10 +121,10 @@ def worker(args):
     import torch
     import torch.distributed as dist
 
-    from chip_smoke import HEADLINE
+    from chip_smoke import HEADLINE, device_counts
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import pad_batch
-    from kinematic_icp_tpu_torch.ops import hashmap, registration
+    from kinematic_icp_tpu_torch.ops import hashmap
     from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
                                                   initialize_distributed,
                                                   make_mesh, sharded,
@@ -153,69 +141,79 @@ def worker(args):
     dev = "cuda" if args.device == "cuda" else "cpu"
     padded = [torch.from_numpy(a).to(dev) for a in pad_batch(runs, cfg)]
     ext_t = torch.tensor(np.asarray(ext, np.float32), device=dev)
-    run_gn = registration.run_gn
-    trips = count_trips(torch, registration, dev)
     f = args.frames
+    # β's SUM before the first trip (the adaptive regularization) and the
+    # correspondence count's after the last
+    around = int(cfg.use_adaptive_odometry_regularization) + 1
     rows = []
-    try:
-        for data, m in meshes(args.world):
-            mesh = make_mesh(data, m, args.device)
-            # the warm-up captures the runner's frame on NCCL; the timed
-            # run replays it from a fresh state
-            runner = BatchedOdometryRunner(cfg, args.world, mesh=mesh,
-                                           extrinsic=ext)
-            runner.run_device(warm)
-            runner.state = sharded.init_sharded_state(cfg, mesh, args.world)
-            runner.poses = [[] for _ in range(args.world)]
-            (poses, seconds, overflow), graph_counts = counted(
-                torch, sharded, trips, lambda: timed(torch, runner, runs,
-                                                     sync))
-            counts = hashmap.num_voxels(runner.state.map).to(torch.int64)
-            every = [torch.empty_like(counts) for _ in range(args.world)]
-            dist.all_gather(every, counts)
-            # the same drives op by op: the baseline a replay is held to
-            eager = sharded.make_sharded_sequence_runner(
-                cfg, mesh, runner.stationary_gate, eager=True)
-            state = sharded.init_sharded_state(cfg, mesh, args.world)
-            sync()
-            t0 = time.perf_counter()
-            eager_poses, eager_counts = counted(
-                torch, sharded, trips,
-                lambda: eager(state, *padded[:4], ext_t, padded[4])[1])
-            sync()
-            eager_s = time.perf_counter() - t0
-            eager_poses = eager_poses.cpu().numpy().astype(np.float64)
-            # this rank's counts, captured then eager, and whether its
-            # replay matched eager: the poses bit for bit, the trips, and
-            # the gated collectives 2 (trips - 1) a frame captured (on
-            # gloo the runner's frame runs eagerly too) and 2
-            # (max_num_iterations - 1) eager
-            every_trip = 2 * (cfg.max_num_iterations - 1) * f
-            captured = all(c.graphs for c in runner._seq_runner.step.calls)
-            same = np.array_equal(poses, eager_poses.transpose(1, 0, 2, 3))
-            as_trips = (graph_counts[0] == eager_counts[0]
-                        and graph_counts[2] == (2 * (graph_counts[0] - f)
-                                                if captured else every_trip)
-                        and eager_counts[2] == every_trip)
-            mine = torch.tensor(graph_counts + eager_counts
-                                + [int(same), int(as_trips)],
-                                dtype=torch.int64, device=dev)
-            ranks = [torch.empty_like(mine) for _ in range(args.world)]
-            dist.all_gather(ranks, mine)
-            ranks = [r.tolist() for r in ranks]
-            rows.append({"mesh": [data, m], "poses": poses,
-                         "seconds": seconds, "eager_seconds": eager_s,
-                         "collectives": graph_counts[1],
-                         "by_rank": ranks,
-                         "captured_bit_equal_to_eager_every_rank": all(
-                             r[-2] for r in ranks),
-                         "overflow": overflow,
-                         "voxels_by_rank": [c.tolist() for c in every]})
-    finally:
-        # with the last mesh's captured runner alive: the helper frees
-        # its graphs before NCCL's teardown
-        shutdown_distributed()
-        registration.run_gn = run_gn
+    with device_counts(torch, dev) as loop_counts:
+        try:
+            for data, m in meshes(args.world):
+                mesh = make_mesh(data, m, args.device)
+                # the warm-up captures the runner's frame on NCCL; the timed
+                # run replays it from a fresh state
+                runner = BatchedOdometryRunner(cfg, args.world, mesh=mesh,
+                                               extrinsic=ext)
+                runner.run_device(warm)
+                runner.state = sharded.init_sharded_state(cfg, mesh,
+                                                          args.world)
+                runner.poses = [[] for _ in range(args.world)]
+                (poses, seconds, overflow), graph_counts = counted(
+                    torch, sharded, loop_counts,
+                    lambda: timed(torch, runner, runs, sync))
+                counts = hashmap.num_voxels(runner.state.map).to(
+                    torch.int64)
+                every = [torch.empty_like(counts)
+                         for _ in range(args.world)]
+                dist.all_gather(every, counts)
+                # the same drives op by op: the baseline a replay is held to
+                eager = sharded.make_sharded_sequence_runner(
+                    cfg, mesh, runner.stationary_gate, eager=True)
+                state = sharded.init_sharded_state(cfg, mesh, args.world)
+                sync()
+                t0 = time.perf_counter()
+                eager_poses, eager_counts = counted(
+                    torch, sharded, loop_counts,
+                    lambda: eager(state, *padded[:4], ext_t, padded[4])[1])
+                sync()
+                eager_s = time.perf_counter() - t0
+                eager_poses = eager_poses.cpu().numpy().astype(
+                    np.float64)
+                # this rank's counts, captured then eager, and whether its
+                # replay matched eager: the poses bit for bit, the trips, and
+                # the GN loop's collectives 2 trips + 2 a frame captured (on
+                # gloo the runner's frame runs eagerly too) and 2
+                # max_num_iterations + 2 eager
+                every_trip = (2 * cfg.max_num_iterations + around) * f
+                captured = all(c.graphs
+                               for c in runner._seq_runner.step.calls)
+                same = np.array_equal(poses,
+                                      eager_poses.transpose(1, 0, 2, 3))
+                as_trips = (graph_counts[0] == eager_counts[0]
+                            and graph_counts[2] == (
+                                2 * graph_counts[0] + around * f
+                                if captured else every_trip)
+                            and eager_counts[2] == every_trip)
+                mine = torch.tensor(graph_counts + eager_counts
+                                    + [int(same), int(as_trips)],
+                                    dtype=torch.int64, device=dev)
+                ranks = [torch.empty_like(mine)
+                         for _ in range(args.world)]
+                dist.all_gather(ranks, mine)
+                ranks = [r.tolist() for r in ranks]
+                rows.append({"mesh": [data, m], "poses": poses,
+                             "seconds": seconds, "eager_seconds": eager_s,
+                             "collectives": graph_counts[1],
+                             "by_rank": ranks,
+                             "captured_bit_equal_to_eager_every_rank": all(
+                                 r[-2] for r in ranks),
+                             "overflow": overflow,
+                             "voxels_by_rank": [c.tolist()
+                                                for c in every]})
+        finally:
+            # with the last mesh's captured runner alive: the helper frees
+            # its graphs before NCCL's teardown
+            shutdown_distributed()
     if args.rank:
         return 0
     lowering = cfg.replace(gn_backend="torch")
@@ -234,10 +232,10 @@ def worker(args):
         by_rank = row.pop("by_rank")
         row.update(
             trips_a_frame_by_rank=[r[0] / f for r in by_rank],
-            gated_collectives_a_frame_by_rank={
+            loop_collectives_a_frame_by_rank={
                 "graph": [r[2] / f for r in by_rank],
                 "eager": [r[5] / f for r in by_rank]},
-            gated_collectives_as_the_trips_every_rank=all(
+            loop_collectives_as_the_trips_every_rank=all(
                 r[-1] for r in by_rank),
             ms_per_batched_frame=row["seconds"] * 1e3 / f,
             aggregate_frames_per_s=args.world * f / row["seconds"],
@@ -265,7 +263,7 @@ def worker(args):
                 for k in range(f)) for i in range(args.world)]}}),
         flush=True)
     return 0 if all(r["captured_bit_equal_to_eager_every_rank"]
-                    and r["gated_collectives_as_the_trips_every_rank"]
+                    and r["loop_collectives_as_the_trips_every_rank"]
                     for r in rows) else 1
 
 
