@@ -61,8 +61,10 @@ last line.  Phases:
      of a peer group on this card, each launching on a stream of its own,
      at the sharded path's shapes (the normal equations' float32 sums, the
      packed keys' int32 minima, the correspondence counts' int32 sums, a
-     float64 state's sums), bit-equal to the plain version; ms of the
-     kernel (one rank and four) and of the plain version;
+     float64 state's sums) and beyond a slot (the packed keys of 400
+     stock-``Config`` sequences: 3 slots and a remainder, a launch a
+     slot), eagerly and as captured graphs, bit-equal to the plain version;
+     ms of the kernel (one rank and four) and of the plain version;
  11. sharded_1rank: a one-rank NCCL group and a (1, 1) mesh,
      ``parallel.BatchedOdometryRunner(mesh=...)`` over 2 of the drives, 20
      frames (``run`` within 1e-5 of ``run_device``, bit-equal to the
@@ -70,7 +72,12 @@ last line.  Phases:
      ``run_offline``, the frame captured with its collectives, no GN
      launch: the sharded path runs none, by design; ms a frame, and the
      collectives a frame outside the GN loop, a host count; a map group
-     of one rank reduces nothing, so the frame launches no peer kernel);
+     of one rank reduces nothing, so the frame launches no peer kernel:
+     route "none"); then the same drives on the "nccl" route
+     (``make_mesh(map_reduce="nccl")``: NCCL's all-reduce over the one
+     rank inside the frame's graph, no IF node, every GN trip run):
+     bit-equal to the first row, NCCL's collectives counted (host and
+     device), ms a frame and frames/s;
  11b. loop_batch: the unsharded ``parallel.BatchedOdometryRunner`` on the
      GN loop lowering (``gn_backend="torch"``, what the sharded path, pruned
      exact and the certified fallback run) over 4 of the drives, 20
@@ -104,7 +111,9 @@ last line.  Phases:
      headline (blocking and ``"scan"``), the certified exact drive (60),
      pruned exact (20), the certified exact batch of 4 drives (20), the
      served certified headline (60) and the sharded runner on a one-rank
-     NCCL group (2 drives, 20), each on the eager loop (``eager=True``)
+     NCCL group (2 drives, 20; on the "none" route and on the "nccl"
+     route, whose frame holds no IF node and whose replay runs every GN
+     trip), each on the eager loop (``eager=True``)
      and on its CUDA graphs in one call: every frame bit-equal, the same
      GN, ``check_crossing`` and collective counts and fallback frames,
      frames/s, host calls and syncs a frame (none in an offline frame
@@ -216,6 +225,10 @@ PRUNED_BATCH_FRAMES = 10
 SHARD_BATCH = 2
 SHARD_FRAMES = 20
 SHARD_WORKER_TIMEOUT_S = 300
+#: a data rank's sequences whose packed keys (``Config().max_source`` =
+#: 8,192 queries each) span 3 slots and a remainder of the peer kernel
+#: (``parallel.peer.SLOT_BYTES``: 1,048,576 int32 keys)
+BEYOND_SLOT_SEQUENCES = 400
 #: the loop lowering's batch check: drives at once, and their frames
 LOOP_BATCH = 4
 LOOP_BATCH_FRAMES = 20
@@ -1165,8 +1178,12 @@ def peer_shapes(torch):
     (dtype, op, elements) for SHARD_BATCH sequences: 6 float32 sums each
     (the normal equations), an int32 minimum a query (the packed keys),
     an int32 sum each (the correspondence count), and a float64 state's 6
-    sums each: every instance of the kernel."""
+    sums each: every instance of the kernel; and the packed keys of a data
+    rank's BEYOND_SLOT_SEQUENCES stock-``Config`` sequences, more than a
+    slot of the kernel (a launch a slot)."""
     import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch import Config
 
     return {"normal_equations": (torch.float32, dist.ReduceOp.SUM,
                                  SHARD_BATCH * 6),
@@ -1174,7 +1191,10 @@ def peer_shapes(torch):
                             SHARD_BATCH * HEADLINE["max_source"]),
             "correspondences": (torch.int32, dist.ReduceOp.SUM, SHARD_BATCH),
             "normal_equations_f64": (torch.float64, dist.ReduceOp.SUM,
-                                     SHARD_BATCH * 6)}
+                                     SHARD_BATCH * 6),
+            "packed_keys_beyond_slot": (
+                torch.int32, dist.ReduceOp.MIN,
+                BEYOND_SLOT_SEQUENCES * Config().max_source)}
 
 
 def peer_parts(torch, np, rng, dtype, n, size, dev):
@@ -1222,10 +1242,12 @@ def peer_phase(torch, np):
     """The map axis's all-reduce over peer memory on this card: peer groups
     of 1, 2 and 4 ranks (``parallel.peer.local_groups``), each rank's
     kernel launched on a stream of its own, at ``peer_shapes``, three
-    rounds each, every rank bit-equal to the plain version
-    (``peer.reference``: rank-order sums and minima); the kernel's ms at one
-    rank and at four (each round's launches between two events) and the
-    plain version's.  (``sharded_2rank`` runs it across two processes.)"""
+    rounds each, then each rank's reduction captured in a graph of its own
+    and replayed twice, every rank bit-equal to the plain version
+    (``peer.reference``: rank-order sums and minima) every time; the
+    kernel's ms at one rank and at four (each round's launches between two
+    events) and the plain version's.  (``sharded_2rank`` runs it across two
+    processes.)"""
     from kinematic_icp_tpu_torch.parallel import peer
 
     dev = torch.device("cuda")
@@ -1256,6 +1278,30 @@ def peer_phase(torch, np):
                     torch.cuda.synchronize()
                     ok &= all(bits_equal(torch, t, want) for t in got)
                 equal[f"{name}_{size}_ranks"] = bool(ok)
+                # each rank's reduction as a graph of its own, replayed
+                # twice at once on the ranks' streams
+                data = [t.clone() for t in given]
+                graphs = []
+                for g, st, t in zip(groups, streams, data):
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.stream(st):
+                        graph.capture_begin()
+                        try:
+                            g.all_reduce(t, op)
+                        finally:
+                            graph.capture_end()
+                    graphs.append(graph)
+                ok = True
+                for _ in range(2):
+                    for t, p in zip(data, given):
+                        t.copy_(p)
+                    torch.cuda.synchronize()
+                    for graph, st in zip(graphs, streams):
+                        with torch.cuda.stream(st):
+                            graph.replay()
+                    torch.cuda.synchronize()
+                    ok &= all(bits_equal(torch, t, want) for t in data)
+                equal[f"{name}_{size}_ranks_captured"] = bool(ok)
                 if size in (1, 4):
                     times = []
                     here = torch.cuda.current_stream()
@@ -1303,14 +1349,19 @@ def sharded_1rank_phase(torch, np, seqs):
     (``run_device`` timed; ``run`` within 1e-5 of it), bit-equal to the
     unsharded runner's loop lowering (the sharded path runs no GN kernel,
     by design), each drive within 5 mm of its ``run_offline`` (which runs
-    the kernel).  Returns (row, the run_device poses (B, F, 4, 4))."""
+    the kernel); its route ("none": a map group of one rank reduces
+    nothing).  Then the NCCL-route row beside it (``sharded_nccl_route``):
+    bit-equal to it, one graph a frame with no IF body, NCCL's collectives
+    counted (1 a frame outside the GN loop on the host; every trip's, 2 x
+    10 + 2 a loop, on the device), ms a batched frame and frames/s.
+    Returns (row, the run_device poses (B, F, 4, 4))."""
     import torch.distributed as dist
 
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.ops import gn, hashmap
     from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
                                                   initialize_distributed,
-                                                  make_mesh,
+                                                  make_mesh, map_route,
                                                   shutdown_distributed)
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1330,6 +1381,7 @@ def sharded_1rank_phase(torch, np, seqs):
         # NCCL's collectives inside the frame's graph (read before the
         # shutdown frees the graphs)
         path = path_of(runner._seq_runner.step.calls)
+        nccl_route = sharded_nccl_route(torch, np, drives, ext)
     finally:
         shutdown_distributed()
     loop = np.asarray(BatchedOdometryRunner(
@@ -1342,7 +1394,7 @@ def sharded_1rank_phase(torch, np, seqs):
            for i, s in enumerate(seqs[:SHARD_BATCH])]
     step_diff = float(np.abs(stepped - device).max())
     row = {"phase": "sharded_1rank", "backend": backend, "mesh": [1, 1],
-           "path": path,
+           "route": map_route(mesh), "path": path,
            "B": SHARD_BATCH, "frames": SHARD_FRAMES, "config": HEADLINE,
            "seconds": seconds, "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
            "run_ms_per_frame": step_s * 1e3 / SHARD_FRAMES,
@@ -1368,7 +1420,78 @@ def sharded_1rank_phase(torch, np, seqs):
     emit(row)
     if not all(row["checks"].values()):
         raise SystemExit(f"sharded_1rank failed: {row['checks']}")
+    nccl_poses = nccl_route.pop("poses")
+    bits = sum(bool(np.array_equal(nccl_poses[:, f], device[:, f]))
+               for f in range(SHARD_FRAMES))
+    trips = Config().max_num_iterations
+    # β's SUM before the first trip and the correspondence count's after
+    # the last
+    around = int(Config().use_adaptive_odometry_regularization) + 1
+    loops = nccl_route["loop_counts"]
+    nccl_row = {"phase": "sharded_1rank_nccl_route", **nccl_route,
+                "frames_bit_equal_to_sharded_1rank": bits}
+    nccl_row["checks"] = {
+        "finite": bool(np.isfinite(nccl_poses).all()),
+        "route_nccl": nccl_route["route"] == "nccl",
+        "bit_equal_to_sharded_1rank": bits == SHARD_FRAMES,
+        "zero_overflow": not nccl_route["overflow"],
+        "captured_on_nccl": nccl_route["path"] == "graph",
+        "no_if_body_in_the_frame": nccl_route["if_bodies"] == 0,
+        "one_collective_a_frame_outside_the_loop":
+            nccl_route["collectives_per_frame"] == 1,
+        # the loop is not gated: every trip's collectives, replayed
+        "every_trip_a_loop": loops["gn_loops"] == SHARD_FRAMES
+        and loops["associations"] == trips * SHARD_FRAMES,
+        "loop_collectives_every_trip":
+            loops["loop_collectives"] == (2 * trips + around) * SHARD_FRAMES,
+        "no_gn_kernel_by_design": nccl_route["gn_launches"] == 0}
+    emit(nccl_row)
+    if not all(nccl_row["checks"].values()):
+        raise SystemExit(f"sharded_1rank_nccl_route failed: "
+                         f"{nccl_row['checks']}")
     return row, device
+
+
+def sharded_nccl_route(torch, np, drives, ext):
+    """``drives`` on a (1, 1) mesh of the current one-rank NCCL group
+    forced onto the "nccl" route (``make_mesh(map_reduce="nccl")``: NCCL's
+    ``all_reduce`` over the one rank, captured in the frame's graph, the GN
+    loop not gated): the timed run (``sharded_runner``), the IF bodies its
+    graphs hold, and the same frames again with the GN loop's work and
+    collectives counted on the device (``counted_run``, on graphs captured
+    again for it).  Returns the row's fields and its ``poses``."""
+    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.parallel import make_mesh, map_route, sharded
+
+    mesh = make_mesh(1, 1, map_reduce="nccl")
+    gn.LAUNCHES = 0
+    poses, seconds, collectives, overflow, runner = sharded_runner(
+        torch, np, mesh, drives, ext)
+    launches = gn.LAUNCHES
+    step = runner._seq_runner.step
+    path = path_of(step.calls)
+    bodies = sum(len(c.body_pools) for c in step.calls)
+
+    def fresh(frames):
+        runner.state = sharded.init_sharded_state(runner.config, mesh,
+                                                  len(drives))
+        runner.poses = [[] for _ in drives]
+        runner.run_device([{k: v[:frames] for k, v in d.items()}
+                           for d in drives])
+        torch.cuda.synchronize()
+
+    loops = counted_run(torch, step.release, lambda: fresh(SHARD_FRAMES),
+                        lambda: fresh(3))
+    return {"route": map_route(mesh), "backend": "nccl", "mesh": [1, 1],
+            "path": path, "if_bodies": bodies, "B": len(drives),
+            "frames": SHARD_FRAMES, "seconds": seconds,
+            "ms_per_frame": seconds * 1e3 / SHARD_FRAMES,
+            "frames_per_s": len(drives) * SHARD_FRAMES / seconds,
+            "collectives_per_frame": collectives / SHARD_FRAMES,
+            "loop_counts": loops,
+            "loop_collectives_per_frame":
+                loops["loop_collectives"] / SHARD_FRAMES,
+            "gn_launches": launches, "overflow": overflow, "poses": poses}
 
 
 def loop_batch_phase(torch, np, seqs):
@@ -1924,10 +2047,10 @@ def device_counts(torch, device="cuda"):
             counts[3].add_(debug.exact_fallback.any().to(torch.int64))
         return pose, debug
 
-    def counting_all_reduce(t, op, group):
+    def counting_all_reduce(t, op, axes):
         if in_loop[0]:
             counts[4].add_(1)
-        return all_reduce(t, op, group)
+        return all_reduce(t, op, axes)
 
     registration.run_gn = counting_run_gn
     registration.compute_robot_motion = counting_motion
@@ -1974,7 +2097,7 @@ def graph_drive(torch, np, seqs, config, count, eager, markers, mesh=None,
     from kinematic_icp_tpu_torch.offline import (
         init_batched_state, make_batched_sequence_runner,
         make_sequence_runner, pad_batch, pad_sequence)
-    from kinematic_icp_tpu_torch.parallel import sharded
+    from kinematic_icp_tpu_torch.parallel import map_route, sharded
 
     dev = torch.device("cuda")
     batched = isinstance(seqs, list)
@@ -2026,6 +2149,8 @@ def graph_drive(torch, np, seqs, config, count, eager, markers, mesh=None,
     row = {"poses": poses, "overflow": overflow, "seconds": seconds,
            "fallback_frames": fallbacks[0] if fallbacks else None,
            **counts, "profile": prof, "path": path_of(calls),
+           "route": None if mesh is None else map_route(mesh),
+           "if_bodies": sum(len(c.body_pools) for c in calls),
            "capture_ms": [c.capture_ms for c in calls] or None,
            "graphs": [c.graphs for c in calls],
            "pool_bytes": pool_bytes(torch, runner.step.pool, calls)
@@ -2078,7 +2203,8 @@ def graph_serve(torch, np, seq, config, count, mode, eager, markers,
            **counts, "fallback_frames": None,
            "frames_registered": s.frames_registered,
            "overflow": s.overflow_stats, "profile": prof,
-           "path": path_of(calls),
+           "path": path_of(calls), "route": None,
+           "if_bodies": sum(len(c.body_pools) for c in calls),
            "capture_ms": None if eager else [c.capture_ms for c in calls],
            "graphs": [c.graphs for c in calls],
            "pool_bytes": None if eager else pool_bytes(torch, s._pool,
@@ -2132,6 +2258,7 @@ def graph_phase(torch, np, seq, drives, card):
     exact, pruned = Config(**EXACT), Config(**PRUNED)
     initialize_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
     mesh = make_mesh(1, 1)
+    nccl_route = make_mesh(1, 1, map_reduce="nccl")
 
     def drive(*a, markers=(COOPERATIVE, REPLAY), **kw):
         return lambda e: graph_drive(torch, np, *a, e, markers[1 - e], **kw)
@@ -2167,6 +2294,10 @@ def graph_phase(torch, np, seq, drives, card):
         ("sharded_1rank_nccl", drive(
             drives[:SHARD_BATCH], headline, SHARD_FRAMES,
             markers=(ANY_LAUNCH, REPLAY), mesh=mesh, loops=True),
+         SHARD_FRAMES, SHARD_BATCH, False, True),
+        ("sharded_1rank_nccl_route", drive(
+            drives[:SHARD_BATCH], headline, SHARD_FRAMES,
+            markers=(ANY_LAUNCH, REPLAY), mesh=nccl_route, loops=True),
          SHARD_FRAMES, SHARD_BATCH, False, True)]
     summary = {}
     try:
@@ -2209,7 +2340,8 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
     equal = sum(bool(np.array_equal(x, y))
                 for x, y in zip(graph["poses"], eager["poses"]))
     row = {"phase": f"graph_{name}", "frames": count, "B": b,
-           "nvidia_smi": card, "path": both("path"),
+           "nvidia_smi": card, "path": both("path"), "route": graph["route"],
+           "if_bodies": graph["if_bodies"],
            "frames_bit_equal": equal,
            "frames_per_s": {"eager": b * count / eager["seconds"],
                             "graph": b * count / graph["seconds"]},
@@ -2259,17 +2391,27 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
                 for k in ("gn_loops", "loop_iterations",
                           "fallback_registrations")) and done > 0,
             "eager_runs_every_trip":
-                eager["loop_counts"]["associations"] == trips * done,
-            "replay_reassociates_as_the_while_loop":
-                made == loops["loop_iterations"] < trips * done})
-        if name.startswith("sharded"):
+                eager["loop_counts"]["associations"] == trips * done})
+        if graph["route"] == "nccl":
+            # no IF node (NCCL's collectives cannot live in one): the
+            # replay runs every trip, masked, as eager does
             row["checks"].update({
-                "loop_collectives_every_trip_eager":
-                    eager["loop_counts"]["loop_collectives"]
-                    == (2 * trips + around) * done,
-                "loop_collectives_as_the_while_loop":
+                "no_if_body_in_the_frame": graph["if_bodies"] == 0,
+                "replay_runs_every_trip": made == trips * done,
+                "loop_collectives_every_trip_replayed":
                     loops["loop_collectives"]
-                    == 2 * loops["loop_iterations"] + around * done})
+                    == (2 * trips + around) * done})
+        else:
+            row["checks"]["replay_reassociates_as_the_while_loop"] = (
+                made == loops["loop_iterations"] < trips * done)
+            if name.startswith("sharded"):
+                row["checks"]["loop_collectives_as_the_while_loop"] = (
+                    loops["loop_collectives"]
+                    == 2 * loops["loop_iterations"] + around * done)
+        if name.startswith("sharded"):
+            row["checks"]["loop_collectives_every_trip_eager"] = (
+                eager["loop_counts"]["loop_collectives"]
+                == (2 * trips + around) * done)
         row["reassociations_a_loop"] = {
             k: (r["loop_counts"]["associations"] - done) / done
             for k, r in (("eager", eager), ("graph", graph))}

@@ -28,6 +28,10 @@
 // rank has published e + 1, which each does only after its reads of epoch
 // e (stream order): two slots need one barrier a reduction.
 //
+// A launch reduces at most a slot; the wrapper (PeerGroup.all_reduce)
+// runs a larger reduction as a launch a slot, in order, each with its own
+// epoch and barrier.
+//
 // One CTA: a reduction is 6 floats a sequence (the normal equations) or an
 // int32 a query (the packed nearest-neighbour keys), a few KB over NVLink;
 // its time is the launch and the barrier's round trip, not bytes.

@@ -157,10 +157,15 @@ def compute_perturbation(source: P3, targets: P3, corr_mask, pose, beta):
         partial_normal_equations(source, targets, corr_mask, pose), beta)
 
 
+def _always(pred, body):
+    """``body()``, whatever ``pred`` says (``run_gn(gated=False)``)."""
+    body()
+
+
 def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
            convergence_criterion: float,
            use_adaptive_odometry_regularization: bool,
-           fixed_regularization: float, reduce=None):
+           fixed_regularization: float, reduce=None, gated: bool = True):
     """The reference GN loop over ``associate(pose) -> (targets, corr_mask,
     violation or None)``.  Returns (pose, iterations, num_correspondences,
     any violation or None).
@@ -192,8 +197,14 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
     takes the same branch at every gate and issues the same collectives
     in the same order.  A value local to a rank (such as the certificate
     ``viol``, None on the sharded path) never gates a body.
+
+    ``gated=False`` runs every trip and every re-association, masked, as
+    ``when`` runs them eagerly, also under capture (no conditional node,
+    the same bits): the sharded path's "nccl" route, whose collectives a
+    conditional body cannot hold.
     """
     total = reduce if reduce is not None else (lambda sums: sums)
+    when = cuda_graph.when if gated else _always
     targets, corr_mask, viol = associate(guess)
     if use_adaptive_odometry_regularization:
         beta = regularization_from_sums(total(partial_residual_sse(
@@ -223,7 +234,7 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
                 if viol is not None:
                     viol.copy_(viol | (use & v2))
 
-            cuda_graph.when(use.any(), reassociate)
+            when(use.any(), reassociate)
         pose.copy_(torch.where(per_row(live, 2), new_pose, pose))
         it.copy_(torch.where(live, it + 1, it))
         conv.copy_(conv | (live & new_conv))
@@ -233,7 +244,7 @@ def run_gn(associate, source: P3, guess, *, max_num_iterations: int,
         if n == 0:
             trip(last)
         else:
-            cuda_graph.when((~conv).any(), functools.partial(trip, last))
+            when((~conv).any(), functools.partial(trip, last))
     return pose, it, total(corr_mask.sum(-1).to(torch.int32)), viol
 
 

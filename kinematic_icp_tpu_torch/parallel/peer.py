@@ -1,4 +1,4 @@
-"""The map axis's all-reduce over peer memory, on an NCCL mesh.
+"""The map axis's all-reduce over peer memory, an NCCL mesh's "peer" route.
 
 JAX reduces over the map axis with ``lax.psum`` and ``lax.pmin`` inside its
 compiled ``while_loop``.  The port's captured frame holds the GN loop's
@@ -9,27 +9,24 @@ instantiation with "invalid argument" and held only with NCCL's
 graph-mixing support off (``NCCL_GRAPH_MIXING_SUPPORT=0``, whose event
 nodes a body refuses), a process-wide setting that drops NCCL's ordering
 of captured against uncaptured launches (``PERF.md`` §6).  So a map
-group on NCCL reduces with the port's own
-kernel (``csrc/peer_reduce.cu``), one plain kernel node: each rank copies
-its part into a region of its own device memory that every rank of the
-group has mapped, waits at a barrier of flags in that memory, and combines
-the group's parts in rank order (the same bits on every rank).
+group whose cards can all map each other's memory reduces with the port's
+own kernel (``csrc/peer_reduce.cu``), one plain kernel node a slot: each
+rank copies its part into a region of its own device memory that every
+rank of the group has mapped, waits at a barrier of flags in that memory,
+and combines the group's parts in rank order (the same bits on every
+rank).  A group that cannot (ranks on other hosts, cards without peer
+access) takes the "nccl" route instead (``parallel.mesh.make_mesh``).
 
-``attach(group, device)`` makes the rank's region and maps the others' (a
-collective over ``group``: the 64-byte IPC handles are exchanged once, when
-the mesh is made, ``parallel.mesh.make_mesh``); ``PeerGroup.all_reduce``
-launches the kernel; ``PeerGroup.close`` unmaps the others' regions and
+``reach(group)`` gathers, over ``group``, why each rank cannot map every
+other rank's region (``unreachable``); ``route`` decides a route from that
+list alone, so every rank decides alike.  ``attach(group, device)`` makes
+the rank's region and maps the others' (a collective over ``group``: the
+64-byte IPC handles are exchanged once, when the mesh is made);
+``PeerGroup.all_reduce`` launches the kernel, once a slot of the tensor
+(``chunks``); ``PeerGroup.close`` unmaps the others' regions and
 ``PeerGroup.free`` frees the rank's own (after every rank's last
 reduction: ``parallel.shutdown_distributed``).  ``reference`` is the
 kernel's plain version: the parts of every rank combined in rank order.
-
-Two limits follow from the route, and each raises with its name:
-  * every rank of the group is on one host and each pair of their cards
-    can map the other's memory (CUDA IPC, ``cudaDeviceCanAccessPeer``);
-    ``attach`` checks that on every rank before it maps anything, so a
-    map group that spans hosts is refused when the mesh is made;
-  * one reduction holds at most ``SLOT_BYTES`` (the packed keys of
-    ``batch // data * max_source`` queries, 4 bytes each).
 """
 
 from __future__ import annotations
@@ -39,9 +36,11 @@ import ctypes
 import torch
 import torch.distributed as dist
 
-#: a slot's bytes: the largest reduction a group takes (the packed keys of
-#: B_local * max_source queries, 4 bytes each: 1,048,576 of them)
+#: a slot's bytes: the most one launch reduces (the packed keys of 1,048,576
+#: queries, 4 bytes each); a larger reduction runs a launch a slot
 SLOT_BYTES = 4 << 20
+#: the routes ``route`` takes: "auto", or one forced
+ROUTES = ("auto", "peer", "nccl")
 #: the kernel's reductions by (dtype, op)
 _KINDS = {(torch.float32, "sum"): 0, (torch.float64, "sum"): 1,
           (torch.int32, "sum"): 2, (torch.int32, "min"): 3}
@@ -96,6 +95,13 @@ def reference(parts, op):
     return acc
 
 
+def chunks(n: int, element_size: int):
+    """(start, stop) element ranges that cover ``n`` elements of
+    ``element_size`` bytes in order, each at most a slot."""
+    per = SLOT_BYTES // element_size
+    return [(i, min(i + per, n)) for i in range(0, n, per)]
+
+
 def make_region(device):
     """(base pointer, IPC handle bytes) of a new zeroed region on the card
     ``device``."""
@@ -108,6 +114,13 @@ def make_region(device):
     return ptr.value, handle.raw
 
 
+def _card(device):
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class PeerGroup:
     """The regions of a map group's ranks as this rank sees them:
     ``pointers`` (one a rank, its own at ``rank``; on ``device``).
@@ -115,10 +128,7 @@ class PeerGroup:
     allocated."""
 
     def __init__(self, device, rank, pointers, owned, imported=()):
-        device = torch.device(device)
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+        self.device = _card(device)
         self.rank, self.size = rank, len(pointers)
         self.pointers = torch.tensor(pointers, dtype=torch.int64,
                                      device=self.device)
@@ -126,22 +136,25 @@ class PeerGroup:
 
     def all_reduce(self, t, op):
         """``t`` (contiguous, on the group's card) reduced over the group in
-        place on the current stream; returns it."""
+        place on the current stream, a launch a slot (``chunks``); returns
+        it.  Every rank reduces the same number of elements, so every rank
+        launches the same chunks in the same order, and each launch reads
+        and bumps the rank's epoch on the device (a replay stays in step
+        with eager reductions over the same group)."""
         kind = _KINDS.get((t.dtype, _op_name(op)))
         if kind is None:
             raise ValueError(f"peer all-reduce: no {t.dtype} {op}")
         if t.device != self.device or not t.is_contiguous():
             raise ValueError(f"peer all-reduce: a contiguous tensor on "
                              f"{self.device}, got {t.device}")
-        if t.numel() * t.element_size() > SLOT_BYTES:
-            raise ValueError(f"peer all-reduce: {t.numel()} elements "
-                             f"exceed a {SLOT_BYTES}-byte slot "
-                             f"(peer.SLOT_BYTES)")
         lib = _load()
-        _check(lib.kicp_peer_all_reduce(
-            torch.cuda.current_stream(self.device).cuda_stream, t.data_ptr(),
-            t.numel(), kind, self.pointers.data_ptr(), self.size, self.rank,
-            SLOT_BYTES), "the peer all-reduce launch")
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        flat = t.view(-1)
+        for start, stop in chunks(t.numel(), t.element_size()):
+            _check(lib.kicp_peer_all_reduce(
+                stream, flat[start:].data_ptr(), stop - start, kind,
+                self.pointers.data_ptr(), self.size, self.rank, SLOT_BYTES),
+                "the peer all-reduce launch")
         return t
 
     def close(self):
@@ -193,29 +206,53 @@ def _card_uuid(index: int) -> str:
     return str(torch.cuda.get_device_properties(index).uuid)
 
 
-def attach(group, device) -> PeerGroup:
-    """This rank's ``PeerGroup`` over ``group`` (a process group, one card
-    a rank): its region made, the handles exchanged over ``group``, the
-    other ranks' regions mapped.  Every rank of ``group`` calls it
-    together.  First every rank checks that it can map every other rank's
-    card (``unreachable``), and if any cannot, every rank raises, naming
-    the limit, before anything is mapped."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    size, rank = dist.get_world_size(group), dist.get_rank(group)
+def reach(group, device=None):
+    """Why each rank of ``group`` (one card a rank) cannot map every other
+    rank's region (``unreachable``; None where it can), in rank order: the
+    card UUIDs gathered over ``group`` and each rank's answer gathered
+    again, so every rank holds the same list.  Every rank of ``group``
+    calls it together."""
+    device = _card(device)
     local = [_card_uuid(i) for i in range(torch.cuda.device_count())]
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
     cards = [None] * size
     dist.all_gather_object(cards, local[device.index], group=group)
     why = [None] * size
     dist.all_gather_object(why, unreachable(
         cards, rank, local, torch.cuda.can_device_access_peer), group=group)
+    return why
+
+
+def route(why, asked: str = "auto") -> str:
+    """The route of a map group's reductions from ``reach``'s list ``why``
+    (the same on every rank, so every rank decides alike): "auto" takes
+    "peer" where every rank reaches every other and "nccl" otherwise;
+    "peer" raises, naming each rank that cannot and the limit, where any
+    cannot; "nccl" is "nccl"."""
+    if asked not in ROUTES:
+        raise ValueError(f"map_reduce {asked!r}: one of {ROUTES}")
     refused = [f"rank {r}: {w}" for r, w in enumerate(why) if w]
+    if asked == "nccl" or (asked == "auto" and refused):
+        return "nccl"
     if refused:
         raise RuntimeError(
-            "a map group on NCCL reduces over peer memory mapped with CUDA "
-            "IPC, so its ranks must share one host and each pair of their "
-            "cards must have peer access: " + "; ".join(refused))
+            "the peer route maps each rank's region with CUDA IPC, so the "
+            "ranks of a map group must share one host and each pair of "
+            "their cards must have peer access: " + "; ".join(refused))
+    return "peer"
+
+
+def attach(group, device, why=None) -> PeerGroup:
+    """This rank's ``PeerGroup`` over ``group`` (a process group, one card
+    a rank): its region made, the handles exchanged over ``group``, the
+    other ranks' regions mapped.  Every rank of ``group`` calls it
+    together.  First every rank checks that it can map every other rank's
+    card (``reach``, or its list ``why`` where the caller has gathered
+    it), and if any cannot, every rank raises, naming the limit, before
+    anything is mapped."""
+    device = _card(device)
+    route(reach(group, device) if why is None else why, "peer")
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
     ptr, handle = make_region(device)
     handles = [None] * size
     dist.all_gather_object(handles, handle, group=group)

@@ -5,9 +5,10 @@ The voxel hash map's buckets are partitioned over the ``map`` mesh axis
 inside each shard keeps using the low bits of its own hash); independent
 sequences are partitioned over the ``data`` axis.  A rank holds its
 ``batch // data`` sequences and, of each, ``map_capacity // map`` slots.
-Per GN trip, on collectives over the map group (on NCCL the port's own
-all-reduce over peer memory, ``parallel.peer``, which a conditional graph
-node can hold; on gloo ``torch.distributed``'s):
+Per GN trip, on collectives over the map group (by the mesh's route,
+``parallel.mesh.make_mesh``: the port's own all-reduce over peer memory,
+``parallel.peer``, which a conditional graph node can hold; or the
+group's own ``all_reduce``, NCCL's or gloo's):
 
   * every shard searches its local table for all query points (a voxel
     another shard owns is simply absent),
@@ -35,9 +36,13 @@ predicate of those nodes is computed from reduced values only, so every
 rank of a map group takes the same branch and issues the same collectives
 in the same order (a branch on one rank's data would leave the other
 ranks waiting in a collective).  Eagerly every trip runs, masked, and
-issues its collectives.  The GN kernel does not run here, by design, as in
-the JAX package (``Config.gn_backend`` is ignored): each trip needs the
-cross-shard minimum, which the GN kernel cannot take inside it.
+issues its collectives.  On the "nccl" route the loop is not gated
+(``run_gn(gated=False)``): NCCL's collectives cannot live in a
+conditional body, so a captured frame runs every trip and every
+re-association, masked, as the eager loop does, with the same bits.  The
+GN kernel does not run here, by design, as in the JAX package
+(``Config.gn_backend`` is ignored): each trip needs the cross-shard
+minimum, which the GN kernel cannot take inside it.
 
 ``COLLECTIVES`` counts, on the host, the collectives a frame issues
 outside the GN loop (the insert failures' SUM and the data-axis gathers);
@@ -48,7 +53,8 @@ the host whether they ran, and a production frame counts nothing there: a
 caller that wants them counts them on the device by wrapping
 ``_all_reduce`` while ``registration.run_gn`` runs, as ``chip_smoke.py``'s
 ``device_counts`` counts the loop's associations.  A map group of one
-rank reduces nothing (its ``_all_reduce`` returns its input).
+rank on the "none" route reduces nothing (its ``_all_reduce`` returns its
+input).
 
 Three differences from the JAX package's sharded path, each a fault there:
 the downsample honours ``Config.downsample_tiebreak``; the exact mode
@@ -90,6 +96,8 @@ class _Axes(NamedTuple):
     data_group: object
     map_group: object
     device: torch.device
+    route: str                # the map axis's route (``make_mesh``)
+    peers: object             # its ``peer.PeerGroup`` on the "peer" route
 
 
 def _axes(mesh) -> _Axes:
@@ -103,21 +111,19 @@ def _axes(mesh) -> _Axes:
         dev = torch.device(mesh.device_type)
     return _Axes(data, m, mesh.get_local_rank("data"),
                  mesh.get_local_rank("map"), mesh.get_group("data"),
-                 mesh.get_group("map"), dev)
+                 mesh.get_group("map"), dev, *_mesh.map_reduction(mesh))
 
 
-def _all_reduce(t, op, group):
-    """``t`` reduced in place over the map ``group`` (every rank gets the
-    same bits), and returned; ``t`` itself on a group of one rank.  On
-    NCCL the port's kernel over peer memory (``parallel.peer``), which a
-    conditional body can hold; gloo's ``all_reduce`` otherwise."""
-    if dist.get_world_size(group) == 1:
-        return t
-    peers = _mesh.peer_group(group)
-    if peers is None:
-        dist.all_reduce(t, op=op, group=group)
-    else:
-        peers.all_reduce(t, op)
+def _all_reduce(t, op, axes: _Axes):
+    """``t`` reduced in place over the map group (every rank gets the same
+    bits), and returned, by the route of ``axes``: the port's kernel over
+    peer memory (``parallel.peer``), which a conditional body can hold, on
+    "peer"; ``t`` itself on "none"; the group's own ``all_reduce``
+    otherwise."""
+    if axes.route == "peer":
+        axes.peers.all_reduce(t, op)
+    elif axes.route != "none":
+        dist.all_reduce(t, op=op, group=axes.map_group)
     return t
 
 
@@ -156,7 +162,7 @@ def shard_keys(dist_, shard: int):
 def _mine(dist_, axes: _Axes):
     """The queries whose nearest neighbour is on this shard."""
     keys = shard_keys(dist_, axes.j)
-    best = _all_reduce(keys.clone(), dist.ReduceOp.MIN, axes.map_group)
+    best = _all_reduce(keys.clone(), dist.ReduceOp.MIN, axes)
     return keys == best
 
 
@@ -202,8 +208,8 @@ def _sharded_robot_motion(local_map, source, source_mask, last_pose,
         use_adaptive_odometry_regularization=(
             config.use_adaptive_odometry_regularization),
         fixed_regularization=config.fixed_regularization,
-        reduce=lambda sums: _all_reduce(sums, dist.ReduceOp.SUM,
-                                        axes.map_group))
+        reduce=lambda sums: _all_reduce(sums, dist.ReduceOp.SUM, axes),
+        gated=axes.route != "nccl")
     return pose, registration.RegistrationDebug(iterations=iters,
                                                 num_correspondences=ncorr)
 
@@ -249,7 +255,7 @@ def sharded_register_frame(state: pipeline.OdometryState, points, timestamps,
                                     prep.frame_ds_mask, new_pose, config,
                                     axes, active)
     COLLECTIVES += 1
-    failed = _all_reduce(failed, dist.ReduceOp.SUM, axes.map_group)
+    failed = _all_reduce(failed, dist.ReduceOp.SUM, axes)
     return pipeline.finish_frame(state, prep, relative_odometry, new_pose,
                                  debug, new_map, failed, config, active)
 
@@ -311,13 +317,14 @@ def make_sharded_step(config: Config, mesh):
     overflow are the step's too.  Where the map group is NCCL's the frame
     is captured as a CUDA graph at its first call of each static shape and
     replayed every frame, its collectives inside the graph, with no host
-    sync, the GN loop's later trips and re-associations inside conditional
-    nodes (a replay makes JAX's trips); on gloo, whose collectives a
-    CUDA graph cannot hold, or on the CPU, the same frame runs eagerly over
-    the same buffers, every trip.  The gathers over the data axis run
-    outside the frame.  A captured frame refers to the map group's peer
-    regions: leave the group with ``parallel.shutdown_distributed``, which
-    frees the graphs first.
+    sync: on the "peer" and "none" routes the GN loop's later trips and
+    re-associations inside conditional nodes (a replay makes JAX's trips),
+    on the "nccl" route every trip, masked, outside any; on gloo, whose
+    collectives a CUDA graph cannot hold, or on the CPU, the same frame
+    runs eagerly over the same buffers, every trip.  The gathers over the
+    data axis run outside the frame.  A captured frame refers to the map
+    group's communicator or peer regions: leave the group with
+    ``parallel.shutdown_distributed``, which frees the graphs first.
     """
     axes = _axes(mesh)
     frame = _frame_step(config, mesh, axes)

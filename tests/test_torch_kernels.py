@@ -1149,10 +1149,10 @@ def _count_sharded_loop(monkeypatch, dev):
         counts[1].add_(out[1].max().to(torch.int64))
         return out
 
-    def counting_all_reduce(t, op, group):
+    def counting_all_reduce(t, op, axes):
         if in_loop[0]:
             counts[2].add_(1)
-        return all_reduce(t, op, group)
+        return all_reduce(t, op, axes)
 
     monkeypatch.setattr(registration, "run_gn", counting)
     monkeypatch.setattr(sharded, "_all_reduce", counting_all_reduce)
@@ -1196,7 +1196,8 @@ def test_sharded_one_rank_nccl_captured_bit_equal_to_eager(card,
     try:
         mesh = make_mesh(1, 1)
         # a map group of one rank reduces nothing: no peer regions
-        assert tmesh.peer_group(mesh.get_group("map")) is None
+        assert tmesh.map_reduction(mesh).peers is None
+        assert tmesh.map_route(mesh) == "none"
         runs = {}
         for eager in (True, False):
             run = sharded.make_sharded_sequence_runner(cfg, mesh,
@@ -1290,6 +1291,89 @@ def test_sharded_one_rank_nccl_frames_replayed_exit_early(card, monkeypatch):
     assert min(trips) < 10
 
 
+@pytest.mark.cuda
+def test_sharded_one_rank_forced_nccl_replayed_without_if_nodes(card,
+                                                               monkeypatch):
+    """A one-rank NCCL group forced onto the "nccl" route
+    (``make_mesh(map_reduce="nccl")``): NCCL's ``all_reduce`` over the one
+    rank, captured in the frame's one graph with no conditional node (no
+    IF body), each frame replayed under ``set_sync_debug_mode("error")``
+    bit-equal to the eager frame and to the "auto" route's replay (a
+    one-rank group that reduces nothing, its loop exiting early).  Counted
+    on the device: the "nccl" loop runs ``max_num_iterations`` trips (10
+    associations) and issues 2 x 10 + 2 collectives a loop, replayed and
+    eager alike, with the iterations the "auto" replay makes in its own
+    trips."""
+    import socket
+
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import pad_batch
+    from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
+                                                  make_mesh, mesh as tmesh,
+                                                  sharded,
+                                                  shutdown_distributed)
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    cfg = Config(max_points=4096, max_downsampled=4096, max_source=1024,
+                 map_capacity=1 << 13, max_range=60.0, deskew=True)
+    frames, trips = 6, cfg.max_num_iterations
+    seqs = [synthetic.make_sequence(frames, world_seed=w, traj_seed=w + 10,
+                                    noise_seed=w + 20) for w in range(2)]
+    pts, ts, mask, has_ts, rels = (torch.from_numpy(a).to(card)
+                                   for a in pad_batch(seqs, cfg))
+    ext = torch.eye(4, device=card)
+    active = torch.ones(2, dtype=torch.bool, device=card)
+    counts = _count_sharded_loop(monkeypatch, card)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        meshes = {r: make_mesh(1, 1, map_reduce=r) for r in ("nccl", "auto")}
+        assert [tmesh.map_route(m) for m in meshes.values()] == ["nccl",
+                                                                 "none"]
+        assert tmesh._peers == []
+        steps, states, calls = {}, {}, {}
+        for r, m in meshes.items():
+            before = set(tmesh._captured)
+            steps[r] = sharded.make_sharded_step(cfg, m)
+            states[r] = sharded.init_sharded_state(cfg, m, 2)
+            steps[r](pipeline.clone_state(states[r]), pts[0], ts[0], mask[0],
+                     has_ts[0], ext, rels[0], active)  # the capture
+            calls[r] = [c for s in set(tmesh._captured) - before
+                        for c in s.calls]
+        assert [c.graphs for c in calls["nccl"] + calls["auto"]] == [1, 1]
+        assert calls["nccl"][0].body_pools == []  # no IF node
+        assert calls["auto"][0].body_pools != []
+        eager = pipeline.clone_state(states["nccl"])
+        its_seen = []
+        for f in range(frames):
+            inputs = (pts[f], ts[f], mask[f], has_ts[f], ext, rels[f])
+            got = {}
+            for r, step in steps.items():
+                counts.zero_()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    states[r], poses, _ = step(states[r], *inputs, active)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                got[r] = (_bits(poses).clone(), counts.tolist())
+            counts.zero_()
+            eager, out = sharded.sharded_register_frame(
+                eager, *inputs, cfg, meshes["nccl"], active=active)
+            its = int(out.debug.iterations.max())
+            assert torch.equal(got["nccl"][0], _bits(out.pose)), f
+            assert torch.equal(got["auto"][0], got["nccl"][0]), f
+            every = [trips, its, 2 * trips + AROUND_THE_LOOP]
+            assert got["nccl"][1] == counts.tolist() == every, f
+            assert got["auto"][1] == [its, its, 2 * its + AROUND_THE_LOOP], f
+            its_seen.append(its)
+    finally:
+        shutdown_distributed()
+    assert min(its_seen) < trips
+
+
 #: the map axis's reductions (dtype, op, elements) at the sharded path's
 #: shapes (B = 2): β's sums, the normal equations, the packed keys of 1,024
 #: queries a row, the correspondence count; and a float64 state's sums
@@ -1336,6 +1420,70 @@ def test_peer_all_reduce_matches_its_plain_version(card, size):
                 for t in got:
                     assert torch.equal(_bits(t), _bits(want)), (dtype, n)
     finally:
+        for g in groups:
+            g.free()
+
+
+#: every kind of the peer kernel: (dtype, op)
+PEER_KINDS = [("float32", "SUM"), ("float64", "SUM"), ("int32", "SUM"),
+              ("int32", "MIN")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [2.5, 3.01],
+                         ids=["2.5-slots", "3-slots-and-a-remainder"])
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_peer_all_reduce_beyond_a_slot(card, size, slots):
+    """``size`` ranks of a peer group on one card reduce more than a slot
+    (``peer.SLOT_BYTES``) of every kind, a launch a slot, each rank on a
+    stream of its own at once: eagerly, then as each rank's captured graph
+    replayed twice (the launches' epochs read and bumped on the device, in
+    step with the eager ones), every rank's result the plain version's bits
+    each time."""
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.parallel import peer
+
+    groups = peer.local_groups(card, size)
+    streams = [torch.cuda.Stream(card) for _ in range(size)]
+    rng = np.random.default_rng([size, int(slots * 100)])
+    try:
+        for dtype, op in PEER_KINDS:
+            op = getattr(dist.ReduceOp, op)
+            n = int(slots * peer.SLOT_BYTES) // np.dtype(dtype).itemsize
+            assert len(peer.chunks(n, np.dtype(dtype).itemsize)) == int(
+                np.ceil(slots))
+            parts = _peer_parts(card, rng, size, dtype, n)
+            want = _bits(peer.reference(parts, op))
+            data = [p.clone() for p in parts]
+            torch.cuda.synchronize()
+            for g, s, t in zip(groups, streams, data):
+                with torch.cuda.stream(s):
+                    g.all_reduce(t, op)
+            torch.cuda.synchronize()
+            assert all(torch.equal(_bits(t), want) for t in data), dtype
+            graphs = []
+            for g, s, t in zip(groups, streams, data):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.stream(s):
+                    graph.capture_begin()
+                    try:
+                        g.all_reduce(t, op)
+                    finally:
+                        graph.capture_end()
+                graphs.append(graph)
+            for replay in range(2):
+                for t, p in zip(data, parts):
+                    t.copy_(p)
+                torch.cuda.synchronize()
+                for graph, s in zip(graphs, streams):
+                    with torch.cuda.stream(s):
+                        graph.replay()
+                torch.cuda.synchronize()
+                assert all(torch.equal(_bits(t), want) for t in data), (
+                    dtype, replay)
+    finally:
+        torch.cuda.synchronize()
         for g in groups:
             g.free()
 

@@ -1,13 +1,16 @@
 """The map axis's all-reduce over peer memory (``parallel.peer``), on the
-CPU: its plain version and where the sharded path takes it.
+CPU: its plain version, its chunks, and the route a mesh's map axis takes.
 
 The kernel (``csrc/peer_reduce.cu``) runs only on a card: the card tests
 (``tests/test_torch_kernels.py``) hold it to ``peer.reference`` at 1, 2 and
-4 ranks on one card and inside a captured IF node.  Here: the plain
-version combines in rank order (float sums are not associative, and every
-rank must get the same bits), JAX's ``psum`` and ``pmin`` on the same parts
-agree with it, and a gloo mesh reduces through ``torch.distributed`` with
-no peer group.
+4 ranks on one card, beyond a slot, and inside a captured IF node.  Here:
+the plain version combines in rank order (float sums are not associative,
+and every rank must get the same bits), JAX's ``psum`` and ``pmin`` on the
+same parts agree with it, a reduction beyond a slot runs in slot-sized
+chunks with the same bits, a gloo mesh reduces through
+``torch.distributed`` with no peer group, and ``make_mesh`` routes a map
+group whose ranks cannot map each other's memory to "nccl" ("auto") or
+refuses it ("peer").
 """
 
 import jax
@@ -17,8 +20,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from kinematic_icp_tpu_torch.parallel import make_mesh, mesh as tmesh, peer
-from kinematic_icp_tpu_torch.parallel import sharded
+from kinematic_icp_tpu_torch.parallel import (make_mesh, map_route,
+                                              mesh as tmesh, peer, sharded)
 
 torch.set_num_threads(1)
 
@@ -60,6 +63,124 @@ def test_reference_combines_in_rank_order(size, dtype, op):
             np.testing.assert_allclose(row, got, rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32])
+@pytest.mark.parametrize("slots", [0.25, 1, 2.5, 3.1])
+def test_chunks_cover_a_reduction_in_order_a_slot_at_most(dtype, slots):
+    """A reduction of any size runs as slot-sized launches: the chunks
+    cover its elements in order, none past a slot, and the plain version
+    over the chunks is the plain version over the whole, bit for bit (each
+    element combines the ranks' parts alone, in rank order)."""
+    size = np.dtype(dtype).itemsize
+    n = int(slots * peer.SLOT_BYTES / size) + (7 if slots > 3 else 0)
+    got = peer.chunks(n, size)
+    assert got[0][0] == 0 and got[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    assert all(0 < (b - a) * size <= peer.SLOT_BYTES for a, b in got)
+    assert len(got) == -(-n * size // peer.SLOT_BYTES)
+    assert peer.chunks(0, size) == []
+    rng = np.random.default_rng(n)
+    for op in (dist.ReduceOp.SUM, dist.ReduceOp.MIN):
+        if op == dist.ReduceOp.MIN and dtype != np.int32:
+            continue
+        parts = [torch.from_numpy(p) for p in _parts(rng, 3, dtype, n)]
+        whole = peer.reference(parts, op)
+        pieces = torch.cat([peer.reference([p[a:b] for p in parts], op)
+                            for a, b in got])
+        assert torch.equal(whole.view(torch.uint8), pieces.view(torch.uint8))
+
+
+#: reach lists (one entry a rank, as ``peer.reach`` gathers them): four
+#: ranks that reach each other; two whose rank 1 cannot see rank 0's card
+REACHED = [None, None, None, None]
+CUT_OFF = [None, "rank 0's card GPU-x is on another host or not visible "
+           "here"]
+
+
+@pytest.mark.parametrize("why,auto", [(REACHED, "peer"), (CUT_OFF, "nccl"),
+                                      ([None], "peer")])
+def test_route_decided_alike_from_the_gathered_reach(why, auto):
+    """The route is a function of the gathered list alone, so every rank,
+    holding the same list, takes the same one: "auto" is "peer" where every
+    rank reaches every other and "nccl" where any cannot; "nccl" stays
+    "nccl"; "peer" raises where any rank cannot, naming it and the limit."""
+    for _rank in range(len(why)):  # each rank holds the same list
+        assert peer.route(list(why)) == auto
+        assert peer.route(list(why), "nccl") == "nccl"
+    if auto == "peer":
+        assert peer.route(why, "peer") == "peer"
+    else:
+        with pytest.raises(RuntimeError) as refused:
+            peer.route(why, "peer")
+        assert "rank 1" in str(refused.value)
+        assert "another host" in str(refused.value)
+        assert "share one host" in str(refused.value)
+    with pytest.raises(ValueError, match="map_reduce"):
+        peer.route(why, "psum")
+
+
+@pytest.fixture
+def nccl_map_group(monkeypatch):
+    """A world of two ranks seen by rank 0 whose map group says it is
+    NCCL's: ``make_mesh(1, 2)`` takes its route decision as on two cards
+    (the mesh itself is a one-rank gloo mesh, and nothing is mapped)."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = tmesh.init_device_mesh("cpu", (1, 1),
+                                  mesh_dim_names=("data", "map"))
+    monkeypatch.setattr(tmesh, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(tmesh, "init_device_mesh", lambda *a, **kw: mesh)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    monkeypatch.setattr(peer, "attach", lambda *a: pytest.fail(
+        "mapped a region"))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_mesh_routes_an_unreachable_map_group_to_nccl(nccl_map_group,
+                                                           monkeypatch):
+    """On an NCCL map group whose rank 1 is on another host, "auto" maps
+    nothing and takes the "nccl" route, where it used to raise; forced
+    "peer" still raises, naming the rank and the limit, before mapping;
+    forced "nccl" asks nothing of the group's reach."""
+    asked = []
+
+    def unreachable_reach(group, device=None):
+        asked.append(group)
+        return list(CUT_OFF)
+
+    monkeypatch.setattr(peer, "reach", unreachable_reach)
+    mesh = make_mesh(1, 2)
+    assert map_route(mesh) == "nccl" and tmesh.map_reduction(mesh).peers is None
+    assert len(asked) == 1 and tmesh._peers == []
+    with pytest.raises(RuntimeError, match="rank 1.*another host"):
+        make_mesh(1, 2, map_reduce="peer")
+    assert map_route(make_mesh(1, 2, map_reduce="nccl")) == "nccl"
+    assert len(asked) == 2
+    with pytest.raises(ValueError, match="map_reduce"):
+        make_mesh(1, 2, map_reduce="ring")
+
+
+def test_make_mesh_takes_the_peer_route_where_every_rank_reaches(
+        nccl_map_group, monkeypatch):
+    """Where every rank reaches every other, "auto" maps the peer regions
+    (``peer.attach``, given the gathered list) and reduces over them."""
+    mapped = []
+    monkeypatch.setattr(peer, "reach", lambda group, device=None: [None] * 2)
+    monkeypatch.setattr(peer, "attach", lambda group, device, why:
+                        mapped.append(why) or "regions")
+    mesh = make_mesh(1, 2)
+    try:
+        assert map_route(mesh) == "peer"
+        assert tmesh.map_reduction(mesh).peers == "regions"
+        assert mapped == [[None, None]] and tmesh._peers == ["regions"]
+    finally:
+        tmesh._peers.clear()
+
+
 def test_reference_refuses_other_ops():
     with pytest.raises(ValueError, match="peer all-reduce"):
         peer.reference([torch.ones(3)], dist.ReduceOp.MAX)
@@ -76,14 +197,15 @@ def test_gloo_mesh_reduces_without_a_peer_group():
                             world_size=1)
     try:
         mesh = make_mesh(1, 1, "cpu")
-        group = mesh.get_group("map")
-        assert tmesh.peer_group(group) is None
+        assert tmesh.map_reduction(mesh).peers is None
+        assert map_route(mesh) == "none"
+        axes = sharded._axes(mesh)
         before = sharded.COLLECTIVES
         t = torch.arange(6.0)
-        assert sharded._all_reduce(t, dist.ReduceOp.SUM, group) is t
+        assert sharded._all_reduce(t, dist.ReduceOp.SUM, axes) is t
         assert torch.equal(t, torch.arange(6.0))
         cuda_graph.when(torch.tensor(True), lambda: sharded._all_reduce(
-            t, dist.ReduceOp.MIN, group))
+            t, dist.ReduceOp.MIN, axes))
         assert torch.equal(t, torch.arange(6.0))
         assert sharded.COLLECTIVES == before
     finally:

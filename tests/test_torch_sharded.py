@@ -285,6 +285,61 @@ def test_sharded_downsample_honours_tiebreak(one_rank, sequences):
     assert apart > 1e-4 and np.abs(jposes - got_min).max() > 1e-4
 
 
+def test_nccl_route_keeps_the_loop_collectives_out_of_if_bodies(
+        one_rank, small_sequences, monkeypatch):
+    """With ``cuda_graph.when`` doing what a captured IF node does (the
+    body only where its predicate is set) and every map-axis reduction
+    recorded with the number of bodies around it: on the "nccl" route no
+    reduction sits inside a body and every trip issues its own (β's SUM,
+    a SUM a trip, a MIN a re-association, the correspondence count's SUM
+    and the insert failures' SUM: 2 x 10 + 3 a frame); on the "peer"
+    route the later trips' reductions sit inside bodies, and fewer run.
+    The poses are the same bits on both routes."""
+    from kinematic_icp_tpu_torch.utils import cuda_graph
+
+    cfg = _port_cfg(SMALL, gn_backend="torch")
+    frames = 3
+    packed = [torch.from_numpy(a[:frames]) for a in toffline.pad_batch(
+        _runs(small_sequences[:1]), cfg)]
+    depth, issued = [0], []
+
+    def if_node(pred, body):
+        depth[0] += 1
+        try:
+            if bool(pred):
+                body()
+        finally:
+            depth[0] -= 1
+
+    def recorded(t, op, axes):
+        issued[-1].append(depth[0])
+        return t
+
+    monkeypatch.setattr(cuda_graph, "when", if_node)
+    monkeypatch.setattr(sharded, "_all_reduce", recorded)
+    routes = {}
+    for route in ("nccl", "peer"):
+        axes = sharded._axes(one_rank)._replace(route=route)
+        monkeypatch.setattr(sharded, "_axes", lambda mesh: axes)
+        state = sharded.init_sharded_state(cfg, one_rank, 1)
+        poses, counts = [], []
+        for f in range(frames):
+            issued.append([])
+            state, out = sharded.sharded_register_frame(
+                state, *(a[f] for a in packed[:4]), torch.eye(4),
+                packed[4][f], cfg, one_rank,
+                active=torch.ones(1, dtype=torch.bool))
+            poses.append(out.pose.clone())
+            counts.append(issued[-1])
+        routes[route] = torch.stack(poses), counts
+    every_trip = 2 * cfg.max_num_iterations + 3
+    nccl, peer = routes["nccl"][1], routes["peer"][1]
+    assert all(c == [0] * every_trip for c in nccl)
+    assert any(max(c) > 0 for c in peer)
+    assert all(len(c) < every_trip for c in peer)
+    assert torch.equal(routes["nccl"][0], routes["peer"][0])
+
+
 def test_mesh_checks_its_shape(one_rank):
     with pytest.raises(ValueError, match="ranks"):
         make_mesh(2, 1, CPU)

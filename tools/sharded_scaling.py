@@ -2,39 +2,50 @@
 
 Usage (on a machine with CUDA cards; one rank a card, NCCL):
 
-    python3 tools/sharded_scaling.py [--frames 20]
+    python3 tools/sharded_scaling.py [--frames 20] [--map-reduce peer nccl]
 
 or, to rehearse the same program on the CPU (gloo, a small drive):
 
-    python3 tools/sharded_scaling.py --device cpu --world 4 [--frames 4]
+    python3 tools/sharded_scaling.py --device cpu --world 4 [--frames 4] \
+        [--map-reduce auto nccl]
 
 The script starts one worker process a rank (each under a wall limit) and
 drives ``parallel.BatchedOdometryRunner(mesh=...).run_device`` over
 ``world`` distinct headline drives of ``chip_smoke.py`` on every (data,
-map) mesh of the world: (world, 1), the square-most split, and (1, world).
-On NCCL that runner replays each rank's frame as a CUDA graph, the GN
-loop's later trips and re-associations (with their SUMs and MINs) inside
-conditional nodes; the same drives then run through
+map) mesh of the world: (world, 1), the square-most split, and (1, world),
+each mesh once a map-axis route of ``--map-reduce`` (``make_mesh``'s
+``map_reduce``: "auto", "peer", "nccl"), the routes in turns (reversed on
+every other mesh).  On NCCL that runner replays each rank's frame as a
+CUDA graph: on the "peer" route the GN loop's later trips and
+re-associations (with their SUMs and MINs over peer memory) inside
+conditional nodes; on the "nccl" route NCCL's collectives in the graph
+and every trip run, masked.  The same drives then run through
 ``make_sharded_sequence_runner(eager=True)``, op by op, every trip, and
 every rank checks the two bit-equal.  Each rank counts, on the device, the
 trips JAX's ``while_loop`` makes (the most GN iterations of its rows a
 frame) and the GN loop's collectives (``chip_smoke.device_counts``),
-captured and eager: a replay issues a SUM a trip and a MIN an
+captured and eager: a gated replay issues a SUM a trip and a MIN an
 association, 2 trips + 2 a frame with β's and the correspondence count's
-SUMs, eager 2 ``max_num_iterations`` + 2.  The ranks leave the group
-with ``parallel.shutdown_distributed`` with the last mesh's runners alive.
+SUMs; eager and the "nccl" route 2 ``max_num_iterations`` + 2.  On CUDA
+the ranks first reduce ``chip_smoke.peer_shapes`` (one of them beyond a
+slot of the peer kernel) over peer memory across the world's processes,
+bit-equal to the plain version.  The ranks leave the group with
+``parallel.shutdown_distributed`` with the last mesh's runners alive.
 Rank 0 then runs the same drives through the unsharded runner's loop
 lowering on its own card, the yardstick (the sharded path is that loop
 with collectives), at B = world and at B = 1 on each drive alone.  Rank 0
-prints one JSON line a mesh: wall ms a batched frame captured and eager,
-aggregate frames/s, collectives a frame (outside the GN loop on the host,
-and the loop's on the device, captured and eager) and trips a frame by
-rank, whether every rank's captured poses were bit-equal to its eager ones
-and its loop's collectives were its trips', each drive's ATE and the largest
-pose difference from the unsharded run, the frames bit-equal to it at
-B = world and to each drive's B = 1 run, and each shard's voxel count;
-then the unsharded run's line and the cards' ``nvidia-smi`` name and power
-limit (the first card's).
+prints the peer check's line, then one JSON line a mesh and route: the
+route, wall ms a batched frame captured and eager, aggregate frames/s,
+collectives a frame (outside the GN loop on the host, and the loop's on
+the device, captured and eager) and trips a frame by rank, whether every
+rank's captured poses were bit-equal to its eager ones, its loop's
+collectives were its trips' and the ranks of each map group made the same
+trips, each drive's ATE and the largest pose difference from the
+unsharded run and from the mesh's first route (within 5 mm), the frames
+bit-equal to the unsharded run at B = world and to each drive's B = 1
+run, and each shard's voxel count; then the unsharded run's line and the
+cards' ``nvidia-smi`` name and power limit (the first card's).  It exits
+non-zero where a check fails.
 """
 
 from __future__ import annotations
@@ -121,13 +132,14 @@ def worker(args):
     import torch
     import torch.distributed as dist
 
-    from chip_smoke import HEADLINE, device_counts
+    from chip_smoke import HEADLINE, device_counts, peer_across_processes
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import pad_batch
     from kinematic_icp_tpu_torch.ops import hashmap
     from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
                                                   initialize_distributed,
-                                                  make_mesh, sharded,
+                                                  make_mesh, map_route,
+                                                  sharded,
                                                   shutdown_distributed)
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
@@ -146,10 +158,21 @@ def worker(args):
     # correspondence count's after the last
     around = int(cfg.use_adaptive_odometry_regularization) + 1
     rows = []
+    # a reduction beyond a slot over peer memory across the processes
+    peer_ok = None
+    if args.device == "cuda":
+        peer_ok = peer_across_processes(
+            torch, np, dist.group.WORLD,
+            torch.device("cuda", torch.cuda.current_device()))
+    turns = [(data, m, route)
+             for i, (data, m) in enumerate(meshes(args.world))
+             for route in (args.map_reduce if i % 2 == 0
+                           else args.map_reduce[::-1])]
     with device_counts(torch, dev) as loop_counts:
         try:
-            for data, m in meshes(args.world):
-                mesh = make_mesh(data, m, args.device)
+            for data, m, asked in turns:
+                mesh = make_mesh(data, m, args.device, map_reduce=asked)
+                route = map_route(mesh)
                 # the warm-up captures the runner's frame on NCCL; the timed
                 # run replays it from a fresh state
                 runner = BatchedOdometryRunner(cfg, args.world, mesh=mesh,
@@ -187,12 +210,14 @@ def worker(args):
                 every_trip = (2 * cfg.max_num_iterations + around) * f
                 captured = all(c.graphs
                                for c in runner._seq_runner.step.calls)
+                # on the "nccl" route the replay runs every trip too
+                gated = captured and route != "nccl"
                 same = np.array_equal(poses,
                                       eager_poses.transpose(1, 0, 2, 3))
                 as_trips = (graph_counts[0] == eager_counts[0]
                             and graph_counts[2] == (
                                 2 * graph_counts[0] + around * f
-                                if captured else every_trip)
+                                if gated else every_trip)
                             and eager_counts[2] == every_trip)
                 mine = torch.tensor(graph_counts + eager_counts
                                     + [int(same), int(as_trips)],
@@ -201,7 +226,8 @@ def worker(args):
                          for _ in range(args.world)]
                 dist.all_gather(ranks, mine)
                 ranks = [r.tolist() for r in ranks]
-                rows.append({"mesh": [data, m], "poses": poses,
+                rows.append({"mesh": [data, m], "map_reduce": asked,
+                             "route": route, "poses": poses,
                              "seconds": seconds, "eager_seconds": eager_s,
                              "collectives": graph_counts[1],
                              "by_rank": ranks,
@@ -227,10 +253,25 @@ def worker(args):
     alone = np.concatenate([np.asarray(BatchedOdometryRunner(
         lowering, 1, extrinsic=ext, device=dev).run_device([r]))
         for r in runs])
+    if peer_ok is not None:
+        print(json.dumps({"peer_across_processes": {
+            "ranks": args.world, "bit_equal_to_plain": peer_ok}}),
+            flush=True)
+    first = {}
     for row in rows:
         poses = row.pop("poses")
         by_rank = row.pop("by_rank")
+        data, m = row["mesh"]
+        # the mesh's first route, which the others are held to
+        other = first.setdefault((data, m), (row["route"], poses))
         row.update(
+            trips_alike_within_each_map_group=all(
+                len({by_rank[d * m + j][0] for j in range(m)}) == 1
+                for d in range(data)),
+            vs_route=other[0],
+            ate_vs_route_m=[ate_rmse(other[1][i], poses[i], align=False)
+                            for i in range(args.world)],
+            max_abs_vs_route=float(np.abs(poses - other[1]).max()),
             trips_a_frame_by_rank=[r[0] / f for r in by_rank],
             loop_collectives_a_frame_by_rank={
                 "graph": [r[2] / f for r in by_rank],
@@ -262,9 +303,11 @@ def worker(args):
             sum(bool(np.array_equal(want[i, k], alone[i, k]))
                 for k in range(f)) for i in range(args.world)]}}),
         flush=True)
-    return 0 if all(r["captured_bit_equal_to_eager_every_rank"]
-                    and r["loop_collectives_as_the_trips_every_rank"]
-                    for r in rows) else 1
+    return 0 if peer_ok is not False and all(
+        r["captured_bit_equal_to_eager_every_rank"]
+        and r["loop_collectives_as_the_trips_every_rank"]
+        and r["trips_alike_within_each_map_group"]
+        and max(r["ate_vs_route_m"]) < 5e-3 for r in rows) else 1
 
 
 def main(argv=None):
@@ -273,6 +316,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--world", type=int, default=0,
                     help="ranks (default: every CUDA card)")
+    ap.add_argument("--map-reduce", nargs="+", default=["auto"],
+                    choices=("auto", "peer", "nccl"),
+                    help="the map-axis routes each mesh runs, in turns")
     ap.add_argument("--rank", type=int, default=-1, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -295,7 +341,8 @@ def main(argv=None):
         port = sock.getsockname()[1]
     base = [sys.executable, os.path.abspath(__file__), "--frames",
             str(args.frames), "--device", args.device, "--world",
-            str(args.world), "--port", str(port)]
+            str(args.world), "--port", str(port), "--map-reduce",
+            *args.map_reduce]
     procs = [subprocess.Popen(
         base + ["--rank", str(r)],
         stdout=None if r == 0 else subprocess.DEVNULL,
