@@ -61,10 +61,12 @@ last line.  Phases:
      of a peer group on this card, each launching on a stream of its own,
      at the sharded path's shapes (the normal equations' float32 sums, the
      packed keys' int32 minima, the correspondence counts' int32 sums, a
-     float64 state's sums) and beyond a slot (the packed keys of 400
-     stock-``Config`` sequences: 3 slots and a remainder, a launch a
-     slot), eagerly and as captured graphs, bit-equal to the plain version;
-     ms of the kernel (one rank and four) and of the plain version;
+     float64 state's sums), a stock batch's packed keys (8 stock-``Config``
+     sequences, 65,536 keys) and beyond a slot (the packed keys of 400:
+     3 slots and a remainder, a launch a slot), eagerly and as captured
+     graphs, bit-equal to the plain version, and inside an IF node at two
+     ranks; ms of the kernel and of the plain version at 1, 2 and 4 ranks,
+     and the bound (HBM bytes);
  11. sharded_1rank: a one-rank NCCL group and a (1, 1) mesh,
      ``parallel.BatchedOdometryRunner(mesh=...)`` over 2 of the drives, 20
      frames (``run`` within 1e-5 of ``run_device``, bit-equal to the
@@ -92,7 +94,10 @@ last line.  Phases:
      bit-equal to the plain version; unmapped, then freed); each drive within
      5 mm of the one-rank run, zero overflow, every stored voxel on its
      owner's rank, the frame run eagerly (gloo's collectives cannot be
-     captured), each shard's voxel count, ms a frame;
+     captured), each shard's voxel count, ms a frame; then the same drives
+     with the map axis on the peer kernel (``map_reduce="peer"``, the peer
+     kernel's main path: its launches counted around that run), bit-equal
+     to gloo's route;
  13. serve: ``server.LidarOdometryServer`` over the 60 headline frames,
      one JSON line per sub-phase: blocking (per-frame latency p50/p90/p99,
      frames/s, one GN launch per registered frame, zero overflow, better
@@ -141,8 +146,11 @@ last line.  Phases:
      tests/test_differential.py:137's bound of this drive's own
      self-divergence (the baseline against itself with 1 um of noise and
      on two permutations of the points);
- 16. the ``kernels`` summary line, the card's name and power limit, and
-     the final ``{"ok": true, ...}`` line.
+ 16. the ``kernels`` summary line (``gn_solve``; ``peer_reduce``, its
+     launches from the two-rank peer-route drive, its ms, plain ms and
+     bound by shape and ranks; ``graph_if``, the IF nodes the graph phase
+     captured), the card's name and power limit, and the final
+     ``{"ok": true, ...}`` line.
 
 Every entry point on the card runs its frames as replays of CUDA graphs
 (``pipeline.Step``, ``utils.cuda_graph``): one a frame, under every
@@ -166,9 +174,11 @@ import sys
 import time
 import warnings
 
-#: the card's peak rates for the bound (H100 SXM data sheet, dense)
+#: the card's peak rates for the bound (H100 SXM data sheet, dense), and
+#: NVLink's rate each way between two cards of a host
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+NVLINK_BYTES_PER_S = 450e9
 
 #: headline shape (the JAX bench's realistic regime)
 HEADLINE = dict(max_points=65536, max_downsampled=8192, max_source=1024,
@@ -226,8 +236,10 @@ SHARD_BATCH = 2
 SHARD_FRAMES = 20
 SHARD_WORKER_TIMEOUT_S = 300
 #: a data rank's sequences whose packed keys (``Config().max_source`` =
-#: 8,192 queries each) span 3 slots and a remainder of the peer kernel
+#: 8,192 queries each) the peer kernel reduces: a stock batch of 8 (65,536
+#: keys, 256 KiB), and 400, which span 3 slots and a remainder
 #: (``parallel.peer.SLOT_BYTES``: 1,048,576 int32 keys)
+STOCK_SEQUENCES = 8
 BEYOND_SLOT_SEQUENCES = 400
 #: the loop lowering's batch check: drives at once, and their frames
 LOOP_BATCH = 4
@@ -1147,11 +1159,14 @@ def sharded_runner(torch, np, mesh, drives, ext, how="run_device"):
     """``BatchedOdometryRunner`` on ``mesh`` over ``drives`` (headline
     config) by ``how``: over their first 3 frames (which captures the
     frame on NCCL), then from a fresh state over the whole drives, the
-    collective count set to 0 just before and read just after.  Returns
-    (poses (B, F, 4, 4), seconds, collectives outside the GN loop (the
-    host count), overflow warnings, the runner)."""
+    collective count and the peer kernel's launch count
+    (``peer.LAUNCHES``, which the caller reads) set to 0 just before, the
+    collectives read just after.  Returns (poses (B, F, 4, 4), seconds,
+    collectives outside the GN loop (the host count), overflow warnings,
+    the runner)."""
     from kinematic_icp_tpu_torch import Config
-    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner, sharded
+    from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
+                                                  peer, sharded)
 
     cfg = Config(**HEADLINE)
     runner = BatchedOdometryRunner(cfg, len(drives), mesh=mesh,
@@ -1162,7 +1177,7 @@ def sharded_runner(torch, np, mesh, drives, ext, how="run_device"):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.synchronize()
-        sharded.COLLECTIVES = 0
+        sharded.COLLECTIVES = peer.LAUNCHES = 0
         t0 = time.perf_counter()
         poses = getattr(runner, how)(drives)
         torch.cuda.synchronize()
@@ -1179,8 +1194,9 @@ def peer_shapes(torch):
     (the normal equations), an int32 minimum a query (the packed keys),
     an int32 sum each (the correspondence count), and a float64 state's 6
     sums each: every instance of the kernel; and the packed keys of a data
-    rank's BEYOND_SLOT_SEQUENCES stock-``Config`` sequences, more than a
-    slot of the kernel (a launch a slot)."""
+    rank's STOCK_SEQUENCES stock-``Config`` sequences, and of its
+    BEYOND_SLOT_SEQUENCES, more than a slot of the kernel (a launch a
+    slot)."""
     import torch.distributed as dist
 
     from kinematic_icp_tpu_torch import Config
@@ -1192,6 +1208,8 @@ def peer_shapes(torch):
             "correspondences": (torch.int32, dist.ReduceOp.SUM, SHARD_BATCH),
             "normal_equations_f64": (torch.float64, dist.ReduceOp.SUM,
                                      SHARD_BATCH * 6),
+            "packed_keys_stock": (torch.int32, dist.ReduceOp.MIN,
+                                  STOCK_SEQUENCES * Config().max_source),
             "packed_keys_beyond_slot": (
                 torch.int32, dist.ReduceOp.MIN,
                 BEYOND_SLOT_SEQUENCES * Config().max_source)}
@@ -1238,16 +1256,65 @@ def peer_across_processes(torch, np, group, dev):
     return bool(ok)
 
 
+def peer_bound(nbytes, m, cards):
+    """(bound_ms, what bounds it) of one all-reduce of ``nbytes`` over
+    ``m`` ranks, every input read once and every output written once: on
+    one card that all share (``cards`` 1), 2 m ``nbytes`` of HBM; across
+    ``m`` cards the longer of each card's 2 ``nbytes`` of HBM and the 2 (m
+    - 1) / m ``nbytes`` each must receive over NVLink."""
+    if cards == 1:
+        return 2 * m * nbytes / HBM_BYTES_PER_S * 1e3, "HBM"
+    hbm = 2 * nbytes / HBM_BYTES_PER_S
+    link = 2 * (m - 1) / m * nbytes / NVLINK_BYTES_PER_S
+    return max(hbm, link) * 1e3, "NVLink" if link >= hbm else "HBM"
+
+
+def reductions_ms(torch, launch, streams=(), runs=TIMED_RUNS,
+                  calls=CALLS_PER_RUN):
+    """Median over ``runs`` of the device ms a call of ``launch()`` (one
+    reduction on each of ``streams``, or on the current stream), ``calls``
+    calls back to back between two events.  One call first, after a spin
+    longer than the run takes to issue, brings the ranks (streams of this
+    process or processes of a group) to the same point: its barrier
+    absorbs their skew, and the events time the calls after it."""
+    here = torch.cuda.current_stream()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        # ~10 ms of spin, longer than the launches take to issue
+        torch.cuda._sleep(20_000_000)
+        for st in streams:
+            st.wait_stream(here)
+        launch()
+        for st in streams:
+            here.wait_stream(st)
+        start.record()
+        for st in streams:
+            st.wait_stream(here)
+        for _ in range(calls):
+            launch()
+        for st in streams:
+            here.wait_stream(st)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[len(times) // 2]
+
+
 def peer_phase(torch, np):
     """The map axis's all-reduce over peer memory on this card: peer groups
-    of 1, 2 and 4 ranks (``parallel.peer.local_groups``), each rank's
-    kernel launched on a stream of its own, at ``peer_shapes``, three
-    rounds each, then each rank's reduction captured in a graph of its own
-    and replayed twice, every rank bit-equal to the plain version
-    (``peer.reference``: rank-order sums and minima) every time; the
-    kernel's ms at one rank and at four (each round's launches between two
-    events) and the plain version's.  (``sharded_2rank`` runs it across two
-    processes.)"""
+    of 1, 2 and 4 ranks (``parallel.peer.local_groups``, each with the grid
+    that shares the card among them), each rank's kernel launched on a
+    stream of its own, at ``peer_shapes``, three rounds each, then each
+    rank's reduction captured in a graph of its own and replayed twice,
+    every rank bit-equal to the plain version (``peer.reference``:
+    rank-order sums and minima) every time; at 2 ranks one reduction inside
+    a ``cuda_graph.when`` body, replayed with the predicate set and clear;
+    the kernel's ms at 1, 2 and 4 ranks, the plain version's over as many
+    parts, and the bound (HBM: every rank's part read once, every result
+    written once).  (``sharded_2rank`` runs it across two processes.)"""
     from kinematic_icp_tpu_torch.parallel import peer
 
     dev = torch.device("cuda")
@@ -1262,12 +1329,17 @@ def peer_phase(torch, np):
             with torch.cuda.stream(st):
                 g.all_reduce(t, op)
 
-    equal, ms = {}, {}
+    equal, ms, plain, bound, grids, ctas = {}, {}, {}, {}, {}, {}
     for size in (1, 2, 4):
         groups = peer.local_groups(dev, size)
+        grids[size] = groups[0].grid
         streams = [torch.cuda.Stream(dev) for _ in range(size)]
         try:
             for name, (dtype, op, n) in shapes.items():
+                itemsize = torch.empty((), dtype=dtype).element_size()
+                key = f"{name}_{size}_ranks"
+                ctas[key] = peer.ctas(min(n, peer.SLOT_BYTES // itemsize),
+                                      itemsize, groups[0].grid)
                 ok = True
                 for _ in range(3):
                     given = parts(dtype, n, size)
@@ -1277,7 +1349,7 @@ def peer_phase(torch, np):
                     launch_all(groups, streams, got, op)
                     torch.cuda.synchronize()
                     ok &= all(bits_equal(torch, t, want) for t in got)
-                equal[f"{name}_{size}_ranks"] = bool(ok)
+                equal[key] = bool(ok)
                 # each rank's reduction as a graph of its own, replayed
                 # twice at once on the ranks' streams
                 data = [t.clone() for t in given]
@@ -1301,32 +1373,16 @@ def peer_phase(torch, np):
                             graph.replay()
                     torch.cuda.synchronize()
                     ok &= all(bits_equal(torch, t, want) for t in data)
-                equal[f"{name}_{size}_ranks_captured"] = bool(ok)
-                if size in (1, 4):
-                    times = []
-                    here = torch.cuda.current_stream()
-                    for _ in range(TIMED_RUNS):
-                        start = torch.cuda.Event(enable_timing=True)
-                        end = torch.cuda.Event(enable_timing=True)
-                        torch.cuda.synchronize()
-                        # ~10 ms of spin, longer than the launches take to
-                        # issue: the events time the device work alone
-                        torch.cuda._sleep(20_000_000)
-                        start.record()
-                        for st in streams:
-                            st.wait_stream(here)
-                        for _ in range(CALLS_PER_RUN):
-                            launch_all(groups, streams, got, op)
-                        for st in streams:
-                            here.wait_stream(st)
-                        end.record()
-                        end.synchronize()
-                        times.append(start.elapsed_time(end) / CALLS_PER_RUN)
-                    ms[f"{name}_{size}_ranks"] = sorted(times)[
-                        len(times) // 2]
-                    if size == 1:
-                        ms[f"{name}_plain"] = median_ms(
-                            lambda: peer.reference(given, op))
+                equal[f"{key}_captured"] = bool(ok)
+                del graphs
+                ms[key] = reductions_ms(
+                    torch, lambda: launch_all(groups, streams, got, op),
+                    streams)
+                plain[key] = median_ms(lambda: peer.reference(given, op))
+                bound[key] = peer_bound(n * itemsize, size, 1)[0]
+            if size == 2:
+                equal["inside_an_if_node_2_ranks"] = peer_in_if_node(
+                    torch, groups, streams)
         finally:
             torch.cuda.synchronize()
             for g in groups:
@@ -1335,12 +1391,62 @@ def peer_phase(torch, np):
            "source": "kinematic_icp_tpu_torch/csrc/peer_reduce.cu",
            "shapes": {k: [str(d), str(o), n] for k, (d, o, n)
                       in shapes.items()},
-           "ms": ms, "checks": {f"bit_equal_to_plain_{k}": v
-                                for k, v in equal.items()}}
+           "grid_by_ranks": grids, "ctas_a_launch": ctas,
+           "algorithm_by_shape_at_4_ranks": {
+               k: peer.algorithm(min(n * torch.empty((), dtype=d)
+                                     .element_size(), peer.SLOT_BYTES), 4)
+               for k, (d, o, n) in shapes.items()},
+           "ms": ms, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": "bytes (HBM)",
+           "checks": {f"bit_equal_to_plain_{k}": v
+                      for k, v in equal.items()}}
     emit(row)
     if not all(row["checks"].values()):
         raise SystemExit(f"peer_reduce failed: {row['checks']}")
     return row
+
+
+def peer_in_if_node(torch, groups, streams):
+    """Each rank of ``groups`` (on ``streams``) reducing 12 float32 sums
+    inside a ``cuda_graph.when`` body of a graph of its own, the graphs
+    replayed at once with the predicate set and clear in turns: the sums
+    where set, the data as it was where clear.  Returns whether every
+    replay matched."""
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.utils import cuda_graph
+
+    dev = groups[0].device
+    data = [torch.zeros(12, device=dev) for _ in groups]
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    graphs = []
+    for g, st, t in zip(groups, streams, data):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(st):
+            graph.capture_begin()
+            capture = cuda_graph._active = cuda_graph._Capture(dev)
+            try:
+                cuda_graph.when(pred, lambda g=g, t=t: g.all_reduce(
+                    t, dist.ReduceOp.SUM))
+            finally:
+                cuda_graph._active = None
+                graph.capture_end()
+                capture.close()
+        graphs.append(graph)
+    ok = True
+    for k in range(4):
+        for r, t in enumerate(data):
+            t.fill_(r + 1.0 + k)
+        pred.fill_(k % 2 == 1)
+        torch.cuda.synchronize()
+        for graph, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                graph.replay()
+        torch.cuda.synchronize()
+        total = sum(r + 1.0 + k for r in range(len(data)))
+        ok &= all(t.tolist() == [total if k % 2 else r + 1.0 + k] * 12
+                  for r, t in enumerate(data))
+    return bool(ok)
 
 
 def sharded_1rank_phase(torch, np, seqs):
@@ -1540,14 +1646,19 @@ def sharded_worker(rank, port, out_dir):
     RANK PORT DIR``): a gloo group of two processes on the one card, a
     (1, 2) mesh, the peer kernel across the two processes
     (``peer_across_processes``), the sharded runner over the SHARD_BATCH
-    headline drives; writes its poses and counts to DIR."""
+    headline drives on gloo's route, then again with the map axis forced
+    onto the peer kernel (``make_mesh(map_reduce="peer")``: the frame
+    eager, as on gloo, each map-axis reduction a launch of the kernel a
+    slot, counted in ``peer.LAUNCHES``); writes its poses and counts to
+    DIR."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from kinematic_icp_tpu_torch.ops import hashmap
     from kinematic_icp_tpu_torch.parallel import (initialize_distributed,
-                                                  make_mesh, sharded,
+                                                  make_mesh, map_route, peer,
+                                                  sharded,
                                                   shutdown_distributed)
 
     rank = int(rank)
@@ -1577,7 +1688,19 @@ def sharded_worker(rank, port, out_dir):
         slots = m.table.view(*m.table.shape[:-1], m.bucket_slots, k + 4)
         keys = slots[..., k + 1:][slots[..., k] != 0]
         owner = sharded._owner_of(keys[:, 0], keys[:, 1], keys[:, 2], 2)
+        # the main path of the peer kernel: the same drives, the map axis
+        # on the peer route
+        peer_mesh = make_mesh(1, 2, map_reduce="peer")
+        peer_poses, peer_s, _, peer_overflow, _ = sharded_runner(
+            torch, np, peer_mesh, drives, ext)
+        peer_launches = peer.LAUNCHES
         meta = {"rank": rank, "backend": dist.get_backend(),
+                "peer_route": map_route(peer_mesh),
+                "peer_route_bit_equal_to_gloo_route": bool(
+                    np.array_equal(peer_poses, poses)),
+                "peer_route_seconds": peer_s,
+                "peer_route_overflow": peer_overflow or [0, 0, 0],
+                "peer_launches": peer_launches,
                 "device": str(dev), "gloo_cuda_int32_min_f32_sum": gloo_cuda,
                 "peer_across_processes_bit_equal_to_plain": peer_ok,
                 "seconds": seconds, "collectives": collectives,
@@ -1599,7 +1722,10 @@ def sharded_2rank_phase(torch, np, one_rank):
     """Two ranks on the one card: this script as two worker processes
     (gloo, a (1, 2) mesh: each sequence's map split over the two), each
     under a wall limit; each drive within 5 mm of the one-rank run, every
-    stored voxel on its owner's rank."""
+    stored voxel on its owner's rank; the same drives on the peer route
+    (the peer kernel's main path: its launches counted around that run)
+    bit-equal to gloo's route (two ranks' sums in either order are one
+    rounding)."""
     import tempfile
 
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
@@ -1644,7 +1770,15 @@ def sharded_2rank_phase(torch, np, one_rank):
            "ate_vs_one_rank_m": ate,
            "max_abs_vs_one_rank": float(np.abs(poses[0] - one_rank).max()),
            "voxels_per_shard": [m["voxels"] for m in meta],
-           "overflow": [m["overflow"] for m in meta]}
+           "overflow": [m["overflow"] for m in meta],
+           "peer_route": {
+               "route": meta[0]["peer_route"],
+               "ms_per_frame": max(m["peer_route_seconds"] for m in meta)
+               * 1e3 / SHARD_FRAMES,
+               "peer_launches_by_rank": [m["peer_launches"] for m in meta],
+               "peer_launches_per_frame": meta[0]["peer_launches"]
+               / SHARD_FRAMES,
+               "overflow": [m["peer_route_overflow"] for m in meta]}}
     row["checks"] = {
         "gloo_takes_cuda_int32_min_and_f32_sum": all(
             m["gloo_cuda_int32_min_f32_sum"] for m in meta),
@@ -1657,7 +1791,14 @@ def sharded_2rank_phase(torch, np, one_rank):
         "eager_on_gloo": all(m["path"] == "eager" for m in meta),
         "every_voxel_on_its_owner": all(m["every_voxel_on_its_owner"]
                                         for m in meta),
-        "both_shards_hold_voxels": all(min(m["voxels"]) > 0 for m in meta)}
+        "both_shards_hold_voxels": all(min(m["voxels"]) > 0 for m in meta),
+        "peer_route_taken": all(m["peer_route"] == "peer" for m in meta),
+        "peer_route_bit_equal_to_gloo_route": all(
+            m["peer_route_bit_equal_to_gloo_route"] for m in meta),
+        "peer_kernel_launched_on_its_path": all(
+            m["peer_launches"] > 0 for m in meta),
+        "peer_route_zero_overflow": all(
+            m["peer_route_overflow"] == [0, 0, 0] for m in meta)}
     emit(row)
     if not all(row["checks"].values()):
         raise SystemExit(f"sharded_2rank failed: {row['checks']}")
@@ -2668,7 +2809,7 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     from kinematic_icp_tpu_torch.ops import cuda_build
-    from kinematic_icp_tpu_torch.utils import synthetic
+    from kinematic_icp_tpu_torch.utils import cuda_graph, synthetic
     from kinematic_icp_tpu_torch.utils.io import native
 
     card = nvidia_smi_line()
@@ -2711,12 +2852,16 @@ def main():
     batched_kernel, batched_drive, drives = batched_phase(torch, np, seq,
                                                           card)
     batched_exact = batched_exact_phase(torch, np, drives)
-    peer_phase(torch, np)
+    peer_row = peer_phase(torch, np)
     _, one_rank = sharded_1rank_phase(torch, np, drives)
     loop_batch_phase(torch, np, drives)
-    sharded_2rank_phase(torch, np, one_rank)
+    two_ranks = sharded_2rank_phase(torch, np, one_rank)
     serve_launches = serve_phase(torch, np, seq, main_poses)
+    cuda_graph.IF_LAUNCHES = 0
     graph = graph_phase(torch, np, seq, drives, card)
+    if_launches = cuda_graph.IF_LAUNCHES
+    if not if_launches:
+        raise SystemExit("graph: no IF node captured on its paths")
     cli_launches = cli_phase(torch, np, seq, main_poses, card)
     oracle_phase(torch, np, seq, main_poses)
 
@@ -2740,7 +2885,41 @@ def main():
         "max_abs_err": main_shape["max_abs_err_pose"],
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None}]})
+        "bound_by": main_shape["bound_by"], "library_ms": None}, {
+        "name": "peer_reduce", "route": "cuda",
+        "source": "kinematic_icp_tpu_torch/csrc/peer_reduce.cu",
+        # no TPU kernel: JAX's lax.pmin / lax.psum over the map axis
+        "replaces": "kinematic_icp_tpu/parallel/sharded.py:80",
+        "replaces_also": "kinematic_icp_tpu/parallel/sharded.py:121,134,"
+                         "155,251",
+        # the two-rank sharded drive on the peer route, rank 0
+        "launches": two_ranks["peer_route"]["peer_launches_by_rank"][0],
+        "launches_per_frame":
+            two_ranks["peer_route"]["peer_launches_per_frame"],
+        # every shape bit-equal to the plain version (else the peer phase
+        # failed)
+        "max_abs_err": 0.0,
+        # the path's packed keys at two ranks on this card, and every shape
+        "ms": peer_row["ms"]["packed_keys_2_ranks"],
+        "plain_ms": peer_row["plain_ms"]["packed_keys_2_ranks"],
+        "bound_ms": peer_row["bound_ms"]["packed_keys_2_ranks"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_note": "NCCL puts no two ranks of one communicator on one "
+                        "card; tools/sharded_scaling.py --peer-bench times "
+                        "dist.all_reduce across cards",
+        "ms_by_shape": peer_row["ms"],
+        "plain_ms_by_shape": peer_row["plain_ms"],
+        "bound_ms_by_shape": peer_row["bound_ms"]}, {
+        "name": "graph_if", "route": "cuda",
+        "source": "kinematic_icp_tpu_torch/csrc/graph_if.cu",
+        # no TPU kernel: sets an IF node's handle, JAX's device-side
+        # lax.cond / lax.while_loop
+        "replaces": None,
+        # IF nodes captured over the graph phase's paths (each replay runs
+        # the kernel of every node its bodies reach)
+        "launches": if_launches, "max_abs_err": None, "ms": None,
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -86,6 +86,11 @@ _UNSET = object()
 _COUNTERS = []
 _LATEST = []
 
+#: launches of ``csrc/graph_if.cu``'s kernel that captures recorded (one an
+#: IF node, nested ones too; a plain count that no replay advances: each
+#: replay runs the kernel of every node its bodies reach)
+IF_LAUNCHES = 0
+
 
 def replayed(module_name: str, counters=(), latest=()):
     """Register module ``module_name``'s integer ``counters``, which each
@@ -152,6 +157,7 @@ class _Capture:
     def begin_if(self, pred):
         """Open an IF node on ``pred`` (a bool on the card) on the current
         stream; returns the stream to capture its body on."""
+        global IF_LAUNCHES
         if self._lib is None:
             from ..ops import cuda_build
 
@@ -179,6 +185,7 @@ class _Capture:
         if rc != 0:
             raise RuntimeError(f"capturing a conditional node failed: CUDA "
                                f"error {rc}")
+        IF_LAUNCHES += 1
         self._open.append(body)
         return body
 

@@ -1437,9 +1437,10 @@ def test_peer_all_reduce_beyond_a_slot(card, size, slots):
     """``size`` ranks of a peer group on one card reduce more than a slot
     (``peer.SLOT_BYTES``) of every kind, a launch a slot, each rank on a
     stream of its own at once: eagerly, then as each rank's captured graph
-    replayed twice (the launches' epochs read and bumped on the device, in
-    step with the eager ones), every rank's result the plain version's bits
-    each time."""
+    replayed twice, then eagerly again (the launches' epochs read and
+    bumped on the device, so replays and eager launches interleave), every
+    rank's result the plain version's bits each time, and one count in
+    ``peer.LAUNCHES`` a launch issued or captured."""
     import torch.distributed as dist
 
     from kinematic_icp_tpu_torch.parallel import peer
@@ -1457,10 +1458,12 @@ def test_peer_all_reduce_beyond_a_slot(card, size, slots):
             want = _bits(peer.reference(parts, op))
             data = [p.clone() for p in parts]
             torch.cuda.synchronize()
+            before = peer.LAUNCHES
             for g, s, t in zip(groups, streams, data):
                 with torch.cuda.stream(s):
                     g.all_reduce(t, op)
             torch.cuda.synchronize()
+            assert peer.LAUNCHES - before == size * int(np.ceil(slots))
             assert all(torch.equal(_bits(t), want) for t in data), dtype
             graphs = []
             for g, s, t in zip(groups, streams, data):
@@ -1482,6 +1485,15 @@ def test_peer_all_reduce_beyond_a_slot(card, size, slots):
                 torch.cuda.synchronize()
                 assert all(torch.equal(_bits(t), want) for t in data), (
                     dtype, replay)
+            for t, p in zip(data, parts):
+                t.copy_(p)
+            torch.cuda.synchronize()
+            for g, s, t in zip(groups, streams, data):
+                with torch.cuda.stream(s):
+                    g.all_reduce(t, op)
+            torch.cuda.synchronize()
+            assert all(torch.equal(_bits(t), want) for t in data), (
+                dtype, "eager after the replays")
     finally:
         torch.cuda.synchronize()
         for g in groups:
@@ -1505,6 +1517,7 @@ def test_peer_all_reduce_runs_inside_a_captured_if_node(card):
     data = [torch.zeros(12, device=card) for _ in range(2)]
     pred = torch.zeros((), dtype=torch.bool, device=card)
     graphs = []
+    before = cuda_graph.IF_LAUNCHES
     try:
         for g, s, t in zip(groups, streams, data):
             graph = torch.cuda.CUDAGraph()
@@ -1519,6 +1532,8 @@ def test_peer_all_reduce_runs_inside_a_captured_if_node(card):
                     graph.capture_end()
                     capture.close()
             graphs.append(graph)
+        # one IF node a graph, its handle set by one captured launch
+        assert cuda_graph.IF_LAUNCHES - before == 2
         for k in range(6):
             for r, t in enumerate(data):
                 t.fill_(r + 1.0 + k)
@@ -1532,6 +1547,109 @@ def test_peer_all_reduce_runs_inside_a_captured_if_node(card):
                 want = 3.0 + 2 * k if k % 2 else r + 1.0 + k
                 assert t.tolist() == [want] * 12, k
     finally:
+        for g in groups:
+            g.free()
+
+
+def _edge_sizes(itemsize):
+    """Element counts at the kernel's edges for ``itemsize``-byte elements:
+    none, one, three, a 16-byte vector's width and one either side, a tile
+    and one more, a slot and one more, and beyond a slot."""
+    from kinematic_icp_tpu_torch.parallel import peer
+
+    width = 16 // itemsize
+    tile, slot = peer.TILE_BYTES // itemsize, peer.SLOT_BYTES // itemsize
+    return sorted({0, 1, 3, width - 1, width, width + 1, tile, tile + 1,
+                   slot, slot + 1, 2 * slot + tile + 3})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["one_shot", "two_shot"])
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_peer_all_reduce_at_the_edge_sizes(card, monkeypatch, size,
+                                           algorithm):
+    """``size`` ranks of a peer group on one card, every kind, at every
+    edge size (``_edge_sizes``: the scalar tail, a partial tile, a full
+    slot, a slot and one more, beyond), by each algorithm forced on every
+    launch, and on a tensor that starts one element past a 16-byte
+    boundary (the element-by-element path): every rank's result the
+    plain version's bits."""
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.parallel import peer
+
+    monkeypatch.setattr(peer, "algorithm", lambda nbytes, m: algorithm)
+    groups = peer.local_groups(card, size)
+    streams = [torch.cuda.Stream(card) for _ in range(size)]
+    rng = np.random.default_rng([size, len(algorithm)])
+    try:
+        for dtype, op in PEER_KINDS:
+            op = getattr(dist.ReduceOp, op)
+            itemsize = np.dtype(dtype).itemsize
+            for n in _edge_sizes(itemsize) + ["offset"]:
+                if n == "offset":  # a view one element into its storage
+                    parts = [p[1:] for p in _peer_parts(card, rng, size,
+                                                        dtype, 1001)]
+                    assert parts[0].data_ptr() % 16
+                else:
+                    parts = _peer_parts(card, rng, size, dtype, n)
+                want = peer.reference(parts, op)
+                got = [p.clone() if n != "offset" else p for p in parts]
+                torch.cuda.synchronize()
+                before = peer.LAUNCHES
+                for g, s, t in zip(groups, streams, got):
+                    with torch.cuda.stream(s):
+                        g.all_reduce(t, op)
+                torch.cuda.synchronize()
+                if n == 0:  # nothing to reduce: no launch
+                    assert peer.LAUNCHES == before
+                    assert all(t.numel() == 0 for t in got)
+                    continue
+                for t in got:
+                    assert torch.equal(_bits(t), _bits(want)), (dtype, n)
+    finally:
+        torch.cuda.synchronize()
+        for g in groups:
+            g.free()
+
+
+@pytest.mark.cuda
+def test_four_ranks_on_one_card_at_the_largest_grid_finish(card,
+                                                           monkeypatch):
+    """Four ranks of a peer group on one card, each with the grid that
+    shares the card four ways (``peer.grid``: every CTA of the four
+    resident at once), reduce full slots (every CTA of the grid runs) by
+    both algorithms, twenty rounds: every round finishes, with the plain
+    version's bits (a CTA that could not be scheduled would leave its
+    peers spinning until the barrier's trap)."""
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.parallel import peer
+
+    capacity = peer.capacity(card)
+    groups = peer.local_groups(card, 4)
+    largest = peer.grid(capacity, 4)
+    assert all(g.grid == largest for g in groups)
+    assert 4 * largest <= capacity and largest > 1
+    n = peer.SLOT_BYTES // 4
+    assert peer.ctas(n, 4, largest) == largest
+    streams = [torch.cuda.Stream(card) for _ in range(4)]
+    rng = np.random.default_rng(4)
+    try:
+        for k in range(20):
+            monkeypatch.setattr(peer, "algorithm", lambda nbytes, m: (
+                "one_shot", "two_shot")[k % 2])
+            parts = _peer_parts(card, rng, 4, "int32", n)
+            want = _bits(peer.reference(parts, dist.ReduceOp.MIN))
+            got = [p.clone() for p in parts]
+            torch.cuda.synchronize()
+            for g, s, t in zip(groups, streams, got):
+                with torch.cuda.stream(s):
+                    g.all_reduce(t, dist.ReduceOp.MIN)
+            torch.cuda.synchronize()
+            assert all(torch.equal(_bits(t), want) for t in got), k
+    finally:
+        torch.cuda.synchronize()
         for g in groups:
             g.free()
 

@@ -1,5 +1,6 @@
 """The map axis's all-reduce over peer memory (``parallel.peer``), on the
-CPU: its plain version, its chunks, and the route a mesh's map axis takes.
+CPU: its plain version, its chunks, its launch geometry, and the route a
+mesh's map axis takes.
 
 The kernel (``csrc/peer_reduce.cu``) runs only on a card: the card tests
 (``tests/test_torch_kernels.py``) hold it to ``peer.reference`` at 1, 2 and
@@ -7,7 +8,10 @@ The kernel (``csrc/peer_reduce.cu``) runs only on a card: the card tests
 the plain version combines in rank order (float sums are not associative,
 and every rank must get the same bits), JAX's ``psum`` and ``pmin`` on the
 same parts agree with it, a reduction beyond a slot runs in slot-sized
-chunks with the same bits, a gloo mesh reduces through
+chunks with the same bits, the launch geometry the kernel follows (a grid
+fixed per group that keeps every CTA of the ranks sharing a card resident,
+tiles owned by CTA and by reducing rank whatever the size, the one-shot /
+two-shot choice from bytes and ranks alone), a gloo mesh reduces through
 ``torch.distributed`` with no peer group, and ``make_mesh`` routes a map
 group whose ranks cannot map each other's memory to "nccl" ("auto") or
 refuses it ("peer").
@@ -87,6 +91,102 @@ def test_chunks_cover_a_reduction_in_order_a_slot_at_most(dtype, slots):
         pieces = torch.cat([peer.reference([p[a:b] for p in parts], op)
                             for a, b in got])
         assert torch.equal(whole.view(torch.uint8), pieces.view(torch.uint8))
+
+
+#: an H100's SMs times the kernel's blocks an SM (512 threads a CTA)
+H100_CTAS = 132 * 4
+
+
+@pytest.mark.parametrize("capacity", [H100_CTAS, 132 * 2, 132, 7, 1])
+@pytest.mark.parametrize("sharing", [1, 2, 3, 4, 32])
+def test_grid_keeps_every_cta_of_a_card_resident(capacity, sharing):
+    """A rank's grid times the ranks that share its card fits the card's
+    resident CTAs (a CTA spins on its peers' CTAs, which must be running),
+    at most ``MAX_CTAS``, at least one CTA (a card too small for one CTA
+    a rank cannot keep all of them resident, and one is what is left)."""
+    g = peer.grid(capacity, sharing)
+    assert 1 <= g <= peer.MAX_CTAS
+    if capacity >= sharing:
+        assert g * sharing <= capacity
+        assert (g + 1) * sharing > capacity or g == peer.MAX_CTAS
+    assert peer.grid(H100_CTAS, 1) == peer.MAX_CTAS
+    assert peer.grid(H100_CTAS, 4) == 132
+
+
+@pytest.mark.parametrize("cards", [
+    ["GPU-a", "GPU-b", "GPU-c", "GPU-d"], ["GPU-a"] * 4,
+    ["GPU-a", "GPU-a", "GPU-b", "GPU-c"], ["GPU-a", "GPU-b"] * 2])
+def test_group_grid_is_one_grid_that_fits_every_card(cards):
+    """The group's grid is a function of the gathered cards and capacities
+    alone (every rank holds the same lists, so every rank takes the same
+    grid, and a tile's CTA is the same on every rank); on each card, its
+    ranks' CTAs together fit, cards of other capacities too."""
+    capacities = [H100_CTAS - 8 * r for r in range(len(cards))]
+    g = peer.group_grid(cards, capacities)
+    for card, cap in zip(cards, capacities):
+        assert g * cards.count(card) <= cap
+    assert g == min(peer.grid(c, cards.count(card))
+                    for card, c in zip(cards, capacities))
+    if len(set(cards)) == len(cards):
+        assert g == min(peer.MAX_CTAS, min(capacities))
+
+
+@pytest.mark.parametrize("grid", [1, 5, 132, peer.MAX_CTAS])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_tile_ownership_does_not_depend_on_the_size(grid, itemsize):
+    """Byte ``b`` of a reduction lies in the same tile, of the same CTA,
+    folded (two-shot) by the same rank, whatever the reduction's size, so
+    CTA c of each rank only ever meets CTA c of the others in a slot; and
+    every tile of a launch belongs to a CTA the launch runs."""
+    sizes = [1, 3, peer.TILE_BYTES // itemsize + 1,
+             5 * peer.TILE_BYTES // itemsize,
+             peer.SLOT_BYTES // itemsize]
+    owners = {}
+    for n in sizes:
+        tiles = peer.tiles(n, itemsize)
+        assert tiles == -(-n * itemsize // peer.TILE_BYTES)
+        ctas = peer.ctas(n, itemsize, grid)
+        assert ctas == min(grid, tiles)
+        for b in range(0, n * itemsize, 997):
+            t = b // peer.TILE_BYTES
+            who = (peer.cta_of(t, grid), peer.reducer(t, grid, 4))
+            assert owners.setdefault(b, who) == who, (b, n)
+            assert who[0] < ctas
+        # each CTA of the launch has a tile of it
+        assert {peer.cta_of(t, grid) for t in range(tiles)} == set(
+            range(ctas))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("grid", [1, 132, peer.MAX_CTAS])
+def test_two_shot_folds_each_tile_on_one_rank_spread_over_the_ranks(m,
+                                                                    grid):
+    """In a two-shot launch each tile is folded by exactly one rank of the
+    m, and the ranks share the folds: over a slot's tiles their counts
+    differ by at most a CTA's rounds (the tiles of one CTA rotate over the
+    ranks, and so do the CTAs' first tiles)."""
+    tiles = peer.SLOT_BYTES // peer.TILE_BYTES
+    counts = [0] * m
+    for t in range(tiles):
+        r = peer.reducer(t, grid, m)
+        assert 0 <= r < m
+        counts[r] += 1
+    assert sum(counts) == tiles
+    assert max(counts) - min(counts) <= -(-tiles // grid) + 1
+    assert min(counts) > 0
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 32])
+def test_algorithm_is_one_shot_when_small_and_on_two_ranks(m):
+    """The choice is a function of a launch's bytes and the group's ranks
+    alone, so every rank picks alike: one-shot up to
+    ``ONE_SHOT_MAX_BYTES``, and always on one or two ranks (where two-shot
+    moves no fewer bytes); two-shot above it on more ranks."""
+    small, big = peer.ONE_SHOT_MAX_BYTES, peer.ONE_SHOT_MAX_BYTES + 4
+    assert peer.algorithm(4, m) == "one_shot"
+    assert peer.algorithm(small, m) == "one_shot"
+    assert peer.algorithm(big, m) == ("one_shot" if m <= 2 else "two_shot")
+    assert peer.algorithm(peer.SLOT_BYTES, m) == peer.algorithm(big, m)
 
 
 #: reach lists (one entry a rank, as ``peer.reach`` gathers them): four

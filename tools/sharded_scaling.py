@@ -46,6 +46,30 @@ bit-equal to the unsharded run at B = world and to each drive's B = 1
 run, and each shard's voxel count; then the unsharded run's line and the
 cards' ``nvidia-smi`` name and power limit (the first card's).  It exits
 non-zero where a check fails.
+
+Options for a full-width row and for comparing two trees in one call:
+``--config stock --batch 8 --meshes 1x4`` runs the stock ``Config``
+(``max_source`` 8,192: 65,536 packed keys a MIN at B = 8) over
+``headline_drive(0..7)`` on (1, 4) alone (on the CPU the small
+configuration stands for both); ``--root DIR`` imports the package from
+DIR (a parent commit unpacked there) with this script's own code, so two
+trees run the same measurement; ``--save DIR`` writes rank 0's poses of
+each row, and ``--against DIR`` holds each row bit for bit to the poses
+another run saved there (and fails where they differ).
+
+The peer kernel against NCCL (``--peer-bench``, CUDA only): one process a
+card, a peer group over the world (``peer.attach``), and at every
+``chip_smoke.peer_shapes`` shape and a ladder of int32 MINs (4,096 to
+1,048,576 keys, for the one-shot / two-shot switch) it holds the kernel
+and NCCL's ``all_reduce`` to the plain version (the kernel bit for bit)
+and times, in turns (forward, then back): the kernel, by each algorithm
+forced too (where the tree has ``peer.algorithm``), NCCL's
+``dist.all_reduce`` eager and replayed from a captured graph: each rank's
+median device ms a reduction (``chip_smoke.reductions_ms``), the slowest
+rank's; the plain version on rank 0; the bound (``chip_smoke.peer_bound``:
+NVLink or HBM bytes).  ``--peer-bench --one-card`` runs the kernel's
+groups of 1, 2 and 4 ranks on one card in one process instead (no NCCL:
+it puts no two ranks of a communicator on one card).  A line a shape.
 """
 
 from __future__ import annotations
@@ -59,6 +83,8 @@ import time
 import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (this tree's, whatever --root says)
 
 #: a worker's wall limit (s); inside it a collective fails after
 #: ``parallel.mesh.TIMEOUT``
@@ -79,18 +105,17 @@ def meshes(world: int):
                                (1, world)]))
 
 
-def drives(args, world: int):
-    from chip_smoke import MAIN_FRAMES, headline_drive
+def drives(args, batch: int):
     from kinematic_icp_tpu_torch.utils import synthetic
 
     if args.device == "cpu":
         seqs = [synthetic.make_sequence(
             args.frames, world_seed=s, traj_seed=s + 10, noise_seed=s + 20,
-            lidar=synthetic.LidarModel(**SMALL_LIDAR)) for s in range(world)]
+            lidar=synthetic.LidarModel(**SMALL_LIDAR)) for s in range(batch)]
     else:
-        if args.frames > MAIN_FRAMES:
-            raise ValueError(f"at most {MAIN_FRAMES} frames")
-        seqs = [headline_drive(s) for s in range(world)]
+        if args.frames > chip_smoke.MAIN_FRAMES:
+            raise ValueError(f"at most {chip_smoke.MAIN_FRAMES} frames")
+        seqs = [chip_smoke.headline_drive(s) for s in range(batch)]
     runs = [{"frames": s["frames"][:args.frames],
              "rel_odometry": s["rel_odometry"][:args.frames]} for s in seqs]
     return runs, seqs[0]["extrinsic"]
@@ -117,12 +142,10 @@ def counted(torch, sharded, counts, run):
     ``chip_smoke.device_counts`` tensor) set to 0 just before; returns (its
     result, [trips, collectives outside the GN loop on the host, the GN
     loop's collectives on the device])."""
-    from chip_smoke import LOOP_COUNTS
-
     sharded.COLLECTIVES = 0
     counts.zero_()
     out = run()
-    got = dict(zip(LOOP_COUNTS, counts.tolist()))
+    got = dict(zip(chip_smoke.LOOP_COUNTS, counts.tolist()))
     return out, [got["loop_iterations"], sharded.COLLECTIVES,
                  got["loop_collectives"]]
 
@@ -132,7 +155,6 @@ def worker(args):
     import torch
     import torch.distributed as dist
 
-    from chip_smoke import HEADLINE, device_counts, peer_across_processes
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import pad_batch
     from kinematic_icp_tpu_torch.ops import hashmap
@@ -144,11 +166,13 @@ def worker(args):
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
     torch.set_num_threads(1 if args.device == "cpu" else 4)
-    cfg = Config(**(SMALL if args.device == "cpu" else HEADLINE))
+    cfg = Config(**(SMALL if args.device == "cpu" else
+                    getattr(chip_smoke, args.config.upper())))
+    b = args.batch
     initialize_distributed(f"localhost:{args.port}", args.world, args.rank)
     sync = (torch.cuda.synchronize if args.device == "cuda"
             else (lambda: None))
-    runs, ext = drives(args, args.world)
+    runs, ext = drives(args, b)
     warm = [{k: v[:3] for k, v in r.items()} for r in runs]
     dev = "cuda" if args.device == "cuda" else "cpu"
     padded = [torch.from_numpy(a).to(dev) for a in pad_batch(runs, cfg)]
@@ -161,26 +185,25 @@ def worker(args):
     # a reduction beyond a slot over peer memory across the processes
     peer_ok = None
     if args.device == "cuda":
-        peer_ok = peer_across_processes(
+        peer_ok = chip_smoke.peer_across_processes(
             torch, np, dist.group.WORLD,
             torch.device("cuda", torch.cuda.current_device()))
     turns = [(data, m, route)
-             for i, (data, m) in enumerate(meshes(args.world))
+             for i, (data, m) in enumerate(args.meshes or meshes(args.world))
              for route in (args.map_reduce if i % 2 == 0
                            else args.map_reduce[::-1])]
-    with device_counts(torch, dev) as loop_counts:
+    with chip_smoke.device_counts(torch, dev) as loop_counts:
         try:
             for data, m, asked in turns:
                 mesh = make_mesh(data, m, args.device, map_reduce=asked)
                 route = map_route(mesh)
                 # the warm-up captures the runner's frame on NCCL; the timed
                 # run replays it from a fresh state
-                runner = BatchedOdometryRunner(cfg, args.world, mesh=mesh,
+                runner = BatchedOdometryRunner(cfg, b, mesh=mesh,
                                                extrinsic=ext)
                 runner.run_device(warm)
-                runner.state = sharded.init_sharded_state(cfg, mesh,
-                                                          args.world)
-                runner.poses = [[] for _ in range(args.world)]
+                runner.state = sharded.init_sharded_state(cfg, mesh, b)
+                runner.poses = [[] for _ in range(b)]
                 (poses, seconds, overflow), graph_counts = counted(
                     torch, sharded, loop_counts,
                     lambda: timed(torch, runner, runs, sync))
@@ -192,7 +215,7 @@ def worker(args):
                 # the same drives op by op: the baseline a replay is held to
                 eager = sharded.make_sharded_sequence_runner(
                     cfg, mesh, runner.stationary_gate, eager=True)
-                state = sharded.init_sharded_state(cfg, mesh, args.world)
+                state = sharded.init_sharded_state(cfg, mesh, b)
                 sync()
                 t0 = time.perf_counter()
                 eager_poses, eager_counts = counted(
@@ -243,11 +266,9 @@ def worker(args):
     if args.rank:
         return 0
     lowering = cfg.replace(gn_backend="torch")
-    loop = BatchedOdometryRunner(lowering, args.world, extrinsic=ext,
-                                 device=dev)
+    loop = BatchedOdometryRunner(lowering, b, extrinsic=ext, device=dev)
     loop.run_device(warm)
-    loop = BatchedOdometryRunner(lowering, args.world, extrinsic=ext,
-                                 device=dev)
+    loop = BatchedOdometryRunner(lowering, b, extrinsic=ext, device=dev)
     want, want_s, want_overflow = timed(torch, loop, runs, sync)
     # each drive alone, B = 1: a (world, 1) rank's batch
     alone = np.concatenate([np.asarray(BatchedOdometryRunner(
@@ -270,7 +291,7 @@ def worker(args):
                 for d in range(data)),
             vs_route=other[0],
             ate_vs_route_m=[ate_rmse(other[1][i], poses[i], align=False)
-                            for i in range(args.world)],
+                            for i in range(b)],
             max_abs_vs_route=float(np.abs(poses - other[1]).max()),
             trips_a_frame_by_rank=[r[0] / f for r in by_rank],
             loop_collectives_a_frame_by_rank={
@@ -279,35 +300,251 @@ def worker(args):
             loop_collectives_as_the_trips_every_rank=all(
                 r[-1] for r in by_rank),
             ms_per_batched_frame=row["seconds"] * 1e3 / f,
-            aggregate_frames_per_s=args.world * f / row["seconds"],
+            aggregate_frames_per_s=b * f / row["seconds"],
             collectives_per_frame=row.pop("collectives") / f,
             ate_vs_unsharded_m=[ate_rmse(want[i], poses[i], align=False)
-                                for i in range(args.world)],
+                                for i in range(b)],
             max_abs_vs_unsharded=float(np.abs(poses - want).max()),
             frames_bit_equal_to_unsharded=sum(
                 bool(np.array_equal(poses[:, k], want[:, k]))
                 for k in range(f)),
             frames_bit_equal_to_b1_loop_by_drive=[
                 sum(bool(np.array_equal(poses[i, k], alone[i, k]))
-                    for k in range(f)) for i in range(args.world)],
+                    for k in range(f)) for i in range(b)],
             max_abs_vs_b1_loop=float(np.abs(poses - alone).max()),
             eager_ms_per_batched_frame=row.pop("eager_seconds") * 1e3 / f)
-        print(json.dumps({"sharded": row, "world": args.world,
+        name = f"{data}x{m}_{row['route']}.npy"
+        if args.save:
+            os.makedirs(args.save, exist_ok=True)
+            np.save(os.path.join(args.save, name), poses)
+        if args.against:
+            row["bit_equal_to_against"] = bool(np.array_equal(
+                poses, np.load(os.path.join(args.against, name))))
+        print(json.dumps({"sharded": row, "world": args.world, "B": b,
+                          "config": args.config, "root": args.root,
                           "device": args.device, "frames": f}), flush=True)
     print(json.dumps({"unsharded_loop": {
-        "B": args.world, "frames": f, "seconds": want_s,
+        "B": b, "frames": f, "seconds": want_s,
         "ms_per_batched_frame": want_s * 1e3 / f,
-        "aggregate_frames_per_s": args.world * f / want_s,
+        "aggregate_frames_per_s": b * f / want_s,
         "overflow": want_overflow,
         "frames_bit_equal_to_b1_loop_by_drive": [
             sum(bool(np.array_equal(want[i, k], alone[i, k]))
-                for k in range(f)) for i in range(args.world)]}}),
+                for k in range(f)) for i in range(b)]}}),
         flush=True)
     return 0 if peer_ok is not False and all(
-        r["captured_bit_equal_to_eager_every_rank"]
+        r.get("bit_equal_to_against", True)
+        and r["captured_bit_equal_to_eager_every_rank"]
         and r["loop_collectives_as_the_trips_every_rank"]
         and r["trips_alike_within_each_map_group"]
         and max(r["ate_vs_route_m"]) < 5e-3 for r in rows) else 1
+
+
+#: int32 MINs of a ladder of sizes (keys) beside ``peer_shapes`` in the
+#: peer bench, for the one-shot / two-shot switch
+LADDER = (4096, 16384, 65536, 131072, 262144, 524288, 1048576)
+#: the peer bench's runs a measurement, and calls a run between two events
+BENCH_RUNS = 10
+BENCH_CALLS = 20
+
+
+def bench_shapes(torch):
+    """``chip_smoke.peer_shapes`` and the LADDER's int32 MINs, by name."""
+    import torch.distributed as dist
+
+    shapes = dict(chip_smoke.peer_shapes(torch))
+    shapes.update({f"ladder_{n}": (torch.int32, dist.ReduceOp.MIN, n)
+                   for n in LADDER})
+    return shapes
+
+
+def in_turns(torch, peer, timed, streams=()):
+    """Each of ``timed`` (name: a call that issues one reduction on each of
+    ``streams``, or on the current stream) timed by
+    ``chip_smoke.reductions_ms`` in turns, forward then back: {name: [ms,
+    ms]}.  "one_shot" and "two_shot" run with ``peer.algorithm`` forced to
+    them."""
+    got = {name: [] for name in timed}
+    own = getattr(peer, "algorithm", None)
+    for name in list(timed) + list(timed)[::-1]:
+        if name in ("one_shot", "two_shot"):
+            peer.algorithm = lambda nbytes, m, name=name: name
+        try:
+            got[name].append(chip_smoke.reductions_ms(
+                torch, timed[name], streams, BENCH_RUNS, BENCH_CALLS))
+        finally:
+            if own is not None:
+                peer.algorithm = own
+    return got
+
+
+def kernel_variants(peer, launch):
+    """The kernel's timed calls: by the tree's own choice, and by each
+    algorithm forced where the tree has them (``in_turns``)."""
+    timed = {"kernel": launch}
+    if hasattr(peer, "algorithm"):
+        timed.update(one_shot=launch, two_shot=launch)
+    return timed
+
+
+def peer_line(peer, name, dtype, op, n, ranks, cards, grid):
+    """The fields of a peer bench line that the shape fixes."""
+    import torch
+
+    nbytes = n * torch.empty((), dtype=dtype).element_size()
+    bound, by = chip_smoke.peer_bound(nbytes, ranks, cards)
+    line = {"peer_bench": name, "dtype": str(dtype), "op": str(op), "n": n,
+            "bytes": nbytes, "ranks": ranks, "cards": cards,
+            "bound_ms": bound, "bound_by": f"bytes ({by})", "grid": grid}
+    if hasattr(peer, "algorithm"):
+        line["algorithm"] = peer.algorithm(min(nbytes, peer.SLOT_BYTES),
+                                           ranks)
+    return line
+
+
+def peer_bench_one_card(args):
+    """The kernel's groups of 1, 2 and 4 ranks on one card, one process
+    (``peer.local_groups``, a stream a rank), at ``bench_shapes``: bits
+    against the plain version, ms in turns, the plain version's ms and the
+    bound; a line a shape.  Returns whether every reduction matched."""
+    import numpy as np
+    import torch
+
+    from kinematic_icp_tpu_torch.parallel import peer
+
+    dev = torch.device("cuda", 0)
+    ok = True
+    for size in (1, 2, 4):
+        groups = peer.local_groups(dev, size)
+        streams = [torch.cuda.Stream(dev) for _ in range(size)]
+        try:
+            for k, (name, (dtype, op, n)) in enumerate(
+                    bench_shapes(torch).items()):
+                parts = chip_smoke.peer_parts(
+                    torch, np, np.random.default_rng([size, k]), dtype, n,
+                    size, dev)
+                want = peer.reference(parts, op)
+                got = [p.clone() for p in parts]
+
+                def launch():
+                    for g, st, t in zip(groups, streams, got):
+                        with torch.cuda.stream(st):
+                            g.all_reduce(t, op)
+
+                torch.cuda.synchronize()
+                launch()
+                torch.cuda.synchronize()
+                equal = all(chip_smoke.bits_equal(torch, t, want)
+                            for t in got)
+                ok &= equal
+                line = peer_line(peer, name, dtype, op, n, size, 1,
+                                 getattr(groups[0], "grid", 1))
+                line.update(
+                    ms=in_turns(torch, peer, kernel_variants(peer, launch),
+                                streams),
+                    plain_ms=chip_smoke.median_ms(
+                        lambda: peer.reference(parts, op)),
+                    kernel_bit_equal=equal, root=args.root)
+                print(json.dumps(line), flush=True)
+        finally:
+            torch.cuda.synchronize()
+            for g in groups:
+                g.free()
+    return ok
+
+
+def peer_bench_shape(args, peer, mine, group, k, name, dtype, op, n):
+    """One shape of the peer bench across the world's processes: the kernel
+    and NCCL's ``all_reduce`` (eager and a captured graph's replay) held
+    to the plain version and timed in turns; rank 0's line (the slowest
+    rank's ms) or None.  Returns (line, whether the kernel matched on
+    every rank)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    dev = mine.device
+    m, rank = args.world, args.rank
+    parts = chip_smoke.peer_parts(torch, np, np.random.default_rng([k]),
+                                  dtype, n, m, dev)
+    want = peer.reference(parts, op)
+    got, nccl = parts[rank].clone(), parts[rank].clone()
+    mine.all_reduce(got, op)
+    dist.all_reduce(nccl, op=op, group=group)
+    torch.cuda.synchronize()
+    equal = [chip_smoke.bits_equal(torch, got, want),
+             chip_smoke.bits_equal(torch, nccl, want)]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            dist.all_reduce(nccl, op=op, group=group)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    timed = kernel_variants(peer, lambda: mine.all_reduce(got, op))
+    timed.update(nccl=lambda: dist.all_reduce(nccl, op=op, group=group),
+                 nccl_graph=graph.replay)
+    ms = in_turns(torch, peer, timed)
+    plain = (chip_smoke.median_ms(lambda: peer.reference(parts, op))
+             if rank == 0 else None)
+    every = [None] * m
+    dist.all_gather_object(every, (equal, ms), group=group)
+    torch.cuda.synchronize()
+    del graph, timed
+    matched = all(e[0][0] for e in every)
+    if rank:
+        return None, matched
+    line = peer_line(peer, name, dtype, op, n, m, m,
+                     getattr(mine, "grid", 1))
+    line.update(
+        ms={key: [max(e[1][key][i] for e in every) for i in range(2)]
+            for key in ms},
+        ms_by_rank={key: [e[1][key] for e in every] for key in ms},
+        plain_ms=plain, kernel_bit_equal_every_rank=matched,
+        nccl_bit_equal_every_rank=all(e[0][1] for e in every),
+        root=args.root)
+    return line, matched
+
+
+def peer_bench_worker(args):
+    """One rank of ``--peer-bench`` across the world's cards (NCCL, one
+    process a card): a peer group over the world, every ``bench_shapes``
+    shape (``peer_bench_shape``); rank 0 prints a line a shape."""
+    import torch
+    import torch.distributed as dist
+
+    from kinematic_icp_tpu_torch.parallel import initialize_distributed, peer
+
+    initialize_distributed(f"localhost:{args.port}", args.world, args.rank)
+    group = dist.group.WORLD
+    mine = peer.attach(group, torch.device("cuda",
+                                           torch.cuda.current_device()))
+    ok = True
+    try:
+        for k, (name, (dtype, op, n)) in enumerate(
+                bench_shapes(torch).items()):
+            line, matched = peer_bench_shape(args, peer, mine, group, k,
+                                             name, dtype, op, n)
+            ok &= matched
+            if line is not None:
+                print(json.dumps(line), flush=True)
+    finally:
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        mine.close()
+        dist.barrier(group)
+        mine.free()
+        dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def mesh_shape(text):
+    """A (data, map) mesh from "DxM"."""
+    data, m = text.lower().split("x")
+    return int(data), int(m)
 
 
 def main(argv=None):
@@ -319,11 +556,33 @@ def main(argv=None):
     ap.add_argument("--map-reduce", nargs="+", default=["auto"],
                     choices=("auto", "peer", "nccl"),
                     help="the map-axis routes each mesh runs, in turns")
+    ap.add_argument("--config", choices=("headline", "stock"),
+                    default="headline",
+                    help="chip_smoke's configuration on the card (the "
+                         "small one on the CPU)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="sequences (default: the world)")
+    ap.add_argument("--meshes", nargs="+", type=mesh_shape, default=None,
+                    help="(data, map) meshes as DxM (default: (world, 1), "
+                         "the square-most, (1, world))")
+    ap.add_argument("--root", default=None,
+                    help="import the package from this tree instead")
+    ap.add_argument("--save", default=None,
+                    help="write rank 0's poses of each row here")
+    ap.add_argument("--against", default=None,
+                    help="hold each row bit for bit to the poses saved here")
+    ap.add_argument("--peer-bench", action="store_true",
+                    help="the peer kernel against NCCL's all_reduce")
+    ap.add_argument("--one-card", action="store_true",
+                    help="with --peer-bench: groups of 1, 2, 4 ranks on "
+                         "one card")
     ap.add_argument("--rank", type=int, default=-1, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     if args.rank >= 0:
-        return worker(args)
+        return peer_bench_worker(args) if args.peer_bench else worker(args)
 
     import socket
 
@@ -334,15 +593,30 @@ def main(argv=None):
             print("sharded_scaling: no CUDA card", file=sys.stderr)
             return 1
         args.world = args.world or torch.cuda.device_count()
+    elif args.peer_bench:
+        ap.error("--peer-bench needs CUDA cards")
+    if args.peer_bench and args.one_card:
+        ok = peer_bench_one_card(args)
+        print(chip_smoke.nvidia_smi_line(), flush=True)
+        return 0 if ok else 1
     if args.world < 1:
         ap.error("--world is needed on the CPU")
+    args.batch = args.batch or args.world
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     base = [sys.executable, os.path.abspath(__file__), "--frames",
             str(args.frames), "--device", args.device, "--world",
             str(args.world), "--port", str(port), "--map-reduce",
-            *args.map_reduce]
+            *args.map_reduce, "--config", args.config, "--batch",
+            str(args.batch)]
+    if args.meshes:
+        base += ["--meshes", *(f"{d}x{m}" for d, m in args.meshes)]
+    for flag in ("root", "save", "against"):
+        if getattr(args, flag):
+            base += [f"--{flag}", os.path.abspath(getattr(args, flag))]
+    if args.peer_bench:
+        base.append("--peer-bench")
     procs = [subprocess.Popen(
         base + ["--rank", str(r)],
         stdout=None if r == 0 else subprocess.DEVNULL,
@@ -364,8 +638,7 @@ def main(argv=None):
         print(f"rank {r} exit {procs[r].returncode}:\n{errs[r][-3000:]}",
               file=sys.stderr)
     if args.device == "cuda":
-        from chip_smoke import nvidia_smi_line
-        print(nvidia_smi_line(), flush=True)
+        print(chip_smoke.nvidia_smi_line(), flush=True)
     return 1 if bad else 0
 
 
