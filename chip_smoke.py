@@ -2272,8 +2272,10 @@ def graph_drive(torch, np, seqs, config, count, eager, markers, mesh=None,
         else:
             state = pipeline.init_state(config, device=dev)
         out = runner(state, *arrays[:4], ext, arrays[4])
-        # the sharded runner counts no fallbacks (no certificate)
-        return tuple(x.cpu().numpy() for x in out[1:])
+        # poses, overflow and fallbacks; the sharded runner counts no
+        # fallbacks (no certificate)
+        return tuple(x.cpu().numpy()
+                     for x in out[1:3 if mesh is not None else 4])
 
     run(inputs(3))
     arrays = inputs(count)

@@ -1,0 +1,26 @@
+"""Share of the GN kernel's query slots that hold a live source, in %,
+over the traced chunks: the program's ``gn`` counts, summed sources over
+summed active lane-frames times the configuration's ``max_source``.  None
+where the program keeps no such counts."""
+
+
+def gn_totals(trace):
+    """Sums of the program's ``gn`` samples inside the traced window
+    (``kinematic_icp_tpu_torch.utils.profiling.samples``), or None."""
+    try:
+        from kinematic_icp_tpu_torch.utils.profiling import samples
+    except ImportError:
+        return None
+    got = samples("gn", *trace.window) if trace.device else []
+    if not got:
+        return None
+    return {k: sum(v[k] for _, v in got)
+            for k in ("frames", "passes", "sources", "fallbacks")}
+
+
+def read(trace):
+    totals = gn_totals(trace)
+    if totals is None or not totals["frames"]:
+        return None
+    slots = totals["frames"] * int(trace.config["config"]["max_source"])
+    return 100.0 * totals["sources"] / slots

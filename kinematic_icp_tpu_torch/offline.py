@@ -21,6 +21,7 @@ from .config import Config
 from .models import pipeline
 from .ops import hashmap, se3, threshold
 from .runtime import resolve_device
+from .utils import profiling
 
 #: the stationary gate |log(rel)| of the reference server
 #: (LidarOdometryServer.cpp:202)
@@ -50,13 +51,15 @@ def _per_frame_constants(rels, extrinsic, config: Config,
 def make_sequence_runner(config: Config, device=None, eager: bool = False):
     """Build the sequence runner: ``run(state, pts, ts, mask, has_ts,
     extrinsic, rels) -> (final_state, poses (F, 4, 4), overflow (3,),
-    fallbacks ())``.
+    fallbacks (), counts (4,))``.
 
     ``overflow`` totals [downsample drops, source drops, insert failures]
     over the sequence; ``fallbacks`` (int32) counts the active frames on
     which an exact mode's certificate failed and the full-27 loop
-    recomputed the solve.  ``device`` (``None`` = CUDA; raises if absent)
-    is where the inputs must live.
+    recomputed the solve; ``counts`` sums the active frames'
+    ``FrameOutputs.counts`` (``pipeline.COUNTS``: frames, GN passes, live
+    sources, fallbacks), one addition a frame.  ``device`` (``None`` =
+    CUDA; raises if absent) is where the inputs must live.
 
     Each frame runs through the runner's ``pipeline.Step``, under every
     configuration: on a CUDA device one replay a frame of a CUDA graph
@@ -80,8 +83,8 @@ def make_batched_sequence_runner(config: Config, device=None,
     """Build the runner of B independent sequences in lock-step:
     ``run(state, pts (F, B, N, 3), ts (F, B, N), mask (F, B, N), has_ts
     (F, B), extrinsic (4, 4) shared, rels (F, B, 4, 4)) -> (final_state,
-    poses (F, B, 4, 4), overflow (B, 3), fallbacks (B,))``, with ``state``
-    from ``init_batched_state``.
+    poses (F, B, 4, 4), overflow (B, 3), fallbacks (B,), counts (B, 4))``,
+    with ``state`` from ``init_batched_state``.
 
     The same frame loop as ``make_sequence_runner`` (and the same graph
     replays a frame, and ``eager``) with a batch axis on every tensor: a
@@ -151,20 +154,20 @@ def _runner(config: Config, dev, stationary_gate: float, batched: bool,
         poses = torch.empty((pts.shape[0], *state.pose.shape),
                             dtype=state.pose.dtype, device=dev)
         overflow = torch.zeros(lead + (3,), dtype=torch.int32, device=dev)
-        fallbacks = torch.zeros(lead, dtype=torch.int32, device=dev)
-        for f in range(pts.shape[0]):
-            state, out = register(
-                state, pts[f], ts[f], mask[f], has_ts[f], extrinsic, rels[f],
-                active=active[f],
-                rel_twist_in_lidar=None if twists is None else twists[f])
-            poses[f] = state.pose
-            overflow += out.overflow
-            if out.debug.exact_fallback is not None:
-                fallbacks += (out.debug.exact_fallback
-                              & active[f]).to(torch.int32)
+        counts = torch.zeros(lead + (len(pipeline.COUNTS),),
+                             dtype=torch.int32, device=dev)
+        with profiling.span("kicp.frames"):
+            for f in range(pts.shape[0]):
+                state, out = register(
+                    state, pts[f], ts[f], mask[f], has_ts[f], extrinsic,
+                    rels[f], active=active[f],
+                    rel_twist_in_lidar=None if twists is None else twists[f])
+                poses[f] = state.pose
+                overflow += out.overflow
+                counts += out.counts
         if stepped:
             state = pipeline.clone_state(state)
-        return state, poses, overflow, fallbacks
+        return state, poses, overflow, counts[..., 3], counts
 
     #: the runner's ``pipeline.Step`` (its graphs), or None on the eager loop
     run.step = register if stepped else None
@@ -259,7 +262,7 @@ def run_offline(frames, rel_odometry, config: Config | None = None,
     ext = torch.eye(4, dtype=torch.float32) if extrinsic is None else \
         torch.as_tensor(np.asarray(extrinsic, np.float32))
     runner = make_sequence_runner(config, dev)
-    final_state, poses, overflow, fallbacks = runner(
+    final_state, poses, overflow, fallbacks, _ = runner(
         state, pts, ts, mask, has_ts, ext.to(dev), rels)
     overflow = overflow.cpu().numpy()
     if overflow.any():

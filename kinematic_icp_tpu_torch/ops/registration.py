@@ -59,6 +59,11 @@ class RegistrationDebug(NamedTuple):
     #: this frame and the full-27 loop recomputed the solve; None outside
     #: the certified and pruned-exact branches
     exact_fallback: torch.Tensor | None = None
+    #: int32 — the iterations of the frame's first solve (the kernel's
+    #: passes on the certified branch) where an exact mode may re-solve
+    #: through the full-27 loop, whose trips ``iterations`` then holds;
+    #: None where ``iterations`` is the only solve's
+    solve_iterations: torch.Tensor | None = None
 
 
 def data_association(m: hashmap.MapState, source: P3, source_mask, pose,
@@ -381,10 +386,13 @@ def compute_robot_motion(m: hashmap.MapState, source: P3, source_mask,
         *solved, crossed = gn.gn_solve(
             cand, source, source_mask, guess, max_correspondence_distance,
             check_crossing=True, **kernel)
+        # a captured branch rewrites ``solved`` in place
+        passes = solved[1].clone()
         pose, iters, ncorr, err = fall_back_where(crossed, *solved)
         return pose, RegistrationDebug(
             iterations=iters, num_correspondences=ncorr,
-            odometry_error_pt=err, exact_fallback=crossed)
+            odometry_error_pt=err, exact_fallback=crossed,
+            solve_iterations=passes)
 
     if 0 < exact_prune_candidates < 27:
         tau = per_row(max_correspondence_distance)
@@ -412,10 +420,12 @@ def compute_robot_motion(m: hashmap.MapState, source: P3, source_mask,
             return t, source_mask & (dist < tau), viol
 
         *solved, fallback = run_gn(associate_pruned, source, guess, **loop)
+        passes = solved[1].clone()
         pose, iters, ncorr = fall_back_where(fallback, *solved)
         return pose, RegistrationDebug(iterations=iters,
                                        num_correspondences=ncorr,
-                                       exact_fallback=fallback)
+                                       exact_fallback=fallback,
+                                       solve_iterations=passes)
 
     pose, iters, ncorr = full_loop()
     return pose, RegistrationDebug(iterations=iters, num_correspondences=ncorr)

@@ -22,6 +22,7 @@ from ..offline import (STATIONARY_GATE, init_batched_state,
                        make_batched_sequence_runner, pad_batch)
 from ..oracle.reference import se3_log
 from ..runtime import resolve_device
+from ..utils import profiling
 from . import sharded
 
 
@@ -36,6 +37,7 @@ class BatchedOdometryRunner:
     make_mesh``) every rank makes the same calls with the whole batch; the
     rank keeps its rows of the state (``init_sharded_state``) on the
     mesh's device, and the poses returned are the whole batch's.
+    ``stats`` holds the operator's counts of the frames ``run_device`` ran.
     """
 
     def __init__(self, config: Config, batch: int, mesh=None,
@@ -60,6 +62,15 @@ class BatchedOdometryRunner:
             self._step = sharded.make_sharded_step(config, mesh)
         self._seq_runner = None
         self.poses = [[] for _ in range(batch)]
+        #: the operator's counts, one int64 entry a sequence, summed over
+        #: the frames ``run_device`` ran that the stationary gate let
+        #: through (``step`` and ``run`` read back only the poses):
+        #: ``frames``, ``gn_passes`` (the GN kernel's passes, without the
+        #: full-27 fallback loop's trips), ``gn_sources`` (live sources)
+        #: and ``exact_fallback_frames`` (frames an exact mode re-solved
+        #: through the full-27 loop)
+        self.stats = {key: np.zeros(batch, np.int64)
+                      for key in pipeline.COUNTS}
 
     def _tensor(self, a):
         return torch.from_numpy(a).to(self.device)
@@ -139,35 +150,52 @@ class BatchedOdometryRunner:
         Ragged sequence lengths (and rows past ``len(sequences)``) pad with
         identity odometry: stationary frames whose state updates are
         masked, under this runner's ``stationary_gate``.  Appends to
-        ``self.poses`` (each sequence's true length) and returns it.
-        Raises on more sequences than the batch.
+        ``self.poses`` (each sequence's true length) and returns it, and
+        adds the frames' counts to ``stats``, read back with the overflow
+        totals.  Raises on more sequences than the batch.
         """
         self._check_count(len(sequences))
         b = self.batch
-        pts, ts, mask, has_ts, rels = pad_batch(sequences, self.config, b)
-        num_frames = pts.shape[0]
-        if self._seq_runner is None:
-            self._seq_runner = (
-                make_batched_sequence_runner(self.config, self.device,
-                                             self.stationary_gate)
-                if self.mesh is None else
-                sharded.make_sharded_sequence_runner(
-                    self.config, self.mesh, self.stationary_gate))
-        self.state, poses, overflow = self._seq_runner(
-            self.state, self._tensor(pts), self._tensor(ts),
-            self._tensor(mask), self._tensor(has_ts), self._ext(),
-            self._tensor(rels).to(self.dtype))[:3]
-        poses = poses.cpu().numpy().astype(np.float64)
-        overflow = overflow.cpu().numpy()
-        for i in range(b):
-            f_i = (len(sequences[i]["frames"]) if i < len(sequences)
-                   else num_frames)
-            self.poses[i].extend(list(poses[:f_i, i]))
+        with profiling.span("kicp.run_device"):
+            with profiling.span("kicp.pad_batch"):
+                arrays = pad_batch(sequences, self.config, b)
+            num_frames = arrays[0].shape[0]
+            if self._seq_runner is None:
+                self._seq_runner = (
+                    make_batched_sequence_runner(self.config, self.device,
+                                                 self.stationary_gate)
+                    if self.mesh is None else
+                    sharded.make_sharded_sequence_runner(
+                        self.config, self.mesh, self.stationary_gate))
+            with profiling.span("kicp.upload"):
+                *inputs, rels = (self._tensor(a) for a in arrays)
+                inputs += [self._ext(), rels.to(self.dtype)]
+            self.state, poses, overflow, _, counts = self._seq_runner(
+                self.state, *inputs)
+            with profiling.span("kicp.readback"):
+                poses = poses.cpu().numpy().astype(np.float64)
+                # the overflow totals and the counts in one transfer
+                tallies = torch.cat([overflow, counts], -1).cpu().numpy()
+            overflow, counts = tallies[:, :3], tallies[:, 3:]
+            self._tally(counts)
+            for i in range(b):
+                f_i = (len(sequences[i]["frames"]) if i < len(sequences)
+                       else num_frames)
+                self.poses[i].extend(list(poses[:f_i, i]))
         if overflow.any():
             warnings.warn(
                 f"capacity overflow per sequence {overflow.tolist()} — "
                 f"raise max_downsampled/max_source/map_capacity")
         return self.poses
+
+    def _tally(self, counts):
+        """Add (B, 4) per-sequence counts (``pipeline.COUNTS``) to
+        ``stats``, and to the trace's ``gn`` counter while recording."""
+        for key, column in zip(pipeline.COUNTS, counts.T):
+            self.stats[key] += column
+        frames, passes, sources, fallbacks = counts.sum(0).tolist()
+        profiling.count("gn", frames=frames, passes=passes, sources=sources,
+                        fallbacks=fallbacks)
 
     def run(self, sequences):
         """Run up to B sequences to completion, one ``step`` a frame

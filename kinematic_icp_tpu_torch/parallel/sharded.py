@@ -362,18 +362,19 @@ def make_sharded_sequence_runner(config: Config, mesh,
     """Whole sequences over the (data, map) mesh: ``run(state, pts (F, B,
     N, 3), ts (F, B, N), mask (F, B, N), has_ts (F, B), lidar_to_base (4,
     4), rels (F, B, 4, 4)) -> (state, poses (F, B, 4, 4), overflow (B,
-    3))``.
+    3), fallbacks (B,), counts (B, 4))``, as the batched runner returns
+    them (no fallbacks: the sharded frame has no certificate).
 
     The frame loop of ``offline.make_batched_sequence_runner`` on the
     rank's rows, with the stationary gate (|log(rel)| above
     ``stationary_gate``) and the deskew twist computed for all frames
     before it (``offline._per_frame_constants``): identity padding is a
     stationary frame.  Returns the rank's state, and the poses and
-    per-sequence overflow totals of the whole batch, gathered over the
-    data axis.  Each frame runs as ``make_sharded_step``'s does: one
-    replay of a CUDA graph a frame where the map group is NCCL's, the
-    same frame eagerly over the same buffers on gloo or the CPU; the state
-    is copied out at the end.  ``eager=True`` runs
+    per-sequence totals of the whole batch, gathered over the data axis.
+    Each frame runs as ``make_sharded_step``'s does: one replay of a CUDA
+    graph a frame where the map group is NCCL's, the same frame eagerly
+    over the same buffers on gloo or the CPU; the state is copied out at
+    the end.  ``eager=True`` runs
     ``sharded_register_frame`` op by op (the baseline a replay is held to:
     every GN trip, where a replay makes JAX's).
     """
@@ -387,11 +388,13 @@ def make_sharded_sequence_runner(config: Config, mesh,
 
     def run(state, pts, ts, mask, has_ts, lidar_to_base, rels):
         rows = _rows(axes, state, pts.shape[1])
-        state, poses, overflow, _ = frames(
+        state, poses, overflow, _, counts = frames(
             state, pts[:, rows], ts[:, rows], mask[:, rows], has_ts[:, rows],
             lidar_to_base, rels[:, rows])
-        return (state, _gather_rows(poses, 1, axes),
-                _gather_rows(overflow, 0, axes))
+        # one gather of both per-sequence tallies
+        tallies = _gather_rows(torch.cat([overflow, counts], -1), 0, axes)
+        return (state, _gather_rows(poses, 1, axes), tallies[:, :3],
+                tallies[:, -1], tallies[:, 3:])
 
     #: the runner's ``pipeline.Step`` (its graphs), or None on the eager loop
     run.step = frames.step

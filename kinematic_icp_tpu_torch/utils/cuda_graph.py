@@ -75,6 +75,8 @@ import weakref
 
 import torch
 
+from . import profiling
+
 #: the capture in progress (``_Capture``), or ``_WARMUP`` during a
 #: warm-up, else None
 _active = None
@@ -362,8 +364,9 @@ class StaticCall:
         if not self.capture:
             return self.fn(*self.buffers)
         self.prepare()
-        self._graph.replay()
-        self._effects.apply()
+        with profiling.span("kicp.launch"):
+            self._graph.replay()
+            self._effects.apply()
         return self.outputs
 
 

@@ -1,10 +1,28 @@
-"""Profiling / tracing hooks.
+"""Tracing hooks: the program's spans and counters, and device traces.
 
 The reference has no profiling surface at all (the offline progress bar is
-its only throughput signal).  This module provides per-stage wall timers
-that wait for the device before a stage's clock stops, and a context
-manager around ``torch.profiler`` for device traces viewable in Perfetto
-or ``chrome://tracing``.
+its only throughput signal).  This module gives the port three things:
+
+* ``span(name)``: a host span at a layer boundary (``kicp.register_frame``,
+  ``kicp.pack``, ``kicp.upload``, ``kicp.launch``, ``kicp.readback``,
+  ``kicp.run_device``, ``kicp.pad_batch``, ``kicp.frames``).  While a
+  ``torch.profiler`` runs it is a host event of the profiler's trace, in a
+  record-function scope that the profiler does not mirror onto the
+  device's timeline (a user-scope ``record_function`` also leaves a
+  ``gpu_user_annotation`` there, which would read as device time).
+  Inside ``recording()`` it is a sample of this module's buffer.  With
+  neither it costs one check of the profiler's flag and of
+  ``recording()``'s depth, and allocates nothing.
+* ``count(name, **values)``: a sample of counts the program read back at a
+  sync it makes anyway (the GN passes, live sources and exact fallbacks of
+  ``"gn"``), kept while recording is on (a profiler runs, or inside
+  ``recording()``) and dropped otherwise.
+* ``samples(name, lo_ns, hi_ns)``: the buffer's samples of ``name`` in a
+  window of ``time.time_ns()``, the clock of the profiler's host events.
+
+The buffer keeps the last ``BUFFER_SAMPLES`` samples.  ``device_trace``
+wraps ``torch.profiler`` for a Chrome trace, and ``device_profile`` reads
+a profiler's device activity.
 """
 
 from __future__ import annotations
@@ -12,64 +30,93 @@ from __future__ import annotations
 import contextlib
 import re
 import time
-from collections import Counter, defaultdict
+from collections import Counter, deque
 
 import torch
 
-
-def sync(tree):
-    """Wait until the device has finished the work that made ``tree`` (a
-    tensor or a nested tuple/list/dict of them): ``torch.cuda.synchronize``
-    on the device of its first CUDA tensor; a no-op for CPU tensors."""
-    stack = [tree]
-    while stack:
-        x = stack.pop()
-        if torch.is_tensor(x):
-            if x.is_cuda:
-                torch.cuda.synchronize(x.device)
-                break
-        elif isinstance(x, dict):
-            stack.extend(reversed(list(x.values())))
-        elif isinstance(x, (tuple, list)):
-            stack.extend(reversed(x))
-    return tree
+#: the samples the buffer keeps, oldest dropped first
+BUFFER_SAMPLES = 1 << 16
+#: (name, time.time_ns(), values) of each count, and (name, start_ns,
+#: {"end_ns": end_ns}) of each span recorded inside ``recording()``
+_buffer: deque = deque(maxlen=BUFFER_SAMPLES)
+#: depth of the ``recording()`` blocks open
+_recording = 0
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
-class StageTimer:
-    """Accumulates wall time per named stage; device-synced on exit."""
+class _Off:
+    """The span while nothing records: one object, shared."""
+    __slots__ = ()
 
-    def __init__(self, device_sync: bool = True):
-        self.device_sync = device_sync
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
+    def __enter__(self):
+        return None
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        """Time the block; put its device result in the yielded dict under
-        ``"result"`` to wait for it before the clock stops."""
-        t0 = time.perf_counter()
-        holder = {}
-        try:
-            yield holder
-        finally:
-            if self.device_sync and holder.get("result") is not None:
-                sync(holder["result"])
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    def __exit__(self, *exc):
+        return False
 
-    def summary(self) -> dict:
-        return {name: {"total_s": round(t, 4),
-                       "count": self.counts[name],
-                       "mean_ms": round(t / max(self.counts[name], 1) * 1e3, 3)}
-                for name, t in sorted(self.totals.items(),
-                                      key=lambda kv: -kv[1])}
 
-    def report(self) -> str:
-        lines = [f"{'stage':<24}{'count':>8}{'mean ms':>12}{'total s':>10}"]
-        for name, s in self.summary().items():
-            lines.append(f"{name:<24}{s['count']:>8}{s['mean_ms']:>12.3f}"
-                         f"{s['total_s']:>10.3f}")
-        return "\n".join(lines)
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "event", "start_ns")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.event = None
+        self.start_ns = 0
+
+    def __enter__(self):
+        if _profiler_enabled():
+            # the FUNCTION scope: a host event only, no device shadow
+            self.event = torch._C._profiler._RecordFunctionFast(self.name)
+            self.event.__enter__()
+        if _recording:
+            self.start_ns = time.time_ns()
+        return None
+
+    def __exit__(self, *exc):
+        if _recording and self.start_ns:
+            _buffer.append((self.name, self.start_ns,
+                            {"end_ns": time.time_ns()}))
+        if self.event is not None:
+            self.event.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that marks the host's time inside it as ``name``
+    while recording is on (see the module's docstring); a shared no-op
+    object otherwise."""
+    if _recording or _profiler_enabled():
+        return _Span(name)
+    return _OFF
+
+
+def count(name: str, **values) -> None:
+    """Keep ``values`` (numbers) as a sample of ``name`` at
+    ``time.time_ns()`` while recording is on; nothing otherwise."""
+    if _recording or _profiler_enabled():
+        _buffer.append((name, time.time_ns(), values))
+
+
+def samples(name: str, lo_ns: int = 0, hi_ns: int | None = None) -> list:
+    """(time_ns, values) of the buffer's samples of ``name`` with
+    ``lo_ns <= time_ns <= hi_ns``, oldest first."""
+    return [(t, v) for n, t, v in list(_buffer)
+            if n == name and lo_ns <= t and (hi_ns is None or t <= hi_ns)]
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counts into the buffer inside the block, with no
+    profiler (nested blocks record until the outermost ends)."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
 
 
 @contextlib.contextmanager

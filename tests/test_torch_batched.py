@@ -348,9 +348,10 @@ def jax_batched(sequences):
 def _port_batched(seqs, cfg):
     arrays = toffline.pad_batch(seqs, cfg)
     runner = toffline.make_batched_sequence_runner(cfg, device=CPU)
+    # (state, poses, overflow, fallbacks), without the counts
     return runner(toffline.init_batched_state(cfg, len(seqs), device=CPU),
                   *(torch.from_numpy(a) for a in arrays[:4]), torch.eye(4),
-                  torch.from_numpy(arrays[4]))
+                  torch.from_numpy(arrays[4]))[:4]
 
 
 def test_batched_runner_matches_jax(sequences, jax_batched):

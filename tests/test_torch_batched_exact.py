@@ -110,7 +110,7 @@ def test_batched_exact_runner_matches_jax(sequences, port_batched, mode):
         joffline.init_batched_state(jcfg, 3),
         *(jnp.asarray(a) for a in arrays[:4]), jnp.eye(4),
         jnp.asarray(arrays[4]))
-    (_, poses, over, fall), _ = port_batched(
+    (_, poses, over, fall, _), _ = port_batched(
         _port_cfg(jcfg, gn_backend="torch"))
     np.testing.assert_array_equal(over.numpy(), np.asarray(jover))
     np.testing.assert_array_equal(fall.numpy(), np.asarray(jfall))
@@ -153,7 +153,7 @@ def test_batched_rows_equal_run_offline(sequences, port_batched, mode,
     on exactly the batched frames where some row crossed."""
     cfg = _port_cfg(EXACT, **mode)
     calls = _spy_solves(monkeypatch)
-    (state, poses, over, fall), loops = port_batched(cfg)
+    (state, poses, over, fall, _), loops = port_batched(cfg)
     fall = fall.numpy()
     if mode["gn_backend"] == "cuda":
         assert [c[:2] for c in calls] == [((3, 4, 4), True)] * NUM_FRAMES

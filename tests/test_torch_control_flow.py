@@ -302,7 +302,7 @@ def _drive(cfg, batch):
         return torch.from_numpy(np.asarray(poses)), torch.tensor(
             stats["exact_fallback_frames"])
     arrays = toffline.pad_batch(_drives(), cfg)
-    _, poses, _, fallbacks = toffline.make_batched_sequence_runner(
+    _, poses, _, fallbacks, _ = toffline.make_batched_sequence_runner(
         cfg, device="cpu")(
         toffline.init_batched_state(cfg, batch, device="cpu"),
         *(torch.from_numpy(a) for a in arrays[:4]), torch.eye(4),

@@ -82,6 +82,11 @@ BY_DESIGN = {
     ("utils/compilation_cache.py", "enable_compilation_cache"):
         "JAX's persistent compile cache; a CUDA graph cannot outlive its "
         "process, and ops/cuda_build caches the kernel builds",
+    ("utils/profiling.py", "StageTimer"):
+        "wall timers that sync the device; the port's spans and counters "
+        "(profiling.span, count) record at the syncs the program makes",
+    ("utils/profiling.py", "sync"):
+        "StageTimer's device wait, gone with it",
 }
 
 

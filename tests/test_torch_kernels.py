@@ -276,7 +276,7 @@ def test_batched_drive_equals_one_run_per_sequence(card):
                                     noise_seed=s + 20) for s in range(3)]
     arrays = [torch.from_numpy(a).to(card) for a in pad_batch(seqs, cfg)]
     before = (gn.LAUNCHES, gn.FRAMES)
-    _, poses, overflow, _ = make_batched_sequence_runner(cfg, card)(
+    _, poses, overflow, *_ = make_batched_sequence_runner(cfg, card)(
         init_batched_state(cfg, 3, device=card), *arrays[:4],
         torch.eye(4, device=card), arrays[4])
     assert (gn.LAUNCHES, gn.FRAMES) == (before[0] + 5, before[1] + 15)
@@ -314,7 +314,7 @@ def test_batched_certified_exact_one_launch_a_frame(card, monkeypatch):
     for _ in range(2):  # the first run captures
         counts.zero_()
         before = (gn.LAUNCHES, gn.CROSSING_LAUNCHES)
-        _, poses, overflow, fallbacks = runner(
+        _, poses, overflow, fallbacks, _ = runner(
             init_batched_state(cfg, 3, device=card), *arrays[:4],
             torch.eye(4, device=card), arrays[4])
     assert (gn.LAUNCHES, gn.CROSSING_LAUNCHES) == (before[0] + 6,
@@ -720,7 +720,7 @@ def _run(card, seqs, cfg, eager, count=None):
         ext = seqs["extrinsic"]
     arrays = [torch.from_numpy(a).to(card) for a in arrays]
     before = gn.LAUNCHES
-    _, poses, overflow, _ = runner(
+    _, poses, overflow, *_ = runner(
         state, *arrays[:4], torch.tensor(np.asarray(ext, np.float32),
                                          device=card), arrays[4])
     torch.cuda.synchronize()

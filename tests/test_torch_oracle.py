@@ -14,7 +14,6 @@ from kinematic_icp_tpu import baseline_native as jbase
 from kinematic_icp_tpu.ops import se3 as jse3
 from kinematic_icp_tpu.ops.hashmap import MapState as JMapState
 from kinematic_icp_tpu.oracle import OracleKinematicICP as JOracle
-from kinematic_icp_tpu.utils import profiling as jprof
 from kinematic_icp_tpu.utils import visualization as jvis
 from kinematic_icp_tpu_torch import Config, baseline_native
 from kinematic_icp_tpu_torch.convert import state_to_numpy
@@ -160,21 +159,6 @@ def test_ply_and_segments_equal_jax(tmp_path):
     for suffix in (".ply", "_grid.ply"):
         assert (tmp_path / f"port{suffix}").read_text() == (
             tmp_path / f"jax{suffix}").read_text()
-
-
-def test_stage_timer_summary_like_jax():
-    ours, theirs = profiling.StageTimer(), jprof.StageTimer(device_sync=False)
-    for name in ("a", "a", "b"):
-        with ours.stage(name) as h:
-            h["result"] = (torch.ones(3), {"k": [torch.zeros(2)]})
-        with theirs.stage(name):
-            pass
-    s, j = ours.summary(), theirs.summary()
-    assert sorted(s) == sorted(j) == ["a", "b"]
-    assert {k: v["count"] for k, v in s.items()} == {
-        k: v["count"] for k, v in j.items()} == {"a": 2, "b": 1}
-    assert ours.report().splitlines()[0] == theirs.report().splitlines()[0]
-    assert profiling.sync([torch.ones(2)])[0].shape == (2,)
 
 
 def test_device_trace_writes_a_trace(tmp_path):
