@@ -1,6 +1,7 @@
 """Offline processing of a whole sequence (the reference OfflineNode loop).
 
-All frames are padded into device tensors once; the per-frame recurrence
+All frames are padded into device tensors once (or, in a batch, handed to
+the loop one frame at a time as it asks for them); the per-frame recurrence
 (pose, map, threshold) then advances in a Python loop over frames whose
 steps read nothing back to the host, and the stationary gate runs on the
 device.  ``make_batched_sequence_runner`` advances B independent sequences
@@ -97,6 +98,14 @@ def make_batched_sequence_runner(config: Config, device=None,
     any of a batched frame's (B,) fallback flags is set (on the device, or
     eagerly after one read-back of the flags), and ``fallbacks`` counts
     each sequence's fallback frames.
+
+    ``run(state, frames, extrinsic, rels)`` takes the frames one at a time
+    instead: ``frames`` yields each batched frame's ``(points (B, N, 3),
+    timestamps (B, N), mask (B, N), has_ts (B,))`` on the device, in
+    order, ``rels.shape[0]`` of them, and is asked for frame f + 1 only
+    after frame f's launches were issued (``BatchedOdometryRunner.
+    run_device`` packs and uploads a frame there while the device runs the
+    one before).
     """
     return _make_runner(config, resolve_device(device), stationary_gate,
                         True, eager)
@@ -136,31 +145,37 @@ def _runner(config: Config, dev, stationary_gate: float, batched: bool,
     and is copied out at the end), or the map-sharded step."""
     stepped = isinstance(register, pipeline.Step)
 
-    def run(state, pts, ts, mask, has_ts, extrinsic, rels):
-        for t in (pts, ts, mask, has_ts, extrinsic, rels, state.pose):
-            if t.device.type != dev.type:
-                raise ValueError(f"sequence runner on {dev}: got a tensor "
-                                 f"on {t.device}")
-        if pts.dim() != 3 + batched or rels.shape[:-2] != pts.shape[:-2] \
-                or state.pose.shape[:-2] != pts.shape[1:-2]:
-            raise ValueError(
-                f"sequence runner: points {tuple(pts.shape)}, odometry "
-                f"{tuple(rels.shape)} and a state of poses "
-                f"{tuple(state.pose.shape)} do not match (F, "
-                f"{'B, ' if batched else ''}N, 3)")
+    def run(state, *inputs):
+        *frames, extrinsic, rels = inputs
+        if len(frames) == 4:  # padded (F, [B,] N, ...) tensors
+            pts = frames[0]
+            for t in (*frames, extrinsic, rels, state.pose):
+                if t.device.type != dev.type:
+                    raise ValueError(f"sequence runner on {dev}: got a "
+                                     f"tensor on {t.device}")
+            if pts.dim() != 3 + batched \
+                    or rels.shape[:-2] != pts.shape[:-2] \
+                    or state.pose.shape[:-2] != pts.shape[1:-2]:
+                raise ValueError(
+                    f"sequence runner: points {tuple(pts.shape)}, odometry "
+                    f"{tuple(rels.shape)} and a state of poses "
+                    f"{tuple(state.pose.shape)} do not match (F, "
+                    f"{'B, ' if batched else ''}N, 3)")
+            frames = zip(*frames)
+        else:  # a source of each frame's four inputs, in order
+            (frames,) = frames
         active, twists = _per_frame_constants(rels, extrinsic, config,
                                               stationary_gate)
-        lead = pts.shape[1:-2]  # (B,) in a batch
-        poses = torch.empty((pts.shape[0], *state.pose.shape),
+        lead = state.pose.shape[:-2]  # (B,) in a batch
+        poses = torch.empty((rels.shape[0], *state.pose.shape),
                             dtype=state.pose.dtype, device=dev)
         overflow = torch.zeros(lead + (3,), dtype=torch.int32, device=dev)
         counts = torch.zeros(lead + (len(pipeline.COUNTS),),
                              dtype=torch.int32, device=dev)
         with profiling.span("kicp.frames"):
-            for f in range(pts.shape[0]):
+            for f, (p, t, m, h) in enumerate(frames):
                 state, out = register(
-                    state, pts[f], ts[f], mask[f], has_ts[f], extrinsic,
-                    rels[f], active=active[f],
+                    state, p, t, m, h, extrinsic, rels[f], active=active[f],
                     rel_twist_in_lidar=None if twists is None else twists[f])
                 poses[f] = state.pose
                 overflow += out.overflow
@@ -190,35 +205,60 @@ def pad_sequence(frames, rel_odometry, config: Config, timestamps=None):
     ts = np.zeros((f, n), np.float32)
     mask = np.zeros((f, n), bool)
     has_ts = np.zeros((f,), bool)
-    rels = np.tile(np.eye(4, dtype=np.float32), (f, 1, 1))
+    rels = _odometry(rel_odometry, f)
     truncated_points = 0
     truncated_frames = 0
     for i, fr in enumerate(frames):
-        if isinstance(fr, tuple):
-            p, t = fr
-        else:
-            p, t = fr, None
-        if timestamps is not None:
-            t = timestamps[i]
-        p = np.asarray(p, np.float32).reshape(-1, 3)
+        p, t = _scan(fr, None if timestamps is None else timestamps[i])
         k = min(len(p), n)
         if len(p) > n:
             truncated_points += len(p) - n
             truncated_frames += 1
         pts[i, :k] = p[:k]
         mask[i, :k] = True
-        if t is not None and len(t) == len(p):
-            ts[i, :k] = np.asarray(t, np.float32)[:k]
+        if t is not None:
+            ts[i, :k] = t[:k]
             has_ts[i] = True
+    if truncated_points:
+        _warn_truncated(truncated_points, truncated_frames, f, n,
+                        stacklevel=3)
+    return pts, ts, mask, has_ts, rels
+
+
+def _scan(frame, timestamps=None):
+    """A frame as ``pad_sequence`` reads it: ``(points (M, 3) float32,
+    stamps (M,) float32 or None)``.  ``frame`` is ``(points, stamps)`` or
+    plain points; ``timestamps`` replaces its stamps; stamps count only
+    with exactly one a point."""
+    p, t = frame if isinstance(frame, tuple) else (frame, None)
+    if timestamps is not None:
+        t = timestamps
+    p = np.asarray(p, np.float32).reshape(-1, 3)
+    if t is None or len(t) != len(p):
+        return p, None
+    return p, np.asarray(t, np.float32)
+
+
+def _odometry(rel_odometry, f: int):
+    """(f, 4, 4) float32 deltas of a sequence's first ``f`` frames: a
+    missing list or delta is the identity."""
+    rels = np.tile(np.eye(4, dtype=np.float32), (f, 1, 1))
+    for i in range(f):
         if rel_odometry is not None and rel_odometry[i] is not None:
             rels[i] = np.asarray(rel_odometry[i], np.float32)
-    if truncated_points:
-        warnings.warn(
-            f"pad_sequence dropped {truncated_points} points from "
-            f"{truncated_frames}/{f} scans longer than Config.max_points="
-            f"{n}; scan-tail truncation removes an angular sector and "
-            f"degrades accuracy — raise max_points", stacklevel=2)
-    return pts, ts, mask, has_ts, rels
+    return rels
+
+
+def _warn_truncated(points: int, scans: int, total: int, max_points: int,
+                    stacklevel: int = 2):
+    """The warning of scans longer than ``Config.max_points``: truncation
+    removes an angular sector of a spinning lidar and degrades
+    registration."""
+    warnings.warn(
+        f"pad_sequence dropped {points} points from {scans}/{total} scans "
+        f"longer than Config.max_points={max_points}; scan-tail truncation "
+        f"removes an angular sector and degrades accuracy — raise "
+        f"max_points", stacklevel=stacklevel)
 
 
 def pad_batch(sequences, config: Config, batch: int | None = None):

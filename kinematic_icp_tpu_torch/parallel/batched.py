@@ -18,8 +18,9 @@ import torch
 
 from ..config import Config
 from ..models import pipeline
-from ..offline import (STATIONARY_GATE, init_batched_state,
-                       make_batched_sequence_runner, pad_batch)
+from ..offline import (STATIONARY_GATE, _odometry, _scan, _warn_truncated,
+                       init_batched_state, make_batched_sequence_runner,
+                       pad_batch)
 from ..oracle.reference import se3_log
 from ..runtime import resolve_device
 from ..utils import profiling
@@ -61,6 +62,7 @@ class BatchedOdometryRunner:
                                                     dtype)
             self._step = sharded.make_sharded_step(config, mesh)
         self._seq_runner = None
+        self._ring = None  # run_device's _FrameRing, built at its first call
         self.poses = [[] for _ in range(batch)]
         #: the operator's counts, one int64 entry a sequence, summed over
         #: the frames ``run_device`` ran that the stationary gate let
@@ -144,22 +146,24 @@ class BatchedOdometryRunner:
 
     def run_device(self, sequences):
         """Run up to B sequences to completion through the batched
-        sequence runner: all frames padded to (F, B, N, ...) tensors once,
-        then the frame loop with no host round trip a frame.
+        sequence runner, with no host round trip a frame.
 
-        Ragged sequence lengths (and rows past ``len(sequences)``) pad with
-        identity odometry: stationary frames whose state updates are
-        masked, under this runner's ``stationary_gate``.  Appends to
-        ``self.poses`` (each sequence's true length) and returns it, and
-        adds the frames' counts to ``stats``, read back with the overflow
-        totals.  Raises on more sequences than the batch.
+        Without a mesh each batched frame is packed into one of two
+        reused host slots (``_FrameRing``: pinned on a card) and copied to
+        the device while the device runs the frame before; on a mesh all
+        frames are padded to (F, B, N, ...) tensors (``pad_batch``) and
+        uploaded first.  Ragged sequence lengths (and rows past
+        ``len(sequences)``) pad with identity odometry: stationary frames
+        whose state updates are masked, under this runner's
+        ``stationary_gate``.  Appends to ``self.poses`` (each sequence's
+        true length) and returns it, and adds the frames' counts to
+        ``stats``, read back with the overflow totals.  Raises on more
+        sequences than the batch.
         """
         self._check_count(len(sequences))
         b = self.batch
+        num_frames = max(len(s["frames"]) for s in sequences)
         with profiling.span("kicp.run_device"):
-            with profiling.span("kicp.pad_batch"):
-                arrays = pad_batch(sequences, self.config, b)
-            num_frames = arrays[0].shape[0]
             if self._seq_runner is None:
                 self._seq_runner = (
                     make_batched_sequence_runner(self.config, self.device,
@@ -167,9 +171,23 @@ class BatchedOdometryRunner:
                     if self.mesh is None else
                     sharded.make_sharded_sequence_runner(
                         self.config, self.mesh, self.stationary_gate))
-            with profiling.span("kicp.upload"):
-                *inputs, rels = (self._tensor(a) for a in arrays)
-                inputs += [self._ext(), rels.to(self.dtype)]
+            if self.mesh is None:
+                if self._ring is None:
+                    self._ring = _FrameRing(b, self.config.max_points,
+                                            self.device)
+                rels = np.tile(np.eye(4, dtype=np.float32),
+                               (num_frames, b, 1, 1))
+                for i, s in enumerate(sequences):
+                    f_i = len(s["frames"])
+                    rels[:f_i, i] = _odometry(s["rel_odometry"], f_i)
+                inputs = [self._ring.frames(sequences, num_frames),
+                          self._ext(), self._tensor(rels).to(self.dtype)]
+            else:
+                with profiling.span("kicp.pad_batch"):
+                    arrays = pad_batch(sequences, self.config, b)
+                with profiling.span("kicp.upload"):
+                    *inputs, rels = (self._tensor(a) for a in arrays)
+                    inputs += [self._ext(), rels.to(self.dtype)]
             self.state, poses, overflow, _, counts = self._seq_runner(
                 self.state, *inputs)
             with profiling.span("kicp.readback"):
@@ -178,6 +196,14 @@ class BatchedOdometryRunner:
                 tallies = torch.cat([overflow, counts], -1).cpu().numpy()
             overflow, counts = tallies[:, :3], tallies[:, 3:]
             self._tally(counts)
+            if self.mesh is None:
+                profiling.count("stream", frames=num_frames,
+                                waits=self._ring.waits)
+                for i, s in enumerate(sequences):
+                    points, scans = self._ring.dropped[i]
+                    if points:
+                        _warn_truncated(points, scans, len(s["frames"]),
+                                        self.config.max_points, stacklevel=3)
             for i in range(b):
                 f_i = (len(sequences[i]["frames"]) if i < len(sequences)
                        else num_frames)
@@ -221,3 +247,102 @@ class BatchedOdometryRunner:
                     rels.append(None)
             self.step(frames, rels, tss)
         return self.poses
+
+
+class _FrameRing:
+    """Two host slots of one batched frame's inputs, reused by every
+    ``run_device`` of a runner: the frame loop asks for frame f + 1 after
+    issuing frame f's launches, and the ring packs it into the slot frame
+    f did not use and queues its copy to the device while the device runs
+    frame f.
+
+    A slot holds points (B, N, 3) float32, stamps (B, N) float32, mask
+    (B, N) bool and has_ts (B,) bool, N = ``max_points``: pinned on a
+    card, with a twin on the device that the frame reads (refilled in
+    place by ``copy_``, which ``pipeline.Step`` sees as a new input), and
+    an event recorded after the copy; the host waits on it before packing
+    the slot again, so no copy reads a slot being rewritten.  On the CPU
+    the slots are plain memory and the copy is synchronous.  A lane's rows
+    past its scan hold zeros, as ``offline.pad_batch`` leaves them: a
+    repack zeroes only the rows the slot's last occupant wrote past the
+    new scan.
+    """
+
+    def __init__(self, batch: int, max_points: int, device: torch.device):
+        self.slots = [_Slot(batch, max_points, device) for _ in range(2)]
+        #: the times the last ``frames`` blocked on a slot's event
+        self.waits = 0
+        #: (B, 2): each lane's points and scans the last ``frames`` cut at
+        #: ``max_points``
+        self.dropped = np.zeros((batch, 2), np.int64)
+
+    def frames(self, sequences, num_frames: int):
+        """Yield each of ``num_frames`` batched frames' (points, stamps,
+        mask, has_ts) on the device, packed from ``sequences`` when asked
+        for."""
+        self.waits = 0
+        self.dropped[:] = 0
+        for f in range(num_frames):
+            slot = self.slots[f % 2]
+            if slot.copied is not None and not slot.copied.query():
+                self.waits += 1
+                slot.copied.synchronize()
+            with profiling.span("kicp.pad_batch"):
+                slot.pack(sequences, f, self.dropped)
+            with profiling.span("kicp.upload"):
+                for twin, host in zip(slot.twin, slot.host):
+                    twin.copy_(host, non_blocking=True)
+                if slot.copied is not None:
+                    slot.copied.record()
+            yield slot.twin
+
+
+#: the scan of a lane past the end of its sequence
+_NO_POINTS = np.zeros((0, 3), np.float32)
+
+
+class _Slot:
+    """One batched frame's inputs on the host, their device twin, the
+    copy's event (None off a card) and how far each lane's rows were
+    written (``reach``: mask set below it, every row zero from it on)."""
+
+    def __init__(self, batch: int, n: int, device: torch.device):
+        pin = device.type == "cuda"
+        self.host = tuple(
+            torch.zeros(shape, dtype=dtype, pin_memory=pin)
+            for shape, dtype in (((batch, n, 3), torch.float32),
+                                 ((batch, n), torch.float32),
+                                 ((batch, n), torch.bool),
+                                 ((batch,), torch.bool)))
+        self.arrays = tuple(h.numpy() for h in self.host)
+        self.twin = tuple(torch.zeros_like(h, device=device)
+                          for h in self.host)
+        self.copied = torch.cuda.Event() if pin else None
+        self.reach = [0] * batch
+
+    def pack(self, sequences, f: int, dropped):
+        """Write frame ``f`` of each lane (an empty scan past the end of
+        its sequence, or past the sequences), as ``offline.pad_sequence``
+        writes it."""
+        pts, ts, mask, has_ts = self.arrays
+        n = pts.shape[1]
+        for i, r in enumerate(self.reach):
+            frames = sequences[i]["frames"] if i < len(sequences) else ()
+            p, t = _scan(frames[f]) if f < len(frames) else (_NO_POINTS,
+                                                             None)
+            k = min(len(p), n)
+            if len(p) > n:
+                dropped[i] += (len(p) - n, 1)
+            pts[i, :k] = p[:k]
+            if t is not None:
+                ts[i, :k] = t[:k]
+            elif r:
+                ts[i, :min(k, r)] = 0
+            if k < r:
+                pts[i, k:r] = 0
+                ts[i, k:r] = 0
+                mask[i, k:r] = False
+            else:
+                mask[i, r:k] = True
+            has_ts[i] = t is not None
+            self.reach[i] = k
