@@ -55,30 +55,51 @@ def build_arg_parser():
     return p
 
 
+def configs(args):
+    """(Config, ServerConfig) of the parsed ``args``: the parameter YAML's,
+    else the values of the file the reference ships
+    (kinematic_icp_ros.yaml: the C++ defaults with deskew on)."""
+    from . import Config, ServerConfig, load_yaml_config
+
+    if args.config:
+        config, server_cfg = load_yaml_config(args.config)
+    else:
+        config, server_cfg = Config(deskew=True), ServerConfig()
+    config = config.replace(max_points=args.max_points)
+    server_cfg = dataclasses.replace(server_cfg, base_frame=args.base_frame,
+                                     wheel_odom_frame=args.wheel_odom_frame)
+    return config, server_cfg
+
+
 def run(args, timings: dict | None = None) -> str:
     """Run the CLI over ``args``; returns the TUM file's path.
 
     ``timings``, when given, receives the wall seconds spent reading and
     decoding messages (``read_s``: bag read, tf replay, CDR decode, scan
-    conversion), registering them (``register_s``) and writing the outputs
-    (``write_s``), the scans written to the TUM file (``frames``) and those
-    the server registered (``registered``: the others were stationary)."""
-    from . import Config, ServerConfig, load_yaml_config
+    conversion), registering them (``register_s``: tf lookups and
+    ``register_frame``) and writing the outputs (``write_s``), the scans
+    written to the TUM file (``frames``), those the server registered
+    (``registered``: the others were stationary) and the server's
+    capacity-overflow total (``overflow``, the sum of its
+    ``overflow_stats``: 0 where nothing was dropped).
+
+    While recording (``utils.profiling``) each scan's message is read in
+    a ``kicp.bag_read`` span (records, chunk decompression, tf replay),
+    decoded in a ``kicp.decode`` span (CDR, points, per-point times), its
+    tf looked up in a ``kicp.tf_lookup`` span and registered in
+    ``kicp.register_frame``; the TUM file is written in
+    ``kicp.write_tum``; and one ``io`` count gives the run's scan
+    messages, tf messages, chunks, bag bytes read and bytes written."""
     from .server import LidarOdometryServer
+    from .utils import profiling
     from .utils.io.bag import BagMultiplexer, BufferableBag, decode_message
     from .utils.io.laserscan import project_laser
     from .utils.io.messages import LaserScan, PointCloud2
     from .utils.io.tf import TransformBuffer
+    from .utils.io.timestamps import decode_scan
     from .utils.progress import ProgressBar
 
-    if args.config:
-        config, server_cfg = load_yaml_config(args.config)
-    else:
-        # the reference ships YAML that enables deskew (kinematic_icp_ros.yaml)
-        config, server_cfg = Config(deskew=True), ServerConfig()
-    config = config.replace(max_points=args.max_points)
-    server_cfg = dataclasses.replace(server_cfg, base_frame=args.base_frame,
-                                     wheel_odom_frame=args.wheel_odom_frame)
+    config, server_cfg = configs(args)
     # first, so that a missing card raises before any bag is opened
     server = LidarOdometryServer(config, server_cfg, device=args.device)
 
@@ -93,21 +114,26 @@ def run(args, timings: dict | None = None) -> str:
     progress = (None if args.no_progress
                 else ProgressBar(total, desc="kinematic-icp"))
     read_s = register_s = 0.0
-    processed = 0
+    processed = messages = 0
+    stream = iter(mux)
     t0 = time.perf_counter()
-    for raw in mux:
-        if args.max_frames and processed >= args.max_frames:
+    while not (args.max_frames and processed >= args.max_frames):
+        with profiling.span("kicp.bag_read"):
+            raw = next(stream, None)
+        if raw is None:
             break
-        msg = decode_message(raw)
-        if args.use_2d_lidar:
-            if not isinstance(msg, LaserScan):
-                continue
-            msg = project_laser(msg)
-        if not isinstance(msg, PointCloud2):
+        with profiling.span("kicp.decode"):
+            msg = decode_message(raw)
+            if args.use_2d_lidar:
+                msg = (project_laser(msg) if isinstance(msg, LaserScan)
+                       else None)
+            scan = decode_scan(msg) if isinstance(msg, PointCloud2) else None
+        if scan is None:
             continue
+        messages += 1
         t1 = time.perf_counter()
         read_s += t1 - t0
-        result = server.register_message(msg, tf_buffer)
+        result = server.register_scan(scan, tf_buffer)
         t0 = time.perf_counter()
         register_s += t0 - t1
         if result is None:
@@ -126,8 +152,15 @@ def run(args, timings: dict | None = None) -> str:
     stem = os.path.splitext(os.path.basename(first_bag))[0]
     out_dir = args.output_dir or os.path.dirname(os.path.abspath(first_bag))
     out_path = os.path.join(out_dir, f"{stem}_kinematic_icp_poses_tum.txt")
-    server.write_tum(out_path)
+    with profiling.span("kicp.write_tum"):
+        server.write_tum(out_path)
     print(f"wrote {processed} poses to {out_path}")
+    readers = [b.reader for b in mux.bags]
+    profiling.count("io", messages=messages,
+                    tf_messages=sum(b.tf_messages for b in mux.bags),
+                    chunks=sum(r.chunks for r in readers),
+                    bytes_in=sum(r.bytes_read for r in readers),
+                    bytes_out=os.path.getsize(out_path))
 
     if args.visualize and server.poses_with_stamps:
         from .utils.viewer import write_html_viewer
@@ -140,7 +173,8 @@ def run(args, timings: dict | None = None) -> str:
     if timings is not None:
         timings.update(read_s=read_s, register_s=register_s,
                        write_s=time.perf_counter() - t0, frames=processed,
-                       registered=server.frames_registered)
+                       registered=server.frames_registered,
+                       overflow=sum(server.overflow_stats.values()))
     return out_path
 
 

@@ -641,36 +641,50 @@ class LidarOdometryServer:
     def register_message(self, msg, tf_buffer):
         """Process one PointCloud2 against a TransformBuffer.
 
-        Mirrors LidarOdometryServer::RegisterFrame (cpp:186-218): lazy
-        init seeds the pose from wheel_odom->base and caches the
-        base->lidar extrinsic; per frame, timestamps are processed, the
-        wheel-odometry delta between scan stamps is looked up, and the
-        scan is registered.  Returns the register_frame result dict (or
-        None while initialization is pending).
+        Mirrors LidarOdometryServer::RegisterFrame (cpp:186-218): the
+        cloud's points and per-point times are decoded
+        (``timestamps.decode_scan``), then ``register_scan``.  Returns the
+        register_frame result dict (or None while initialization is
+        pending).
         """
+        from .utils.io.timestamps import decode_scan
+
+        with profiling.span("kicp.decode"):
+            scan = decode_scan(msg)
+        return self.register_scan(scan, tf_buffer)
+
+    def register_scan(self, scan, tf_buffer):
+        """Process one decoded ``timestamps.Scan`` against a
+        TransformBuffer: lazy init seeds the pose from wheel_odom->base
+        and caches the base->lidar extrinsic; per frame, the
+        wheel-odometry delta between scan stamps (the previous scan's end
+        to this one's) is looked up, and the scan is registered.  Returns
+        the register_frame result dict (or None while initialization is
+        pending)."""
         from .utils.io.timestamps import TimeStampHandler
 
         if self._stamps_handler is None:
             self._stamps_handler = TimeStampHandler()
+        handler = self._stamps_handler
         cfg = self.server_config
-        if not self._initialized:
-            if not (tf_buffer.frame_exists(cfg.wheel_odom_frame)
-                    and tf_buffer.frame_exists(cfg.base_frame)
-                    and tf_buffer.frame_exists(msg.header.frame_id)):
-                return None  # wait for tf, like cpp:141-145
-            stamp = msg.header.stamp.to_sec()
-            seed = tf_buffer.lookup_transform(
-                cfg.wheel_odom_frame, cfg.base_frame, stamp)
-            self.set_pose(seed)
-            self.extrinsic = tf_buffer.lookup_transform(
-                cfg.base_frame, msg.header.frame_id, stamp)
-            self._stamps_handler.last_processed_stamp = stamp
-            self._initialized = True
-
-        begin, end, norm_ts = self._stamps_handler.process_timestamps(msg)
-        delta = tf_buffer.lookup_delta_transform(
-            cfg.base_frame, begin, end, cfg.wheel_odom_frame)
-        return self.register_frame(msg.xyz(), norm_ts, delta, stamp=end)
+        with profiling.span("kicp.tf_lookup"):
+            if not self._initialized:
+                if not (tf_buffer.frame_exists(cfg.wheel_odom_frame)
+                        and tf_buffer.frame_exists(cfg.base_frame)
+                        and tf_buffer.frame_exists(scan.frame_id)):
+                    return None  # wait for tf, like cpp:141-145
+                self.set_pose(tf_buffer.lookup_transform(
+                    cfg.wheel_odom_frame, cfg.base_frame, scan.stamp))
+                self.extrinsic = tf_buffer.lookup_transform(
+                    cfg.base_frame, scan.frame_id, scan.stamp)
+                handler.last_processed_stamp = scan.stamp
+                self._initialized = True
+            begin = handler.last_processed_stamp
+            handler.last_processed_stamp = scan.end
+            delta = tf_buffer.lookup_delta_transform(
+                cfg.base_frame, begin, scan.end, cfg.wheel_odom_frame)
+        return self.register_frame(scan.points, scan.timestamps, delta,
+                                   stamp=scan.end)
 
     def make_odometry_message(self, result, stamp: float):
         """nav_msgs/Odometry with the parameterized fixed covariance

@@ -33,11 +33,14 @@ class BufferableBag:
         self._stream = self.reader.messages()
         self._buffer: deque[Message] = deque()
         self._exhausted = False
+        #: /tf and /tf_static messages replayed into the buffer so far
+        self.tf_messages = 0
 
     def _process(self, msg: Message):
         if msg.channel.topic in ("/tf", "/tf_static"):
             tf_msg = TFMessage.decode(msg.data)
             static = msg.channel.topic == "/tf_static"
+            self.tf_messages += 1
             for t in tf_msg.transforms:
                 self.tf_buffer.add_transform_stamped(t, is_static=static)
         elif msg.channel.topic == self.topic:

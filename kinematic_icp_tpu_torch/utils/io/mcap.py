@@ -84,6 +84,10 @@ class McapReader:
             raise ValueError(f"not an MCAP file (magic {magic!r})")
         self.schemas: dict[int, Schema] = {}
         self.channels: dict[int, Channel] = {}
+        #: what ``messages()`` has read so far: the file's bytes and the
+        #: chunks it decompressed
+        self.bytes_read = len(MAGIC)
+        self.chunks = 0
 
     def close(self):
         if self._owns:
@@ -139,6 +143,7 @@ class McapReader:
             if op == OP_FOOTER or op == 0:
                 return
             rec = self._f.read(length)
+            self.bytes_read += len(head) + len(rec)
             if len(rec) < length:
                 # Truncated file (crashed recorder / partial copy): yield
                 # what was intact and stop, like rosbag2's recovery read.
@@ -167,6 +172,7 @@ class McapReader:
         rlen, = struct.unpack_from("<Q", rec, pos)
         pos += 8
         payload = rec[pos:pos + rlen]
+        self.chunks += 1
         if compression in ("", "none"):
             records = payload
         elif compression == "zstd":

@@ -146,12 +146,11 @@ class PointCloud2:
         if f is None:
             return None
         n = self.height * self.width
-        dt = _FIELD_DTYPE[f.datatype]
-        raw = np.frombuffer(self.data, dtype=np.uint8)
-        itemsize = np.dtype(dt).itemsize
-        idx = (np.arange(n)[:, None] * self.point_step + f.offset
-               + np.arange(itemsize)[None, :])
-        return raw[idx].copy().view(dt).reshape(n)
+        dt = np.dtype(_FIELD_DTYPE[f.datatype])
+        if n == 0:
+            return np.empty(0, dt)
+        return np.ndarray((n,), dt, buffer=self.data, offset=f.offset,
+                          strides=(self.point_step,)).copy()
 
     def xyz(self) -> np.ndarray:
         """(N, 3) float32 positions — PointCloud2ToEigen equivalent.

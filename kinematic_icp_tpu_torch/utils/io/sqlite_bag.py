@@ -34,6 +34,10 @@ class SqliteBagReader:
                 "SELECT id, name, type, serialization_format FROM topics"):
             self.schemas[tid] = Schema(tid, typ, "ros2msg", b"")
             self.channels[tid] = Channel(tid, tid, name, fmt or "cdr")
+        #: what ``messages()`` has read so far: the messages' bytes (a
+        #: database has no chunks)
+        self.bytes_read = 0
+        self.chunks = 0
 
     def close(self):
         self._conn.close()
@@ -61,6 +65,7 @@ class SqliteBagReader:
             ch = self.channels.get(tid)
             if ch is None:
                 continue
+            self.bytes_read += len(data)
             yield Message(ch, self.schemas.get(tid), stamp, stamp, 0,
                           bytes(data))
 

@@ -13,9 +13,14 @@ Reimplements the reference ``TimeStampHandler``
     stamp by the scan duration (cpp:115-128),
   * per-point times are normalized to [0, 1] (cpp:130-135),
   * a missing field yields empty timestamps => deskew disabled (cpp:51-54).
+
+``decode_scan`` gives a cloud's points, stamps and normalized per-point
+times in one ``Scan``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
@@ -45,6 +50,35 @@ def extract_timestamps(msg: PointCloud2) -> np.ndarray | None:
     return np.where(digits > 10, stamps * 1e-9, stamps)
 
 
+class Scan(NamedTuple):
+    """A decoded scan: what the server registers of a PointCloud2."""
+    points: np.ndarray              # (N, 3) float32, the sensor's frame
+    stamp: float                    # the header stamp, seconds
+    end: float                      # the scan's end stamp (cpp:115-128)
+    timestamps: np.ndarray | None   # per-point, normalized to [0, 1]
+    frame_id: str
+
+
+def decode_scan(msg: PointCloud2) -> Scan:
+    """The points, stamps and normalized per-point times of a cloud
+    (cpp:115-135)."""
+    stamps = extract_timestamps(msg)
+    stamp = msg.header.stamp.to_sec()
+    end = stamp
+    normalized = None
+    if stamps is not None and len(stamps):
+        mx = float(np.max(stamps))
+        mn = float(np.min(stamps))
+        if abs(stamp - mx) > 1e-8:
+            # begin-stamped scan: extend by the scan duration
+            end = stamp + (mx - mn)
+        if mx > mn:
+            normalized = ((stamps - mn) / (mx - mn)).astype(np.float32)
+        # mx == mn: degenerate stamps; deskew would be a no-op — treat
+        # as missing (the C++ would divide by zero here)
+    return Scan(msg.xyz(), stamp, end, normalized, msg.header.frame_id)
+
+
 class TimeStampHandler:
     def __init__(self):
         self.last_processed_stamp: float = 0.0
@@ -55,20 +89,7 @@ class TimeStampHandler:
         Mirrors TimeStampHandler::ProcessTimestamps (cpp:108-139): the
         begin stamp for odometry queries is the previous scan's end stamp.
         """
-        stamps = extract_timestamps(msg)
-        msg_stamp = msg.header.stamp.to_sec()
         begin_stamp = self.last_processed_stamp
-        end_stamp = msg_stamp
-        normalized = None
-        if stamps is not None and len(stamps):
-            mx = float(np.max(stamps))
-            mn = float(np.min(stamps))
-            if abs(msg_stamp - mx) > 1e-8:
-                # begin-stamped scan: extend by the scan duration
-                end_stamp = msg_stamp + (mx - mn)
-            if mx > mn:
-                normalized = ((stamps - mn) / (mx - mn)).astype(np.float32)
-            # mx == mn: degenerate stamps; deskew would be a no-op — treat
-            # as missing (the C++ would divide by zero here)
-        self.last_processed_stamp = end_stamp
-        return begin_stamp, end_stamp, normalized
+        scan = decode_scan(msg)
+        self.last_processed_stamp = scan.end
+        return begin_stamp, scan.end, scan.timestamps
