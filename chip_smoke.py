@@ -53,8 +53,15 @@ last line.  Phases:
      launch a batched frame, the full-27 loop on the batched frames where
      some row's certificate failed, zero overflow, each drive within 5 mm
      of its own ``run_offline``, fallback counts beside that drive's own,
-     aggregate frames/s); 2 drives, 10 frames, pruned exact, bit-equal to
-     the batched full-27 loop;
+     aggregate frames/s; the full-27 association kernel's launches, one
+     an association of the fallback, counted on the device); 2 drives, 10
+     frames, pruned exact, bit-equal to the batched full-27 loop;
+ 10a. nn27: the full-27 association kernel (``csrc/nn27.cu``) on one
+     real fallback association of the 8 drives as one batch at the exact
+     offline cell's sizes (N = 8,192 source slots): bit-equal to its plain
+     version on the live queries, in float32 and float64, one launch a
+     call; ms of both, the plain version's peak memory, and the bound
+     (the distinct bucket rows the live queries probe, read once);
  10b. peer_reduce: the map axis's all-reduce over peer memory
      (``csrc/peer_reduce.cu``, what a map group on NCCL reduces with, so
      that the GN loop's conditional nodes can hold it): 1, 2 and 4 ranks
@@ -230,6 +237,12 @@ EXACT_BATCH = 4
 EXACT_BATCH_FRAMES = 20
 PRUNED_BATCH = 2
 PRUNED_BATCH_FRAMES = 10
+#: the nn27 phase: the exact offline cell's sizes (icp_bench/configs/
+#: ros_exact.json: 8,192 source slots, a 2**18-voxel map) on the batched
+#: phase's BATCH drives, and the frames searched for a fallback
+NN27_CONFIG = dict(EXACT, max_downsampled=16384, max_source=8192,
+                   map_capacity=1 << 18)
+NN27_FRAMES = 20
 #: the sharded phases: headline drives and frames, and each two-rank
 #: worker's wall limit (s)
 SHARD_BATCH = 2
@@ -270,8 +283,9 @@ DIFF_FRAME_M = 0.05
 #: port of a TPU kernel); peer_reduce the map axis's all-reduce over peer
 #: memory on NCCL meshes, one instance per reduction (float32, float64 and
 #: int32 sums, int32 minimum; it stands for JAX's psum and pmin, not a TPU
-#: kernel)
-KERNEL_SOURCES = {"gn_solve": 2, "graph_if": 1, "peer_reduce": 4}
+#: kernel); nn27 the exact modes' full-27 association, one instance per
+#: query type (float32, float64; XLA's gathers in JAX, not a TPU kernel)
+KERNEL_SOURCES = {"gn_solve": 2, "graph_if": 1, "peer_reduce": 4, "nn27": 2}
 
 #: the script's start, for each phase line's ``elapsed_s``
 T0 = time.perf_counter()
@@ -1055,13 +1069,15 @@ def batched_exact_phase(torch, np, seqs):
     kernel's ``check_crossing`` instance a batched frame, and the full-27
     loop on the batched frames where some row's certificate failed; each
     drive against its own ``run_offline``.  Then PRUNED_BATCH drives in
-    pruned exact, bit-equal to the batched full-27 loop.  The counts are
-    set to 0 just before the batched run and read just after; the full-27
-    loops it ran are counted on the device in a second run of the same
-    frames (``counted_run``)."""
+    pruned exact, bit-equal to the batched full-27 loop.  The counts
+    (``nn27.LAUNCHES`` among them) are set to 0 just before the batched run
+    and read just after; the full-27 loops it ran, their associations and
+    the association kernel's launches are counted on the device in a
+    second run of the same frames (``counted_run``): every association of
+    the certified fallback is one launch of ``csrc/nn27.cu``."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import make_batched_sequence_runner
-    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.ops import gn, nn27
     from kinematic_icp_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = Config(**EXACT)
@@ -1070,9 +1086,11 @@ def batched_exact_phase(torch, np, seqs):
     run_batched(torch, np, drives, cfg, 3)  # warm-up
     gn.LAUNCHES = 0
     gn.CROSSING_LAUNCHES = 0
+    nn27.LAUNCHES = 0
     poses, overflow, stages, _, fallbacks = run_batched(torch, np, drives,
                                                         cfg, count)
     launches, crossing = gn.LAUNCHES, gn.CROSSING_LAUNCHES
+    nn27_host = nn27.LAUNCHES
     path = path_of(runner_calls(torch, cfg, batched=True))
     loops = counted_run(
         torch, make_batched_sequence_runner(cfg, torch.device("cuda"))
@@ -1107,6 +1125,10 @@ def batched_exact_phase(torch, np, seqs):
            "config": EXACT, "gn_launches": launches,
            "gn_check_crossing_launches": crossing,
            "loop_counts": loops,
+           # issued or captured on the host in the batched run (its replays
+           # add none), and run by the replays (counted on the device)
+           "nn27_host_launches": nn27_host,
+           "nn27_launches": loops["nn27_launches"],
            "exact_fallback_frames": fallbacks.tolist(),
            "overflow": overflow.tolist(), "seconds": seconds,
            "stages_s": stages,
@@ -1129,6 +1151,9 @@ def batched_exact_phase(torch, np, seqs):
         "fallback_loop_where_a_row_fell_back": (
             loops["gn_loops"] == loops["fallback_registrations"] <= count
             and (loops["gn_loops"] > 0 or not fallbacks.any())),
+        "nn27_on_every_association": (
+            loops["nn27_launches"] == loops["associations"]
+            and (loops["associations"] > 0 or not fallbacks.any())),
         "zero_overflow": not overflow.any() and not any(
             any(p["run_offline_overflow"]) for p in per_seq),
         "each_within_5mm_of_run_offline": all(
@@ -1138,6 +1163,153 @@ def batched_exact_phase(torch, np, seqs):
     emit(row)
     if not all(row["checks"].values()):
         raise SystemExit(f"batched_exact failed: {row['checks']}")
+    return row
+
+
+def fallback_association(torch, np, drives, config, frames):
+    """The inputs of a real full-27 association: the ``drives`` as one
+    batch under ``config``, registered frame by frame (``register_frame``)
+    until a frame past the first two sets some row's fallback flag; the
+    fallback loop's first association of that frame is at the guess, so
+    its inputs are the map before the frame, the frame's sources moved by
+    the guess, and their mask.  Returns (frame, map, queries, mask, the
+    rows that fell back), or None where no frame of the first ``frames``
+    fell back."""
+    from kinematic_icp_tpu_torch.models import pipeline
+    from kinematic_icp_tpu_torch.offline import init_batched_state, pad_batch
+    from kinematic_icp_tpu_torch.ops import se3
+    from kinematic_icp_tpu_torch.ops.points import transform
+
+    dev = torch.device("cuda")
+    pts, ts, mask, has_ts, rels = (torch.from_numpy(a).to(dev) for a in
+                                   pad_batch([dict(
+                                       s, frames=s["frames"][:frames],
+                                       rel_odometry=s["rel_odometry"][:frames])
+                                       for s in drives], config))
+    ext = torch.tensor(np.asarray(drives[0]["extrinsic"], np.float32),
+                       device=dev)
+    state = init_batched_state(config, len(drives), device=dev)
+    for f in range(frames):
+        before = pipeline.clone_state(state)
+        state, out = pipeline.register_frame(state, pts[f], ts[f], mask[f],
+                                             has_ts[f], ext, rels[f], config)
+        fell = out.debug.exact_fallback
+        if f >= 2 and bool(fell.any()):
+            guess = se3.compose44(before.pose, rels[f])
+            return (f, before.map, transform(guess, out.source),
+                    out.source_mask, fell.nonzero().flatten().tolist())
+    return None
+
+
+def nn27_bound(torch, m, q, qmask, voxel_size, probes):
+    """(bound_ms, bound_by, bytes, flops, rows) of one full-27 association:
+    the distinct (sequence, bucket) rows the live queries probe, read once
+    (G (K + 4) int32 each), every query's coordinates and mask read and its
+    four outputs written once; ~17 float ops (unpack 9, distance 8) for
+    each stored point in a live query's 27 voxels."""
+    from kinematic_icp_tpu_torch.ops import hashmap
+    from kinematic_icp_tpu_torch.ops.voxel import voxel_coords_planar
+
+    b, n = qmask.shape
+    nb, g, k = m.num_buckets, m.bucket_slots, m.block_size
+    ids = torch.arange(27, device=qmask.device)[:, None]
+    ox, oy, oz = hashmap._rel_to_offsets(ids)
+    cx, cy, cz = voxel_coords_planar(q, voxel_size)
+    bucket = hashmap.bucket_of(cx[:, None] + ox, cy[:, None] + oy,
+                               cz[:, None] + oz, nb).to(torch.int64)
+    lane = torch.arange(b, device=qmask.device)[:, None, None]
+    probed = (lane * nb + bucket)[qmask[:, None, :].expand(-1, 27, -1)]
+    rows = int(torch.unique(probed).numel())
+    item = q.x.element_size()
+    nbytes = rows * g * (k + 4) * 4 + b * n * (3 * item + 1) + 4 * item * b * n
+    cand = hashmap.gather_candidates(m, q, voxel_size, probes, 27)
+    stored = int(((cand.words != hashmap.PACKED_SENTINEL)
+                  & qmask[:, None, None, :]).sum())
+    flops = 17 * stored
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops, rows)
+
+
+def nn27_phase(torch, np, drives):
+    """``csrc/nn27.cu`` on one real fallback association of the batched
+    exact drive at the exact offline cell's sizes (NN27_CONFIG: B = 8
+    drives, N = 8,192 source slots): the inputs of the first full-27
+    association of the first batched frame past the second that falls
+    back (``fallback_association``); the kernel against its plain version
+    (``hashmap.gather_candidates`` at V = 27, then ``nn_from_candidates``),
+    (nearest, dist) bit for bit on the live queries and dist inf on the
+    others, in float32 and with the queries in float64; one launch a call
+    (``nn27.LAUNCHES``); ms of both (CUDA events), the plain version's
+    device memory at its peak, and the bound (``nn27_bound``)."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.ops import hashmap, nn27
+
+    cfg = Config(**NN27_CONFIG)
+    found = fallback_association(torch, np, drives[:BATCH], cfg, NN27_FRAMES)
+    if found is None:
+        raise SystemExit(f"nn27: no fallback in {NN27_FRAMES} frames")
+    frame, m, q, qmask, fell = found
+    vs, probes = cfg.voxel_size, cfg.max_probes
+
+    def plain(q=q):
+        cand = hashmap.gather_candidates(m, q, vs, probes, 27)
+        return hashmap.nn_from_candidates(cand, q, qmask, vs)
+
+    def kernel(q=q):
+        return nn27.nearest_neighbor(m, q, qmask, vs)
+
+    def compare(q):
+        """(bit-equal on live, dist inf on dead, max |kernel - plain| on
+        live) of one call each."""
+        before = nn27.LAUNCHES
+        (kn, kd), (pn, pd) = hashmap.nearest_neighbor(
+            m, q, qmask, vs, probes), plain(q)
+        torch.cuda.synchronize()
+        launched = nn27.LAUNCHES - before
+        pairs = list(zip((*kn, kd), (*pn, pd)))
+        same = all(bits_equal(torch, a[qmask], b[qmask]) for a, b in pairs)
+        err = max(float((a[qmask] - b[qmask]).abs().nan_to_num(
+            posinf=0.0).max()) if qmask.any() else 0.0 for a, b in pairs)
+        return same, bool(torch.isinf(kd[~qmask]).all()), err, launched
+
+    same, dead_inf, err, launched = compare(q)
+    q64 = q.astype(torch.float64)
+    same64, dead_inf64, err64, launched64 = compare(q64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plain()
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    ms = median_ms(kernel)
+    ms64 = median_ms(lambda: kernel(q64))
+    plain_ms = median_ms(plain, runs=5, calls=3)
+    bound_ms, bound_by, nbytes, flops, rows = nn27_bound(torch, m, q, qmask,
+                                                         vs, probes)
+    row = {"phase": "nn27", "config": NN27_CONFIG, "frame": frame,
+           "B": int(qmask.shape[0]), "N": int(qmask.shape[1]),
+           "live_queries": int(qmask.sum()),
+           "fallback_rows": fell, "table": list(m.table.shape),
+           "launches_per_call": launched, "bit_equal_on_live": same,
+           "dead_dist_inf": dead_inf, "max_abs_err": err,
+           "float64": {"launches_per_call": launched64,
+                       "bit_equal_on_live": same64,
+                       "dead_dist_inf": dead_inf64, "max_abs_err": err64,
+                       "ms": ms64},
+           "ms": ms, "plain_ms": plain_ms, "plain_peak_bytes": plain_peak,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+           "bound_flops": flops, "bound_distinct_rows": rows,
+           "library_ms": None}
+    row["checks"] = {"one_launch_a_call": launched == launched64 == 1,
+                     "bit_equal_on_live": same and same64,
+                     "dead_dist_inf": dead_inf and dead_inf64,
+                     "live_queries": row["live_queries"] > 0,
+                     "within_bound": ms >= bound_ms}
+    emit(row)
+    if not all(row["checks"].values()):
+        raise SystemExit(f"nn27 failed: {row['checks']}")
     return row
 
 
@@ -2123,48 +2295,54 @@ def profiled(torch, run, frames, marker, per_marker):
 
 def reset_counts():
     """Set the launch and collective counters to 0."""
-    from kinematic_icp_tpu_torch.ops import gn
+    from kinematic_icp_tpu_torch.ops import gn, nn27
     from kinematic_icp_tpu_torch.parallel import sharded
 
     gn.LAUNCHES = gn.CROSSING_LAUNCHES = sharded.COLLECTIVES = 0
+    nn27.LAUNCHES = 0
 
 
 def read_counts():
     """The counters ``reset_counts`` zeroes: GN launches, ``check_crossing``
-    launches and the sharded frame's collectives outside its GN loop (host
-    counts)."""
-    from kinematic_icp_tpu_torch.ops import gn
+    launches, the sharded frame's collectives outside its GN loop and the
+    full-27 association kernel's launches, issued or captured (host counts:
+    a replay adds no ``nn27`` launch, since they all lie in conditional
+    bodies; ``device_counts`` counts those a replay runs)."""
+    from kinematic_icp_tpu_torch.ops import gn, nn27
     from kinematic_icp_tpu_torch.parallel import sharded
 
     return {"gn_launches": gn.LAUNCHES,
             "check_crossing_launches": gn.CROSSING_LAUNCHES,
-            "collectives": sharded.COLLECTIVES}
+            "collectives": sharded.COLLECTIVES,
+            "nn27_launches": nn27.LAUNCHES}
 
 
 #: the names of ``device_counts``' counts
 LOOP_COUNTS = ("gn_loops", "associations", "loop_iterations",
-               "fallback_registrations", "loop_collectives")
+               "fallback_registrations", "loop_collectives", "nn27_launches")
 
 
 @contextlib.contextmanager
 def device_counts(torch, device="cuda"):
-    """Count, in a (5,) int64 tensor on ``device``, the GN loop's work that
+    """Count, in a (6,) int64 tensor on ``device``, the GN loop's work that
     a replay can no longer show the host: the ``registration.run_gn`` calls
     that ran, the associations they made, each call's most iterations of a
     row, summed, the registrations whose exact-mode fallback flags have a
-    row set, and the map-axis collectives issued while ``run_gn`` runs
+    row set, the map-axis collectives issued while ``run_gn`` runs
     (``parallel.sharded._all_reduce``: β's, each trip's and the
-    correspondence count's SUM, each association's MIN).  Each count is a
+    correspondence count's SUM, each association's MIN), and the launches
+    of the full-27 association kernel (``nn27.nearest_neighbor``, which
+    ``hashmap.nearest_neighbor`` calls where it applies).  Each count is a
     device op where its work is, inside whatever conditional node holds
     it, so a replay counts what it ran.  Graphs captured inside the
     ``with`` hold the counting ops; a capture's warm-up counts too (zero
     the tensor after it)."""
-    from kinematic_icp_tpu_torch.ops import registration
+    from kinematic_icp_tpu_torch.ops import nn27, registration
     from kinematic_icp_tpu_torch.parallel import sharded
 
-    counts = torch.zeros(5, dtype=torch.int64, device=device)
+    counts = torch.zeros(6, dtype=torch.int64, device=device)
     run_gn, motion = registration.run_gn, registration.compute_robot_motion
-    all_reduce = sharded._all_reduce
+    all_reduce, nearest = sharded._all_reduce, nn27.nearest_neighbor
     in_loop = [False]
 
     def counting_run_gn(associate, *args, **kw):
@@ -2193,15 +2371,21 @@ def device_counts(torch, device="cuda"):
             counts[4].add_(1)
         return all_reduce(t, op, axes)
 
+    def counting_nearest(*args, **kw):
+        counts[5].add_(1)
+        return nearest(*args, **kw)
+
     registration.run_gn = counting_run_gn
     registration.compute_robot_motion = counting_motion
     sharded._all_reduce = counting_all_reduce
+    nn27.nearest_neighbor = counting_nearest
     try:
         yield counts
     finally:
         registration.run_gn = run_gn
         registration.compute_robot_motion = motion
         sharded._all_reduce = all_reduce
+        nn27.nearest_neighbor = nearest
 
 
 def counted_run(torch, release, run, warm):
@@ -2453,7 +2637,8 @@ def graph_phase(torch, np, seq, drives, card):
     emit({"phase": "graph_reassociations", "nvidia_smi": card,
           "paths": {name: {k: row[k] for k in (
               "iterations_a_loop", "reassociations_a_loop",
-              "collectives_a_frame", "loop_collectives_a_frame")}
+              "collectives_a_frame", "loop_collectives_a_frame",
+              "nn27_launches")}
               for name, row in summary.items()
               if row["iterations_a_loop"] is not None}})
     emit({"phase": "graph", "nvidia_smi": card, "paths": summary})
@@ -2559,6 +2744,16 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
             k: (r["loop_counts"]["associations"] - done) / done
             for k, r in (("eager", eager), ("graph", graph))}
         row["iterations_a_loop"] = loops["loop_iterations"] / done
+        # the full-27 association kernel's launches: eager, issued on the
+        # host in the timed run and counted on the device in its second
+        # run of the same frames; replayed, counted on the device
+        row["nn27_launches"] = {
+            "eager_host": eager["nn27_launches"],
+            "eager": eager["loop_counts"]["nn27_launches"],
+            "graph": loops["nn27_launches"]}
+        row["checks"]["nn27_host_count_as_the_device_count"] = (
+            eager["nn27_launches"]
+            == eager["loop_counts"]["nn27_launches"])
     if quiet:
         row["checks"]["no_host_sync_in_the_frame_loop"] = (
             graph["profile"]["host_syncs_per_frame"] == 0)
@@ -2568,6 +2763,7 @@ def graph_row(np, name, count, b, kernel, quiet, eager, graph, card):
         raise SystemExit(f"graph_{name} failed: {row['checks']}")
     return {"gn_launches": graph["gn_launches"],
             "check_crossing_launches": graph["check_crossing_launches"],
+            "nn27_launches": row.get("nn27_launches"),
             "capture_ms": graph["capture_ms"], "graphs": graph["graphs"],
             "pool_mb": None if graph["pool_bytes"] is None
             else graph["pool_bytes"] / 2**20,
@@ -2810,7 +3006,7 @@ def main():
         return 1
     from concurrent.futures import ThreadPoolExecutor
 
-    from kinematic_icp_tpu_torch.ops import cuda_build
+    from kinematic_icp_tpu_torch.ops import cuda_build, nn27
     from kinematic_icp_tpu_torch.utils import cuda_graph, synthetic
     from kinematic_icp_tpu_torch.utils.io import native
 
@@ -2854,14 +3050,18 @@ def main():
     batched_kernel, batched_drive, drives = batched_phase(torch, np, seq,
                                                           card)
     batched_exact = batched_exact_phase(torch, np, drives)
+    nn27_row = nn27_phase(torch, np, drives)
     peer_row = peer_phase(torch, np)
     _, one_rank = sharded_1rank_phase(torch, np, drives)
     loop_batch_phase(torch, np, drives)
     two_ranks = sharded_2rank_phase(torch, np, one_rank)
     serve_launches = serve_phase(torch, np, seq, main_poses)
     cuda_graph.IF_LAUNCHES = 0
+    nn27.LAUNCHES = 0
     graph = graph_phase(torch, np, seq, drives, card)
     if_launches = cuda_graph.IF_LAUNCHES
+    # issued eagerly or captured over the graph phase (replays add none)
+    nn27_graph_host = nn27.LAUNCHES
     if not if_launches:
         raise SystemExit("graph: no IF node captured on its paths")
     cli_launches = cli_phase(torch, np, seq, main_poses, card)
@@ -2921,7 +3121,30 @@ def main():
         # the kernel of every node its bodies reach)
         "launches": if_launches, "max_abs_err": None, "ms": None,
         "plain_ms": None, "bound_ms": None, "bound_by": None,
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "nn27", "route": "cuda",
+        "source": "kinematic_icp_tpu_torch/csrc/nn27.cu",
+        # no TPU kernel: XLA's gathers of the full-27 search
+        "replaces": None,
+        "replaces_also": "kinematic_icp_tpu/ops/hashmap.py:487",
+        # the batched exact drive's replays, counted on the device (one a
+        # fallback association), and what its run issued on the host
+        "launches": batched_exact["nn27_launches"],
+        "launches_host": batched_exact["nn27_host_launches"],
+        # each path of the graph phase that runs the GN loop: eager (host
+        # and device counts) and replayed (device count)
+        "launches_graph": {name: p["nn27_launches"]
+                           for name, p in graph.items()
+                           if p["nn27_launches"] is not None},
+        "launches_graph_host": nn27_graph_host,
+        # one real fallback association at B = 8, N = 8,192 (the nn27
+        # phase): bit-equal on the live queries, so max_abs_err is 0
+        "max_abs_err": nn27_row["max_abs_err"],
+        "ms": nn27_row["ms"], "plain_ms": nn27_row["plain_ms"],
+        "bound_ms": nn27_row["bound_ms"], "bound_by": nn27_row["bound_by"],
+        "library_ms": None,
+        "library_note": "no library kernel searches this hash map",
+        "float64_ms": nn27_row["float64"]["ms"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -56,19 +56,21 @@ class FrameOutputs(NamedTuple):
     #: source voxels dropped, map insert bucket-overflow voxels]; nonzero
     #: means the static capacities are undersized; (B, 3) in a batch
     overflow: torch.Tensor
-    #: (4,) int32 counts of the frame, ``COUNTS``' columns: 1 (the
+    #: (5,) int32 counts of the frame, ``COUNTS``' columns: 1 (the
     #: frame registered), the GN passes of its first solve (the kernel's,
     #: without the full-27 fallback loop's trips), its live sources, 1
     #: where an exact mode's certificate failed and the full-27 loop
-    #: re-solved it; zeros where the stationary gate held the frame; (B, 4)
-    #: in a batch
+    #: re-solved it, and that loop's trips there (``debug.iterations``; 0
+    #: where the frame did not fall back); zeros where the stationary gate
+    #: held the frame; (B, 5) in a batch
     counts: torch.Tensor
 
 
 #: the columns of ``FrameOutputs.counts``, and the keys of the operator's
 #: totals of them (``LidarOdometryServer.frame_stats``,
 #: ``BatchedOdometryRunner.stats``)
-COUNTS = ("frames", "gn_passes", "gn_sources", "exact_fallback_frames")
+COUNTS = ("frames", "gn_passes", "gn_sources", "exact_fallback_frames",
+          "exact_fallback_trips")
 
 
 def init_state(config: Config, dtype=torch.float32, initial_pose=None,
@@ -240,9 +242,10 @@ def finish_frame(state: OdometryState, prep: PreparedFrame,
               else debug.solve_iterations).to(torch.int32)
     fell = (torch.zeros_like(passes) if debug.exact_fallback is None
             else debug.exact_fallback.to(torch.int32))
+    trips = fell * debug.iterations.to(torch.int32)
     counts = torch.stack([torch.ones_like(passes), passes,
-                          prep.source_mask.sum(-1, dtype=torch.int32), fell],
-                         dim=-1)
+                          prep.source_mask.sum(-1, dtype=torch.int32), fell,
+                          trips], dim=-1)
     if active is not None:
         counts = counts * active[..., None]
     outputs = FrameOutputs(

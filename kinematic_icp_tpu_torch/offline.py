@@ -52,15 +52,15 @@ def _per_frame_constants(rels, extrinsic, config: Config,
 def make_sequence_runner(config: Config, device=None, eager: bool = False):
     """Build the sequence runner: ``run(state, pts, ts, mask, has_ts,
     extrinsic, rels) -> (final_state, poses (F, 4, 4), overflow (3,),
-    fallbacks (), counts (4,))``.
+    fallbacks (), counts (5,))``.
 
     ``overflow`` totals [downsample drops, source drops, insert failures]
     over the sequence; ``fallbacks`` (int32) counts the active frames on
     which an exact mode's certificate failed and the full-27 loop
     recomputed the solve; ``counts`` sums the active frames'
     ``FrameOutputs.counts`` (``pipeline.COUNTS``: frames, GN passes, live
-    sources, fallbacks), one addition a frame.  ``device`` (``None`` =
-    CUDA; raises if absent) is where the inputs must live.
+    sources, fallbacks, fallback trips), one addition a frame.  ``device``
+    (``None`` = CUDA; raises if absent) is where the inputs must live.
 
     Each frame runs through the runner's ``pipeline.Step``, under every
     configuration: on a CUDA device one replay a frame of a CUDA graph
@@ -84,7 +84,7 @@ def make_batched_sequence_runner(config: Config, device=None,
     """Build the runner of B independent sequences in lock-step:
     ``run(state, pts (F, B, N, 3), ts (F, B, N), mask (F, B, N), has_ts
     (F, B), extrinsic (4, 4) shared, rels (F, B, 4, 4)) -> (final_state,
-    poses (F, B, 4, 4), overflow (B, 3), fallbacks (B,), counts (B, 4))``,
+    poses (F, B, 4, 4), overflow (B, 3), fallbacks (B,), counts (B, 5))``,
     with ``state`` from ``init_batched_state``.
 
     The same frame loop as ``make_sequence_runner`` (and the same graph

@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import nn27
 from .points import P3, per_row, transform
 from .voxel import (PACKED_KEY_SENTINEL, SENTINEL, lexsort, pack_rebased_keys,
                     packable_span, rebase_minima, roll_heads,
@@ -396,7 +397,13 @@ def nearest_neighbor(m: MapState, q: P3, query_mask, voxel_size: float,
     At V = 27 this is the selection of the JAX package's
     ``nearest_neighbor_native`` bit for bit: that function exists there to
     steer XLA's layout assignment, which eager PyTorch does not have.
+
+    Where ``nn27.applies`` (CUDA tensors, V = 27) the search is one launch
+    of ``csrc/nn27.cu`` with the same bits on every live query; otherwise
+    it is the plain version below, the kernel's oracle.
     """
+    if nn27.applies(m.table, q, num_candidate_voxels):
+        return nn27.nearest_neighbor(m, q, query_mask, voxel_size)
     cand = gather_candidates(m, q, voxel_size, max_probes, num_candidate_voxels)
     return nn_from_candidates(cand, q, query_mask, voxel_size)
 

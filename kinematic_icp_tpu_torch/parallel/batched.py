@@ -68,9 +68,10 @@ class BatchedOdometryRunner:
         #: the frames ``run_device`` ran that the stationary gate let
         #: through (``step`` and ``run`` read back only the poses):
         #: ``frames``, ``gn_passes`` (the GN kernel's passes, without the
-        #: full-27 fallback loop's trips), ``gn_sources`` (live sources)
-        #: and ``exact_fallback_frames`` (frames an exact mode re-solved
-        #: through the full-27 loop)
+        #: full-27 fallback loop's trips), ``gn_sources`` (live sources),
+        #: ``exact_fallback_frames`` (frames an exact mode re-solved
+        #: through the full-27 loop) and ``exact_fallback_trips`` (that
+        #: loop's trips on those frames)
         self.stats = {key: np.zeros(batch, np.int64)
                       for key in pipeline.COUNTS}
 
@@ -215,13 +216,13 @@ class BatchedOdometryRunner:
         return self.poses
 
     def _tally(self, counts):
-        """Add (B, 4) per-sequence counts (``pipeline.COUNTS``) to
+        """Add (B, 5) per-sequence counts (``pipeline.COUNTS``) to
         ``stats``, and to the trace's ``gn`` counter while recording."""
         for key, column in zip(pipeline.COUNTS, counts.T):
             self.stats[key] += column
-        frames, passes, sources, fallbacks = counts.sum(0).tolist()
+        frames, passes, sources, fallbacks, trips = counts.sum(0).tolist()
         profiling.count("gn", frames=frames, passes=passes, sources=sources,
-                        fallbacks=fallbacks)
+                        fallbacks=fallbacks, fallback_trips=trips)
 
     def run(self, sequences):
         """Run up to B sequences to completion, one ``step`` a frame

@@ -362,7 +362,7 @@ def make_sharded_sequence_runner(config: Config, mesh,
     """Whole sequences over the (data, map) mesh: ``run(state, pts (F, B,
     N, 3), ts (F, B, N), mask (F, B, N), has_ts (F, B), lidar_to_base (4,
     4), rels (F, B, 4, 4)) -> (state, poses (F, B, 4, 4), overflow (B,
-    3), fallbacks (B,), counts (B, 4))``, as the batched runner returns
+    3), fallbacks (B,), counts (B, 5))``, as the batched runner returns
     them (no fallbacks: the sharded frame has no certificate).
 
     The frame loop of ``offline.make_batched_sequence_runner`` on the

@@ -64,7 +64,7 @@ _TAIL = len(pipeline.COUNTS) + 3
 
 def _ret(state, counts, acc):
     """One step's readback row: the pose's bits as int32 words (16 for
-    float32, 32 for float64), the frame's (4,) int32 counts and the running
+    float32, 32 for float64), the frame's (5,) int32 counts and the running
     (3,) int32 overflow totals, so one transfer returns them exactly."""
     return torch.cat([state.pose.reshape(-1).contiguous().view(torch.int32),
                       counts, acc])
@@ -160,8 +160,8 @@ class LidarOdometryServer:
 
     The operator's counts: ``overflow_stats`` (data loss) and
     ``frame_stats`` (running totals of the registered frames, their GN
-    kernel passes, live sources and exact fallbacks), both read from the
-    rows the server reads back anyway.
+    kernel passes, live sources, exact fallbacks and their loop trips),
+    both read from the rows the server reads back anyway.
     """
 
     def __init__(self, config: Config | None = None,
@@ -223,8 +223,9 @@ class LidarOdometryServer:
         #: frames read back so far (a blocking frame at its return, a
         #: streamed one at ``drain()``): ``frames``, ``gn_passes`` (the GN
         #: kernel's passes, without the full-27 fallback loop's trips),
-        #: ``gn_sources`` (live sources) and ``exact_fallback_frames``
-        #: (frames an exact mode re-solved through the full-27 loop)
+        #: ``gn_sources`` (live sources), ``exact_fallback_frames``
+        #: (frames an exact mode re-solved through the full-27 loop) and
+        #: ``exact_fallback_trips`` (that loop's trips on those frames)
         self.frame_stats = dict.fromkeys(pipeline.COUNTS, 0)
         # streaming staging (see register_frame(blocking=False) / drain())
         self._staging: np.ndarray | None = None   # (K, W) u16
@@ -457,9 +458,9 @@ class LidarOdometryServer:
         sums = rows[:, -_TAIL:-3].sum(0, dtype=np.int64).tolist()
         for key, v in zip(pipeline.COUNTS, sums):
             self.frame_stats[key] += v
-        frames, passes, sources, fallbacks = sums
+        frames, passes, sources, fallbacks, trips = sums
         profiling.count("gn", frames=frames, passes=passes, sources=sources,
-                        fallbacks=fallbacks)
+                        fallbacks=fallbacks, fallback_trips=trips)
 
     # ------------------------------------------------------------------
     def _count_truncation(self, n: int, bucket: int):

@@ -14,9 +14,9 @@ its only throughput signal).  This module gives the port three things:
   neither it costs one check of the profiler's flag and of
   ``recording()``'s depth, and allocates nothing.
 * ``count(name, **values)``: a sample of counts the program read back at a
-  sync it makes anyway (the GN passes, live sources and exact fallbacks of
-  ``"gn"``), kept while recording is on (a profiler runs, or inside
-  ``recording()``) and dropped otherwise.
+  sync it makes anyway (the GN passes, live sources, exact fallbacks and
+  their full-27 loop trips of ``"gn"``), kept while recording is on (a
+  profiler runs, or inside ``recording()``) and dropped otherwise.
 * ``samples(name, lo_ns, hi_ns)``: the buffer's samples of ``name`` in a
   window of ``time.time_ns()``, the clock of the profiler's host events.
 

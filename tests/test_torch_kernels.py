@@ -467,6 +467,128 @@ def _packed_frame(codec, bucket=1024, n=1000, seed=0):
     return torch.from_numpy(buf.view(np.int16))
 
 
+def _nn_kernel_and_plain(m, q, mask):
+    """``hashmap.nearest_neighbor`` at V = 27 on the card (one launch of
+    ``csrc/nn27.cu``) and its plain version on the same inputs."""
+    from kinematic_icp_tpu_torch.ops import nn27
+
+    before = nn27.LAUNCHES
+    kernel = hashmap.nearest_neighbor(m, q, mask, 1.0, 4)
+    assert nn27.LAUNCHES == before + 1
+    plain = hashmap.nn_from_candidates(
+        hashmap.gather_candidates(m, q, 1.0, 4, 27), q, mask, 1.0)
+    torch.cuda.synchronize()
+    return kernel, plain
+
+
+def _assert_nn_bit_equal(m, q, mask):
+    """The kernel's (nearest, dist) bit-equal to the plain version's on the
+    live queries, in the queries' type; on the others dist inf and the
+    query itself."""
+    (kn, kd), (pn, pd) = _nn_kernel_and_plain(m, q, mask)
+    for name, a, b in zip(("x", "y", "z", "dist"), (*kn, kd), (*pn, pd)):
+        assert a.dtype == b.dtype == q.x.dtype, name
+        assert torch.equal(_bits(a[mask]), _bits(b[mask])), name
+    assert torch.isinf(kd[~mask]).all() and torch.isinf(pd[~mask]).all()
+    for a, b in zip(kn, q):
+        assert torch.equal(a[~mask], b[~mask])
+    return kd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("n", [1024, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nn27_kernel_bit_equal_to_plain(card, b, n, dtype):
+    """Dense maps (~23 points a voxel, so voxels fill their 20 entries),
+    90 % live queries near the map and a few far from it, at B = 1 (an
+    unbatched table) and B = 8 (each row its own map); float32 queries,
+    and float64 ones (a float64 state: the guess applied in float64)."""
+    rng = np.random.default_rng(n + b)
+    maps, qs, masks = [], [], []
+    for i in range(b):
+        m, source, mask = _scene(card, n=n, nmap=12000, extent=4.0,
+                                 seed=n + 10 * i)
+        q = transform(_guess(card).to(dtype), source.astype(dtype))
+        far = torch.from_numpy(rng.uniform(size=n) < 0.05).to(card)
+        q = P3(*(torch.where(far, c + 50.0, c) for c in q))
+        maps.append(m.table)
+        qs.append(q)
+        masks.append(mask)
+    if b == 1:
+        m, q, mask = hashmap.MapState(maps[0], 4), qs[0], masks[0]
+    else:
+        m = hashmap.MapState(torch.stack(maps), 4)
+        q = P3(*(torch.stack(c) for c in zip(*qs)))
+        mask = torch.stack(masks)
+    dist = _assert_nn_bit_equal(m, q, mask)
+    assert torch.isfinite(dist).sum() > mask.sum() // 2
+    assert torch.isinf(dist[mask]).any()  # the far queries find nothing
+
+
+def _nn_case(dev, case, dtype=torch.float32):
+    """(map, queries, mask) of one edge case of the full-27 search, the
+    queries in ``dtype``."""
+    m = hashmap.empty(1 << 13, 20, device=dev)
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-3.0, 3.0, (2000, 3)).astype(np.float32)
+    q = pts[:512] + rng.normal(0, 0.2, (512, 3)).astype(np.float32)
+    mask = rng.uniform(size=512) < 0.5
+    if case == "empty_map":
+        pts = pts[:0]
+    elif case == "all_masked":
+        mask[:] = False
+    elif case == "full_bucket":
+        # 16 buckets of 4 slots for ~200 voxels: every bucket fills
+        m = hashmap.empty(64, 20, device=dev)
+    elif case == "ties":
+        # a point repeated within its voxel (entry lanes tie), and the two
+        # quantization centres nearest a voxel face on either side of it
+        # (offset ids tie), with queries on the face
+        c = np.float32(1.0 / 2048.0)
+        pair = np.array([[1.0 - c, 0.5, 0.5], [1.0 + c, 0.5, 0.5]],
+                        np.float32)
+        pts = np.concatenate([np.repeat(pts[:1], 3, 0), pair, pts[1:]])
+        q[:2] = [[1.0, 0.5 + c, 0.5 + c], pts[0]]
+        mask[:2] = True
+    m = hashmap.insert(m, P3.from_array(torch.from_numpy(pts).to(dev)),
+                       torch.ones(len(pts), dtype=torch.bool, device=dev),
+                       1.0, 4) if len(pts) else m
+    return (m, P3.from_array(torch.from_numpy(q).to(dev, dtype)),
+            torch.from_numpy(mask).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty_map", "all_masked", "full_bucket",
+                                  "ties"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nn27_kernel_edge_cases_bit_equal_to_plain(card, case, dtype):
+    m, q, mask = _nn_case(card, case, dtype)
+    if case == "full_bucket":
+        assert (hashmap.slot_counts(m) > 0).all()
+    dist = _assert_nn_bit_equal(m, q, mask)
+    if case == "empty_map":
+        assert torch.isinf(dist).all()
+    if case == "ties":
+        # the face query is 1/2048 from both centres
+        assert float(dist[0]) == 1.0 / 2048.0 and torch.isfinite(dist[1])
+
+
+@pytest.mark.cuda
+def test_nn27_kernel_rejects_bad_input(card):
+    from kinematic_icp_tpu_torch.ops import nn27
+
+    m, q, mask = _nn_case(card, "ties")
+    with pytest.raises(ValueError):
+        nn27.nearest_neighbor(m, q, mask.to(torch.int32), 1.0)
+    with pytest.raises(ValueError):
+        nn27.nearest_neighbor(m, P3(*(c[None] for c in q)), mask[None], 1.0)
+    with pytest.raises(ValueError):  # no half-precision instance
+        nn27.nearest_neighbor(m, q.astype(torch.float16), mask, 1.0)
+    with pytest.raises(ValueError):  # planes of two types
+        nn27.nearest_neighbor(m, P3(q.x, q.y, q.z.double()), mask, 1.0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("active", [False, True])
 def test_unpack_frame_on_card_bit_equal_to_cpu(card, active):
@@ -909,7 +1031,8 @@ def _exact_frames(card, cfg, seqs, eager, count, counts):
     the state; no frame syncs the host) or ``register_frame`` (``eager``).
     Returns, a frame each: the pose's bits, the fallback flags, the GN
     loops and associations the frame ran (``counts``, from
-    ``_count_on_device``) and its ``check_crossing`` launches."""
+    ``_count_on_device``), its ``check_crossing`` launches, its
+    iterations and correspondences, and its counts row."""
     from kinematic_icp_tpu_torch.models import pipeline
     from kinematic_icp_tpu_torch.offline import (init_batched_state,
                                                  pad_batch, pad_sequence)
@@ -949,7 +1072,10 @@ def _exact_frames(card, cfg, seqs, eager, count, counts):
         frames.append((_bits(state.pose).cpu(),
                        out.debug.exact_fallback.cpu(),
                        *counts[:2].tolist(),
-                       gn.CROSSING_LAUNCHES - before))
+                       gn.CROSSING_LAUNCHES - before,
+                       out.debug.iterations.cpu(),
+                       out.debug.num_correspondences.cpu(),
+                       out.counts.cpu()))
     return frames
 
 
@@ -986,6 +1112,67 @@ def test_exact_frames_replayed_bit_equal_to_eager(card, monkeypatch, mode,
         assert e[4] == g[4] == int(mode == "certified"), f
     assert any(g[1].any() for g in graph)  # the fallback ran
     assert sum(g[3] for g in graph) < sum(e[3] for e in eager)
+
+
+@pytest.mark.cuda
+def test_certified_batch_on_nn27_replayed_equal_to_eager_and_plain(
+        card, monkeypatch):
+    """A certified exact drive at B = 4 whose full-27 loop associates
+    through ``csrc/nn27.cu``: replayed (the kernel inside the fallback's
+    IF bodies), eager, and eager through the plain association
+    (``nn27.applies`` patched off), every frame with the same pose bits,
+    fallback flags, iterations, correspondences and counts row."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.ops import nn27
+
+    cfg = Config(**EXACT)
+    count = 20
+    seqs = [_headline_drive(count, s) for s in range(4)]
+    counts = _count_on_device(monkeypatch, card)
+    before = nn27.LAUNCHES
+    graph = _exact_frames(card, cfg, seqs, False, count, counts)
+    eager = _exact_frames(card, cfg, seqs, True, count, counts)
+    assert nn27.LAUNCHES > before
+    monkeypatch.setattr(nn27, "applies", lambda *args: False)
+    before = nn27.LAUNCHES
+    plain = _exact_frames(card, cfg, seqs, True, count, counts)
+    assert nn27.LAUNCHES == before
+    for f, (g, e, p) in enumerate(zip(graph, eager, plain)):
+        for i in (0, 1, 5, 6, 7):
+            assert torch.equal(g[i], e[i]) and torch.equal(e[i], p[i]), (f, i)
+        # the counts row's trips are the loop's iterations where it ran
+        assert torch.equal(g[7][:, 4], torch.where(g[1], g[5], 0)), f
+    assert any(g[1].any() for g in graph)  # the fallback ran
+
+
+@pytest.mark.cuda
+def test_float64_exact_drive_on_nn27_bit_equal_to_plain(card, monkeypatch):
+    """20 headline frames through a float64 server under the certified
+    exact mode: the full-27 loop associates through the kernel's float64
+    instance, and every pose equals, bit for bit, the same drive through
+    the plain association (``nn27.applies`` patched off)."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.ops import nn27
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+
+    seq = _headline_drive(20)
+    runs = {}
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(nn27, "applies", lambda *args: False)
+        s = LidarOdometryServer(Config(**EXACT), extrinsic=seq["extrinsic"],
+                                dtype=torch.float64, device=card,
+                                eager=True)
+        before = nn27.LAUNCHES
+        for i, (p, t) in enumerate(seq["frames"]):
+            s.register_frame(p, t, seq["rel_odometry"][i], stamp=0.1 * i)
+        assert s.state.pose.dtype == torch.float64
+        runs[kernel] = (np.asarray([p for _, p in s.poses_with_stamps]),
+                        nn27.LAUNCHES - before,
+                        s.frame_stats["exact_fallback_frames"])
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    assert runs[True][2] == runs[False][2] > 0  # the fallback ran
+    assert runs[True][1] > 0 and runs[False][1] == 0
 
 
 @pytest.mark.cuda

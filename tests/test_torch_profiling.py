@@ -33,6 +33,8 @@ LIDAR = dict(num_beams=256, num_rings=4, ring_angles_deg=(-10.0, -3.0, 0.0,
 NUM_FRAMES = 8
 DT = 0.1
 MODES = {"default": {}, "certified": EXACT}
+#: the ``gn`` sample's keys, in ``pipeline.COUNTS``' order
+GN_KEYS = ("frames", "passes", "sources", "fallbacks", "fallback_trips")
 
 
 @pytest.fixture(scope="module")
@@ -209,9 +211,10 @@ def test_frame_stats_sum_the_frames_register_frame_outputs(
         drives, mode, monkeypatch, empty_buffer):
     """A blocking server's ``frame_stats`` over three drives are the sums
     of its frames' GN passes (``debug.iterations``; on a frame that fell
-    back the first solve's, ``debug.solve_iterations``), live sources and
-    fallback flags, and the ``gn`` samples recorded at its read-backs sum
-    to the same."""
+    back the first solve's, ``debug.solve_iterations``), live sources,
+    fallback flags and the fallback loop's trips (``debug.iterations`` on
+    a frame that fell back), and the ``gn`` samples recorded at its
+    read-backs sum to the same."""
     cfg = CFG.replace(**MODES[mode])
     seen = _spy_frames(monkeypatch)
     totals = dict.fromkeys(pipeline.COUNTS, 0)
@@ -231,17 +234,73 @@ def test_frame_stats_sum_the_frames_register_frame_outputs(
                                  else d.iterations)
         want["gn_sources"] += int(out.source_mask.sum())
         want["exact_fallback_frames"] += fell
+        want["exact_fallback_trips"] += int(d.iterations) if fell else 0
         if d.solve_iterations is not None and not fell:
             assert torch.equal(d.solve_iterations, d.iterations)
     assert totals == want
     assert want["frames"] == 3 * (NUM_FRAMES - 1) and want["gn_passes"] > 0
     if mode == "certified":
         assert 0 < want["exact_fallback_frames"] < want["frames"]
+        assert want["exact_fallback_trips"] >= want["exact_fallback_frames"]
     samples = [v for _, v in profiling.samples("gn")]
     assert len(samples) == want["frames"]
-    assert [sum(v[k] for v in samples) for k in
-            ("frames", "passes", "sources", "fallbacks")] == list(
+    assert [sum(v[k] for v in samples) for k in GN_KEYS] == list(
         want.values())
+
+
+@pytest.mark.parametrize("batch", [0, 4])
+def test_trips_column_is_the_fallback_loop_iterations(drives, batch):
+    """Each frame's ``exact_fallback_trips`` column (certified exact, one
+    drive at a time and the three drives at B = 4 with a padding row) is
+    ``debug.iterations`` where the frame fell back and 0 elsewhere, and
+    the stationary padding row counts nothing (each frame as the sequence
+    runners call ``register_frame``: the stationary gate and deskew twists
+    of ``offline._per_frame_constants``)."""
+    cfg = CFG.replace(**EXACT)
+    col = pipeline.COUNTS.index("exact_fallback_trips")
+    ext = torch.from_numpy(np.asarray(drives[0]["extrinsic"], np.float32))
+    runs = []
+    if batch:
+        runs.append((toffline.init_batched_state(cfg, batch, device=CPU),
+                     toffline.pad_batch(drives, cfg, batch)))
+    else:
+        runs += [(pipeline.init_state(cfg, device=CPU),
+                  toffline.pad_sequence(d["frames"], d["rel_odometry"], cfg))
+                 for d in drives]
+    fell_any = held_any = False
+    for state, arrays in runs:
+        pts, ts, mask, has_ts, rels = (torch.from_numpy(a) for a in arrays)
+        actives, twists = toffline._per_frame_constants(rels, ext, cfg)
+        for f in range(len(rels)):
+            state, out = pipeline.register_frame(
+                state, pts[f], ts[f], mask[f], has_ts[f], ext, rels[f], cfg,
+                active=actives[f], rel_twist_in_lidar=twists[f])
+            d = out.debug
+            want = torch.where(d.exact_fallback & actives[f], d.iterations,
+                               0)
+            assert torch.equal(out.counts[..., col], want.to(torch.int32))
+            fell_any |= bool(d.exact_fallback.any())
+            held_any |= bool((~d.exact_fallback & (d.iterations > 0)).any())
+    assert fell_any and held_any
+
+
+def test_ret_row_and_stats_carry_the_trips(drives):
+    """The server's read-back row holds the frame's five counts between
+    the pose and the overflow totals, and both operators' totals key the
+    trips."""
+    from kinematic_icp_tpu_torch import server as tserver
+
+    assert tserver._TAIL == len(pipeline.COUNTS) + 3 == 8
+    cfg = CFG.replace(**EXACT)
+    state = pipeline.init_state(cfg, device=CPU)
+    counts = torch.arange(5, dtype=torch.int32)
+    row = tserver._ret(state, counts, torch.zeros(3, dtype=torch.int32))
+    assert row.shape == (16 + 8,) and torch.equal(row[16:21], counts)
+    s = LidarOdometryServer(cfg, extrinsic=drives[0]["extrinsic"], device=CPU)
+    r = BatchedOdometryRunner(cfg, 2, device=CPU)
+    for stats in (s.frame_stats, r.stats):
+        assert list(stats) == list(pipeline.COUNTS)
+        assert "exact_fallback_trips" in stats
 
 
 @pytest.mark.parametrize("stream_mode", ["steps", "scan"])
@@ -302,6 +361,7 @@ def test_run_device_keeps_the_counts_it_read_back(drives, empty_buffer):
             counts.tolist()
     assert all(runner.stats[k][3] == 0 for k in pipeline.COUNTS)
     assert runner.stats["exact_fallback_frames"].sum() > 0
-    total = [sum(v[k] for _, v in profiling.samples("gn"))
-             for k in ("frames", "passes", "sources", "fallbacks")]
+    total = [sum(v[k] for _, v in profiling.samples("gn")) for k in GN_KEYS]
     assert total == [int(runner.stats[k].sum()) for k in pipeline.COUNTS]
+    assert (runner.stats["exact_fallback_trips"]
+            >= runner.stats["exact_fallback_frames"]).all()
