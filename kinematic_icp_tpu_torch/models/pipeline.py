@@ -25,12 +25,14 @@ import functools
 import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import Config
 from ..ops import hashmap, preprocessing, registration, se3, threshold, voxel
 from ..ops.points import P3, per_row, transform
 from ..runtime import resolve_device
+from ..utils import profiling
 from ..utils.cuda_graph import StaticCall, refill
 
 
@@ -71,6 +73,38 @@ class FrameOutputs(NamedTuple):
 #: ``BatchedOdometryRunner.stats``)
 COUNTS = ("frames", "gn_passes", "gn_sources", "exact_fallback_frames",
           "exact_fallback_trips")
+#: the columns of ``FrameOutputs.overflow``, and the keys of the operator's
+#: totals of them (``LidarOdometryServer.overflow_stats``)
+OVERFLOW = ("downsample_dropped", "source_dropped", "insert_failed")
+
+
+def pack_tallies(counts, overflow, head=()):
+    """One int32 row of ``head``'s words, then counts (..., 5) and
+    overflow totals (..., 3), for one transfer (``unpack_tallies``)."""
+    return torch.cat([*head, counts, overflow], -1)
+
+
+def unpack_tallies(rows):
+    """``pack_tallies``' rows (torch or numpy) -> (the head's words,
+    counts (..., 5), overflow (..., 3))."""
+    o = rows.shape[-1] - len(OVERFLOW)
+    c = o - len(COUNTS)
+    return rows[..., :c], rows[..., c:o], rows[..., o:]
+
+
+def add_counts(totals: dict, counts) -> None:
+    """Add read-back counts (..., 5) (``COUNTS``' columns; a frame's, or
+    one row a sequence) to an operator's ``totals`` keyed by ``COUNTS``
+    (ints, or arrays of the rows' shape), and their sums to the trace's
+    ``gn`` counter while recording."""
+    counts = np.asarray(counts, np.int64)
+    for key, column in zip(COUNTS, np.moveaxis(counts, -1, 0).tolist()):
+        totals[key] += column
+    s = dict(zip(COUNTS, counts.reshape(-1, len(COUNTS)).sum(0).tolist()))
+    profiling.count("gn", frames=s["frames"], passes=s["gn_passes"],
+                    sources=s["gn_sources"],
+                    fallbacks=s["exact_fallback_frames"],
+                    fallback_trips=s["exact_fallback_trips"])
 
 
 def init_state(config: Config, dtype=torch.float32, initial_pose=None,

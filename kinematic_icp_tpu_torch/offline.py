@@ -1,13 +1,15 @@
 """Offline processing of a whole sequence (the reference OfflineNode loop).
 
-All frames are padded into device tensors once (or, in a batch, handed to
-the loop one frame at a time as it asks for them); the per-frame recurrence
-(pose, map, threshold) then advances in a Python loop over frames whose
-steps read nothing back to the host, and the stationary gate runs on the
-device.  ``make_batched_sequence_runner`` advances B independent sequences
-in lock-step through the same loop, each frame of all B in the launches of
-one frame (the GN solves of the batch in one kernel launch): the multi-bag
-answer to the reference OfflineNode's one bag at a time.
+``_write_scan`` writes every lane's padded rows (points, stamps, mask,
+has_ts; the one-stamp-a-point rule, the ``max_points`` cut): into fresh
+arrays for ``pad_sequence``, ``pad_batch`` and ``BatchedOdometryRunner.
+step``, and into ``run_device``'s reused slots a frame at a time.  The
+per-frame recurrence (pose, map, threshold) advances in a Python loop over
+frames whose steps read nothing back to the host, and the stationary gate
+runs on the device.  ``make_batched_sequence_runner`` advances B
+independent sequences in lock-step, each frame of all B in the launches of
+one frame (the GN solves of the batch in one kernel launch): the
+multi-bag answer to the reference OfflineNode's one bag at a time.
 """
 
 from __future__ import annotations
@@ -169,7 +171,8 @@ def _runner(config: Config, dev, stationary_gate: float, batched: bool,
         lead = state.pose.shape[:-2]  # (B,) in a batch
         poses = torch.empty((rels.shape[0], *state.pose.shape),
                             dtype=state.pose.dtype, device=dev)
-        overflow = torch.zeros(lead + (3,), dtype=torch.int32, device=dev)
+        overflow = torch.zeros(lead + (len(pipeline.OVERFLOW),),
+                               dtype=torch.int32, device=dev)
         counts = torch.zeros(lead + (len(pipeline.COUNTS),),
                              dtype=torch.int32, device=dev)
         with profiling.span("kicp.frames"):
@@ -182,7 +185,8 @@ def _runner(config: Config, dev, stationary_gate: float, batched: bool,
                 counts += out.counts
         if stepped:
             state = pipeline.clone_state(state)
-        return state, poses, overflow, counts[..., 3], counts
+        fallbacks = counts[..., pipeline.COUNTS.index("exact_fallback_frames")]
+        return state, poses, overflow, fallbacks, counts
 
     #: the runner's ``pipeline.Step`` (its graphs), or None on the eager loop
     run.step = register if stepped else None
@@ -199,30 +203,14 @@ def pad_sequence(frames, rel_odometry, config: Config, timestamps=None):
     ``config.max_points`` are truncated, which removes an angular sector of
     a spinning lidar and degrades registration, so it warns with the total.
     """
-    f = len(frames)
-    n = config.max_points
-    pts = np.zeros((f, n, 3), np.float32)
-    ts = np.zeros((f, n), np.float32)
-    mask = np.zeros((f, n), bool)
-    has_ts = np.zeros((f,), bool)
-    rels = _odometry(rel_odometry, f)
-    truncated_points = 0
-    truncated_frames = 0
-    for i, fr in enumerate(frames):
-        p, t = _scan(fr, None if timestamps is None else timestamps[i])
-        k = min(len(p), n)
-        if len(p) > n:
-            truncated_points += len(p) - n
-            truncated_frames += 1
-        pts[i, :k] = p[:k]
-        mask[i, :k] = True
-        if t is not None:
-            ts[i, :k] = t[:k]
-            has_ts[i] = True
-    if truncated_points:
-        _warn_truncated(truncated_points, truncated_frames, f, n,
-                        stacklevel=3)
-    return pts, ts, mask, has_ts, rels
+    f, n = len(frames), config.max_points
+    arrays = (np.zeros((f, n, 3), np.float32), np.zeros((f, n), np.float32),
+              np.zeros((f, n), bool), np.zeros((f,), bool))
+    cut = [_write_scan(arrays, i, *_scan(
+        fr, None if timestamps is None else timestamps[i]))
+        for i, fr in enumerate(frames)]
+    _warn_truncated(cut, n, stacklevel=3)
+    return (*arrays, _odometry(rel_odometry, f))
 
 
 def _scan(frame, timestamps=None):
@@ -239,6 +227,30 @@ def _scan(frame, timestamps=None):
     return p, np.asarray(t, np.float32)
 
 
+def _write_scan(arrays, i: int, points, stamps, reach: int = 0) -> int:
+    """Write one lane's scan (``_scan``'s pair) into row ``i`` of (B, N,
+    ...) host arrays ``(points, stamps, mask, has_ts)``: its first N points,
+    their stamps (zeros and ``has_ts`` False without), and its mask.  Of
+    the rows past the scan only those below ``reach``, how far the row's
+    last occupant wrote (0 in fresh arrays), are zeroed.  Returns the
+    points cut at N (``Config.max_points``)."""
+    pts, ts, mask, has_ts = arrays
+    k = min(len(points), pts.shape[1])
+    pts[i, :k] = points[:k]
+    if stamps is not None:
+        ts[i, :k] = stamps[:k]
+    elif reach:
+        ts[i, :min(k, reach)] = 0
+    if k < reach:
+        pts[i, k:reach] = 0
+        ts[i, k:reach] = 0
+        mask[i, k:reach] = False
+    else:
+        mask[i, reach:k] = True
+    has_ts[i] = stamps is not None
+    return len(points) - k
+
+
 def _odometry(rel_odometry, f: int):
     """(f, 4, 4) float32 deltas of a sequence's first ``f`` frames: a
     missing list or delta is the identity."""
@@ -249,16 +261,18 @@ def _odometry(rel_odometry, f: int):
     return rels
 
 
-def _warn_truncated(points: int, scans: int, total: int, max_points: int,
-                    stacklevel: int = 2):
-    """The warning of scans longer than ``Config.max_points``: truncation
-    removes an angular sector of a spinning lidar and degrades
+def _warn_truncated(cut, max_points: int, stacklevel: int = 2):
+    """Warn of the scans of one sequence (``cut``: the points
+    ``_write_scan`` cut from each) longer than ``Config.max_points``:
+    truncation removes an angular sector of a spinning lidar and degrades
     registration."""
-    warnings.warn(
-        f"pad_sequence dropped {points} points from {scans}/{total} scans "
-        f"longer than Config.max_points={max_points}; scan-tail truncation "
-        f"removes an angular sector and degrades accuracy — raise "
-        f"max_points", stacklevel=stacklevel)
+    points, scans = int(np.sum(cut)), int(np.count_nonzero(cut))
+    if points:
+        warnings.warn(
+            f"pad_sequence dropped {points} points from {scans}/{len(cut)} "
+            f"scans longer than Config.max_points={max_points}; scan-tail "
+            f"truncation removes an angular sector and degrades accuracy — "
+            f"raise max_points", stacklevel=stacklevel)
 
 
 def pad_batch(sequences, config: Config, batch: int | None = None):
@@ -271,14 +285,17 @@ def pad_batch(sequences, config: Config, batch: int | None = None):
     b = len(sequences) if batch is None else batch
     f = max(len(s["frames"]) for s in sequences)
     n = config.max_points
-    out = (np.zeros((f, b, n, 3), np.float32), np.zeros((f, b, n), np.float32),
-           np.zeros((f, b, n), bool), np.zeros((f, b), bool),
-           np.tile(np.eye(4, dtype=np.float32), (f, b, 1, 1)))
+    arrays = (np.zeros((f, b, n, 3), np.float32),
+              np.zeros((f, b, n), np.float32), np.zeros((f, b, n), bool),
+              np.zeros((f, b), bool))
+    rels = np.tile(np.eye(4, dtype=np.float32), (f, b, 1, 1))
     for i, s in enumerate(sequences):
-        packed = pad_sequence(s["frames"], s["rel_odometry"], config)
-        for a, p in zip(out, packed):
-            a[:len(p), i] = p
-    return out
+        frames = s["frames"]
+        rels[:len(frames), i] = _odometry(s["rel_odometry"], len(frames))
+        cut = [_write_scan([a[k] for a in arrays], i, *_scan(fr))
+               for k, fr in enumerate(frames)]
+        _warn_truncated(cut, n, stacklevel=3)
+    return (*arrays, rels)
 
 
 def run_offline(frames, rel_odometry, config: Config | None = None,
@@ -306,10 +323,12 @@ def run_offline(frames, rel_odometry, config: Config | None = None,
         state, pts, ts, mask, has_ts, ext.to(dev), rels)
     overflow = overflow.cpu().numpy()
     if overflow.any():
+        o = dict(zip(pipeline.OVERFLOW, overflow.tolist()))
         warnings.warn(
-            f"capacity overflow over the sequence: {overflow[0]} downsample "
-            f"voxels, {overflow[1]} source voxels, {overflow[2]} map inserts "
-            f"dropped — raise max_downsampled/max_source/map_capacity")
+            f"capacity overflow over the sequence: {o['downsample_dropped']} "
+            f"downsample voxels, {o['source_dropped']} source voxels, "
+            f"{o['insert_failed']} map inserts dropped — raise "
+            f"max_downsampled/max_source/map_capacity")
     poses = poses.cpu().numpy().astype(np.float64)
     if return_stats:
         return poses, final_state, {"overflow": overflow,

@@ -19,8 +19,8 @@ import torch
 from ..config import Config
 from ..models import pipeline
 from ..offline import (STATIONARY_GATE, _odometry, _scan, _warn_truncated,
-                       init_batched_state, make_batched_sequence_runner,
-                       pad_batch)
+                       _write_scan, init_batched_state,
+                       make_batched_sequence_runner)
 from ..oracle.reference import se3_log
 from ..runtime import resolve_device
 from ..utils import profiling
@@ -99,16 +99,19 @@ class BatchedOdometryRunner:
             is deskewed only with exactly one stamp per point (as
             ``offline.pad_sequence`` and the server's codec rule).
 
+        A scan past ``Config.max_points`` loses its tail, with
+        ``pad_sequence``'s warning of the points cut.
+
         Returns (B, 4, 4) numpy poses after the step.
         """
         self._check_count(len(frames))
         b, n = self.batch, self.config.max_points
-        pts = np.zeros((b, n, 3), np.float32)
-        ts = np.zeros((b, n), np.float32)
-        mask = np.zeros((b, n), bool)
-        has_ts = np.zeros((b,), bool)
+        arrays = (np.zeros((b, n, 3), np.float32),
+                  np.zeros((b, n), np.float32), np.zeros((b, n), bool),
+                  np.zeros((b,), bool))
         rel = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
         active = np.zeros((b,), bool)
+        cut = np.zeros(len(frames), np.int64)
         for i in range(b):
             f = frames[i] if i < len(frames) else None
             r = (rel_odometry[i] if rel_odometry and i < len(rel_odometry)
@@ -120,18 +123,12 @@ class BatchedOdometryRunner:
             if f is None:
                 active[i] = False
                 continue
-            f = np.asarray(f, np.float32).reshape(-1, 3)
-            k = min(len(f), n)
-            pts[i, :k] = f[:k]
-            mask[i, :k] = True
             t = (timestamps[i] if timestamps is not None
                  and i < len(timestamps) else None)
-            if t is not None and len(t) == len(f):
-                ts[i, :k] = np.asarray(t, np.float32)[:k]
-                has_ts[i] = True
+            cut[i] = _write_scan(arrays, i, *_scan(f, t))
+        _warn_truncated(cut, n, stacklevel=3)
 
-        args = (self._tensor(pts), self._tensor(ts), self._tensor(mask),
-                self._tensor(has_ts), self._ext(),
+        args = (*(self._tensor(a) for a in arrays), self._ext(),
                 self._tensor(rel).to(self.dtype))
         if self.mesh is None:
             self.state, _ = self._frame(self.state, *args,
@@ -149,17 +146,15 @@ class BatchedOdometryRunner:
         """Run up to B sequences to completion through the batched
         sequence runner, with no host round trip a frame.
 
-        Without a mesh each batched frame is packed into one of two
-        reused host slots (``_FrameRing``: pinned on a card) and copied to
-        the device while the device runs the frame before; on a mesh all
-        frames are padded to (F, B, N, ...) tensors (``pad_batch``) and
-        uploaded first.  Ragged sequence lengths (and rows past
-        ``len(sequences)``) pad with identity odometry: stationary frames
-        whose state updates are masked, under this runner's
-        ``stationary_gate``.  Appends to ``self.poses`` (each sequence's
-        true length) and returns it, and adds the frames' counts to
-        ``stats``, read back with the overflow totals.  Raises on more
-        sequences than the batch.
+        Each batched frame is packed into one of two reused host slots
+        (``_FrameRing``: pinned on a card) and copied to the device while
+        the device runs the frame before, on a mesh as without one.
+        Ragged sequence lengths (and rows past ``len(sequences)``) pad
+        with identity odometry: stationary frames whose state updates are
+        masked, under this runner's ``stationary_gate``.  Appends to
+        ``self.poses`` (each sequence's true length) and returns it, and
+        adds the frames' counts to ``stats``, read back with the overflow
+        totals.  Raises on more sequences than the batch.
         """
         self._check_count(len(sequences))
         b = self.batch
@@ -172,39 +167,27 @@ class BatchedOdometryRunner:
                     if self.mesh is None else
                     sharded.make_sharded_sequence_runner(
                         self.config, self.mesh, self.stationary_gate))
-            if self.mesh is None:
-                if self._ring is None:
-                    self._ring = _FrameRing(b, self.config.max_points,
-                                            self.device)
-                rels = np.tile(np.eye(4, dtype=np.float32),
-                               (num_frames, b, 1, 1))
-                for i, s in enumerate(sequences):
-                    f_i = len(s["frames"])
-                    rels[:f_i, i] = _odometry(s["rel_odometry"], f_i)
-                inputs = [self._ring.frames(sequences, num_frames),
-                          self._ext(), self._tensor(rels).to(self.dtype)]
-            else:
-                with profiling.span("kicp.pad_batch"):
-                    arrays = pad_batch(sequences, self.config, b)
-                with profiling.span("kicp.upload"):
-                    *inputs, rels = (self._tensor(a) for a in arrays)
-                    inputs += [self._ext(), rels.to(self.dtype)]
+                self._ring = _FrameRing(b, self.config.max_points,
+                                        self.device)
+            rels = np.tile(np.eye(4, dtype=np.float32), (num_frames, b, 1, 1))
+            for i, s in enumerate(sequences):
+                f_i = len(s["frames"])
+                rels[:f_i, i] = _odometry(s["rel_odometry"], f_i)
             self.state, poses, overflow, _, counts = self._seq_runner(
-                self.state, *inputs)
+                self.state, self._ring.frames(sequences, num_frames),
+                self._ext(), self._tensor(rels).to(self.dtype))
             with profiling.span("kicp.readback"):
                 poses = poses.cpu().numpy().astype(np.float64)
-                # the overflow totals and the counts in one transfer
-                tallies = torch.cat([overflow, counts], -1).cpu().numpy()
-            overflow, counts = tallies[:, :3], tallies[:, 3:]
-            self._tally(counts)
-            if self.mesh is None:
-                profiling.count("stream", frames=num_frames,
-                                waits=self._ring.waits)
-                for i, s in enumerate(sequences):
-                    points, scans = self._ring.dropped[i]
-                    if points:
-                        _warn_truncated(points, scans, len(s["frames"]),
-                                        self.config.max_points, stacklevel=3)
+                # the counts and the overflow totals in one transfer
+                tallies = pipeline.pack_tallies(counts, overflow)
+                _, counts, overflow = pipeline.unpack_tallies(
+                    tallies.cpu().numpy())
+            pipeline.add_counts(self.stats, counts)
+            profiling.count("stream", frames=num_frames,
+                            waits=self._ring.waits)
+            for i, s in enumerate(sequences):
+                _warn_truncated(self._ring.cut[:len(s["frames"]), i],
+                                self.config.max_points, stacklevel=3)
             for i in range(b):
                 f_i = (len(sequences[i]["frames"]) if i < len(sequences)
                        else num_frames)
@@ -214,15 +197,6 @@ class BatchedOdometryRunner:
                 f"capacity overflow per sequence {overflow.tolist()} — "
                 f"raise max_downsampled/max_source/map_capacity")
         return self.poses
-
-    def _tally(self, counts):
-        """Add (B, 5) per-sequence counts (``pipeline.COUNTS``) to
-        ``stats``, and to the trace's ``gn`` counter while recording."""
-        for key, column in zip(pipeline.COUNTS, counts.T):
-            self.stats[key] += column
-        frames, passes, sources, fallbacks, trips = counts.sum(0).tolist()
-        profiling.count("gn", frames=frames, passes=passes, sources=sources,
-                        fallbacks=fallbacks, fallback_trips=trips)
 
     def run(self, sequences):
         """Run up to B sequences to completion, one ``step`` a frame
@@ -271,25 +245,26 @@ class _FrameRing:
 
     def __init__(self, batch: int, max_points: int, device: torch.device):
         self.slots = [_Slot(batch, max_points, device) for _ in range(2)]
+        self.batch = batch
         #: the times the last ``frames`` blocked on a slot's event
         self.waits = 0
-        #: (B, 2): each lane's points and scans the last ``frames`` cut at
-        #: ``max_points``
-        self.dropped = np.zeros((batch, 2), np.int64)
+        #: (F, B): the points the last ``frames`` cut from each lane's scan
+        #: of each frame at ``max_points``
+        self.cut = np.zeros((0, batch), np.int64)
 
     def frames(self, sequences, num_frames: int):
         """Yield each of ``num_frames`` batched frames' (points, stamps,
         mask, has_ts) on the device, packed from ``sequences`` when asked
         for."""
         self.waits = 0
-        self.dropped[:] = 0
+        self.cut = np.zeros((num_frames, self.batch), np.int64)
         for f in range(num_frames):
             slot = self.slots[f % 2]
             if slot.copied is not None and not slot.copied.query():
                 self.waits += 1
                 slot.copied.synchronize()
             with profiling.span("kicp.pad_batch"):
-                slot.pack(sequences, f, self.dropped)
+                slot.pack(sequences, f, self.cut[f])
             with profiling.span("kicp.upload"):
                 for twin, host in zip(slot.twin, slot.host):
                     twin.copy_(host, non_blocking=True)
@@ -321,29 +296,13 @@ class _Slot:
         self.copied = torch.cuda.Event() if pin else None
         self.reach = [0] * batch
 
-    def pack(self, sequences, f: int, dropped):
+    def pack(self, sequences, f: int, cut):
         """Write frame ``f`` of each lane (an empty scan past the end of
-        its sequence, or past the sequences), as ``offline.pad_sequence``
-        writes it."""
-        pts, ts, mask, has_ts = self.arrays
-        n = pts.shape[1]
-        for i, r in enumerate(self.reach):
+        its sequence, or past the sequences) with ``offline._write_scan``,
+        and the points it cut into ``cut`` (B,)."""
+        for i, reach in enumerate(self.reach):
             frames = sequences[i]["frames"] if i < len(sequences) else ()
             p, t = _scan(frames[f]) if f < len(frames) else (_NO_POINTS,
                                                              None)
-            k = min(len(p), n)
-            if len(p) > n:
-                dropped[i] += (len(p) - n, 1)
-            pts[i, :k] = p[:k]
-            if t is not None:
-                ts[i, :k] = t[:k]
-            elif r:
-                ts[i, :min(k, r)] = 0
-            if k < r:
-                pts[i, k:r] = 0
-                ts[i, k:r] = 0
-                mask[i, k:r] = False
-            else:
-                mask[i, r:k] = True
-            has_ts[i] = t is not None
-            self.reach[i] = k
+            cut[i] = c = _write_scan(self.arrays, i, p, t, reach)
+            self.reach[i] = len(p) - c

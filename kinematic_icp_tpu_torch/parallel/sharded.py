@@ -298,6 +298,12 @@ def _rows(axes: _Axes, state, batch: int):
     return slice(axes.d * local, (axes.d + 1) * local)
 
 
+def _local(rows: slice, frame):
+    """This rank's rows of a frame's whole-batch inputs (the batch axis
+    first)."""
+    return tuple(a[rows] for a in frame)
+
+
 def make_sharded_step(config: Config, mesh):
     """The batched step over the (data, map) mesh: ``step(state, points
     (B, N, 3), timestamps (B, N), mask (B, N), has_timestamps (B,),
@@ -333,9 +339,8 @@ def make_sharded_step(config: Config, mesh):
              relative_odometry, active):
         rows = _rows(axes, state, points.shape[0])
         state, out = frame(
-            state, points[rows], timestamps[rows], mask[rows],
-            has_timestamps[rows], lidar_to_base, relative_odometry[rows],
-            active=active[rows])
+            state, *_local(rows, (points, timestamps, mask, has_timestamps)),
+            lidar_to_base, relative_odometry[rows], active=active[rows])
         return (state, _gather_rows(out.pose, 0, axes),
                 _gather_rows(out.overflow, 0, axes))
 
@@ -364,6 +369,11 @@ def make_sharded_sequence_runner(config: Config, mesh,
     4), rels (F, B, 4, 4)) -> (state, poses (F, B, 4, 4), overflow (B,
     3), fallbacks (B,), counts (B, 5))``, as the batched runner returns
     them (no fallbacks: the sharded frame has no certificate).
+    ``run(state, frames, lidar_to_base, rels)`` takes the frames one at a
+    time instead, as ``offline.make_batched_sequence_runner``'s does: each
+    batched frame's whole-batch ``(points (B, N, 3), timestamps (B, N),
+    mask (B, N), has_ts (B,))``, asked for after the frame before was
+    issued (``BatchedOdometryRunner.run_device``'s ring).
 
     The frame loop of ``offline.make_batched_sequence_runner`` on the
     rank's rows, with the stationary gate (|log(rel)| above
@@ -383,19 +393,26 @@ def make_sharded_sequence_runner(config: Config, mesh,
     register = (functools.partial(sharded_register_frame, config=config,
                                   mesh=mesh) if eager
                 else _frame_step(config, mesh, axes))
-    frames = _runner(config, axes.device, stationary_gate, batched=True,
-                     register=register)
+    loop = _runner(config, axes.device, stationary_gate, batched=True,
+                   register=register)
 
-    def run(state, pts, ts, mask, has_ts, lidar_to_base, rels):
-        rows = _rows(axes, state, pts.shape[1])
-        state, poses, overflow, _, counts = frames(
-            state, pts[:, rows], ts[:, rows], mask[:, rows], has_ts[:, rows],
-            lidar_to_base, rels[:, rows])
+    def run(state, *inputs):
+        *frames, lidar_to_base, rels = inputs
+        if len(frames) == 4:  # padded (F, B, N, ...) tensors
+            rows = _rows(axes, state, frames[0].shape[1])
+            frames = [a[:, rows] for a in frames]
+        else:  # a source of each frame's whole-batch inputs, in order
+            rows = _rows(axes, state, rels.shape[1])
+            frames = [(_local(rows, f) for f in frames[0])]
+        state, poses, overflow, _, counts = loop(
+            state, *frames, lidar_to_base, rels[:, rows])
         # one gather of both per-sequence tallies
-        tallies = _gather_rows(torch.cat([overflow, counts], -1), 0, axes)
-        return (state, _gather_rows(poses, 1, axes), tallies[:, :3],
-                tallies[:, -1], tallies[:, 3:])
+        _, counts, overflow = pipeline.unpack_tallies(_gather_rows(
+            pipeline.pack_tallies(counts, overflow), 0, axes))
+        fallbacks = counts[:, pipeline.COUNTS.index("exact_fallback_frames")]
+        return (state, _gather_rows(poses, 1, axes), overflow, fallbacks,
+                counts)
 
     #: the runner's ``pipeline.Step`` (its graphs), or None on the eager loop
-    run.step = frames.step
+    run.step = loop.step
     return run

@@ -57,17 +57,13 @@ def next_bucket(n: int, max_points: int, min_bucket: int = 1024) -> int:
     return min(b, max_points)
 
 
-#: int32 words of a ret row after the pose's: the frame's counts
-#: (``pipeline.COUNTS``), then the running overflow totals
-_TAIL = len(pipeline.COUNTS) + 3
-
-
 def _ret(state, counts, acc):
-    """One step's readback row: the pose's bits as int32 words (16 for
-    float32, 32 for float64), the frame's (5,) int32 counts and the running
-    (3,) int32 overflow totals, so one transfer returns them exactly."""
-    return torch.cat([state.pose.reshape(-1).contiguous().view(torch.int32),
-                      counts, acc])
+    """One step's readback row (``pipeline.pack_tallies``): the pose's bits
+    as int32 words (16 for float32, 32 for float64), the frame's (5,) int32
+    counts and the running (3,) int32 overflow totals, so one transfer
+    returns them exactly."""
+    return pipeline.pack_tallies(counts, acc, head=(
+        state.pose.reshape(-1).contiguous().view(torch.int32),))
 
 
 def _server_step(state, acc, packed, extrinsic, config: Config, bucket: int,
@@ -215,9 +211,7 @@ class LidarOdometryServer:
         #: live in ``_ovf_acc`` (a running (3,) int32 accumulator) and are
         #: mirrored here at every sync point.
         self.overflow_stats = {"points_truncated": 0,
-                               "downsample_dropped": 0,
-                               "source_dropped": 0,
-                               "insert_failed": 0}
+                               **dict.fromkeys(pipeline.OVERFLOW, 0)}
         self._overflow_warned = False
         #: the operator's counts, running totals over the registered
         #: frames read back so far (a blocking frame at its return, a
@@ -429,8 +423,9 @@ class LidarOdometryServer:
             with profiling.span("kicp.readback"):
                 ret_np = ret.cpu().numpy()  # the ONE device->host sync
             new_pose = self._pose_from_ret(ret_np)
-            self._sync_overflow(ret_np[-3:])
-            self._tally(ret_np[None])
+            _, counts, overflow = pipeline.unpack_tallies(ret_np)
+            self._sync_overflow(overflow)
+            pipeline.add_counts(self.frame_stats, counts)
         else:
             self.frames_skipped += 1
         self._last_pose_np = new_pose
@@ -448,19 +443,9 @@ class LidarOdometryServer:
 
     def _pose_from_ret(self, row: np.ndarray) -> np.ndarray:
         """(4, 4) float64 pose from a ret row's leading int32 words."""
-        return (np.ascontiguousarray(row[:-_TAIL])
-                .view(_NP_DTYPE[self.dtype]).astype(np.float64)
-                .reshape(4, 4))
-
-    def _tally(self, rows: np.ndarray):
-        """Add the frame counts of (K, R) ret rows to ``frame_stats``, and
-        to the trace's ``gn`` counter while recording."""
-        sums = rows[:, -_TAIL:-3].sum(0, dtype=np.int64).tolist()
-        for key, v in zip(pipeline.COUNTS, sums):
-            self.frame_stats[key] += v
-        frames, passes, sources, fallbacks, trips = sums
-        profiling.count("gn", frames=frames, passes=passes, sources=sources,
-                        fallbacks=fallbacks, fallback_trips=trips)
+        words, _, _ = pipeline.unpack_tallies(row)
+        return (np.ascontiguousarray(words).view(_NP_DTYPE[self.dtype])
+                .astype(np.float64).reshape(4, 4))
 
     # ------------------------------------------------------------------
     def _count_truncation(self, n: int, bucket: int):
@@ -593,7 +578,8 @@ class LidarOdometryServer:
                 and self._frames_since_ovf_check
                 >= self.overflow_check_interval):
             self._frames_since_ovf_check = 0
-            self._sync_overflow(self._last_ret[-3:].cpu().numpy())
+            self._sync_overflow(
+                pipeline.unpack_tallies(self._last_ret)[2].cpu().numpy())
 
     def drain(self):
         """Synchronize all in-flight streaming frames.
@@ -609,30 +595,27 @@ class LidarOdometryServer:
             return  # nothing in flight
         with profiling.span("kicp.readback"):
             log_np = self._ret_log[:self._ret_count].cpu().numpy()
-        self._tally(log_np)
+        _, counts, overflow = pipeline.unpack_tallies(log_np)
+        pipeline.add_counts(self.frame_stats, counts.sum(0, dtype=np.int64))
         for i, (s, p) in enumerate(self.poses_with_stamps):
             if isinstance(p, _PendingPose):
                 self.poses_with_stamps[i] = (s, self._pose_from_ret(
                     log_np[p.idx]))
         last = log_np[self._ret_count - 1]
-        self._sync_overflow(last[-3:])
+        self._sync_overflow(overflow[-1])
         self._last_pose_np = self._pose_from_ret(last)
         self._ret_count = 0  # reuse the log buffer for the next stream
 
-    def _sync_overflow(self, acc: np.ndarray):
+    def _sync_overflow(self, overflow: np.ndarray):
         """Mirror the device-side running totals ((3,) int32 from a step's
-        ret tail) into ``overflow_stats``."""
-        acc = np.asarray(acc, np.int32)
-        changed = (int(acc[0]) != self.overflow_stats["downsample_dropped"]
-                   or int(acc[1]) != self.overflow_stats["source_dropped"]
-                   or int(acc[2]) != self.overflow_stats["insert_failed"])
-        self.overflow_stats["downsample_dropped"] = int(acc[0])
-        self.overflow_stats["source_dropped"] = int(acc[1])
-        self.overflow_stats["insert_failed"] = int(acc[2])
-        if acc.any() and changed:
+        ret row, ``pipeline.OVERFLOW``' columns) into ``overflow_stats``."""
+        totals = dict(zip(pipeline.OVERFLOW, np.asarray(overflow).tolist()))
+        changed = any(self.overflow_stats[k] != v for k, v in totals.items())
+        self.overflow_stats.update(totals)
+        if any(totals.values()) and changed:
             self._warn_overflow(
                 f"capacity overflow (downsample/source/insert voxels "
-                f"dropped: {acc.tolist()} total); raise "
+                f"dropped: {list(totals.values())} total); raise "
                 f"Config.max_downsampled/max_source/map_capacity")
 
     # ------------------------------------------------------------------

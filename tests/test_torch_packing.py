@@ -1,5 +1,7 @@
 """Port vs JAX: the frame upload codec (host pack, device unpack)."""
 
+import warnings
+
 import jax
 import numpy as np
 import pytest
@@ -142,9 +144,10 @@ RULE_FRAMES = 4
 
 
 def _stamp_rule_drives(stamps):
-    """The drive's poses through ``run_offline``, the server and
-    ``BatchedOdometryRunner.step``, each scan carrying ``stamps(t)`` in
-    place of its own per-point stamps t (None: no stamps)."""
+    """The drive's poses through ``run_offline``, the server,
+    ``BatchedOdometryRunner.step`` and ``BatchedOdometryRunner.run_device``,
+    each scan carrying ``stamps(t)`` in place of its own per-point stamps t
+    (None: no stamps)."""
     from kinematic_icp_tpu_torch import Config
     from kinematic_icp_tpu_torch.offline import run_offline
     from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
@@ -160,10 +163,13 @@ def _stamp_rule_drives(stamps):
     for i, (p, t) in enumerate(frames):
         server.register_frame(p, t, rels[i], stamp=0.1 * (i + 1))
     served = np.asarray([p for _, p in server.poses_with_stamps])
+    runs = [{"frames": frames, "rel_odometry": rels}]
     stepped = np.asarray(BatchedOdometryRunner(
-        cfg, 1, extrinsic=ext, device="cpu").run(
-            [{"frames": frames, "rel_odometry": rels}])[0])
-    return {"run_offline": offline, "server": served, "step": stepped}
+        cfg, 1, extrinsic=ext, device="cpu").run(runs)[0])
+    streamed = np.asarray(BatchedOdometryRunner(
+        cfg, 1, extrinsic=ext, device="cpu").run_device(runs)[0])
+    return {"run_offline": offline, "server": served, "step": stepped,
+            "run_device": streamed}
 
 
 @pytest.fixture(scope="module")
@@ -178,9 +184,9 @@ def test_every_entry_point_deskews_only_one_stamp_per_point(
     """One rule on every entry point (ROADMAP C, fixed): a scan whose stamps
     are not one per point runs without deskew, bit-equal to the same scan
     without stamps, through ``run_offline``, the server and
-    ``BatchedOdometryRunner.step`` alike (one stamp fewer used to raise a
-    broadcast error in ``step``; one more used to deskew in
-    ``run_offline`` and ``step`` and not in the server)."""
+    ``BatchedOdometryRunner.step`` and ``run_device`` alike (one stamp
+    fewer used to raise a broadcast error in ``step``; one more used to
+    deskew in ``run_offline`` and ``step`` and not in the server)."""
     def off_by_one(t):
         return (np.concatenate([t, [0.5]]).astype(np.float32) if extra > 0
                 else t[:-1])
@@ -192,15 +198,114 @@ def test_every_entry_point_deskews_only_one_stamp_per_point(
         np.testing.assert_array_equal(poses, none[path], err_msg=path)
         # the deskew moves the drive: the rule decides the poses
         assert np.abs(per_point[path] - none[path]).max() > 1e-4, path
-    for path in ("server", "step"):
+    for path in ("server", "step", "run_device"):
         np.testing.assert_allclose(got[path], got["run_offline"], atol=1e-5,
                                    rtol=0, err_msg=path)
+
+
+@pytest.mark.parametrize("path", ["run_offline", "run_device", "step",
+                                  "server"])
+def test_every_entry_point_warns_and_counts_a_cut_scan(path):
+    """A scan past ``max_points`` loses its tail on every entry point, and
+    each warns once with the points it cut (``BatchedOdometryRunner.step``
+    used to cut them silently); the server also keeps the count in
+    ``overflow_stats``."""
+    from kinematic_icp_tpu_torch import Config
+    from kinematic_icp_tpu_torch.offline import run_offline
+    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
+    from kinematic_icp_tpu_torch.server import LidarOdometryServer
+    from kinematic_icp_tpu_torch.utils import synthetic
+
+    seq = synthetic.make_sequence(RULE_FRAMES)
+    cfg, ext, rels = Config(**RULE_CFG), seq["extrinsic"], seq["rel_odometry"]
+    frames = list(seq["frames"])
+    p, t = frames[2]  # a frame that registers
+    reps = cfg.max_points // len(p) + 1
+    frames[2] = (np.concatenate([p] * reps), np.concatenate([t] * reps))
+    size = len(frames[2][0])
+    cut = size - cfg.max_points
+    runs = [{"frames": frames, "rel_odometry": rels}]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if path == "run_offline":
+            run_offline(frames, rels, cfg, extrinsic=ext, device="cpu")
+        elif path == "server":
+            server = LidarOdometryServer(cfg, extrinsic=ext, device="cpu")
+            for i, (p, t) in enumerate(frames):
+                server.register_frame(p, t, rels[i], stamp=0.1 * (i + 1))
+            assert server.overflow_stats["points_truncated"] == cut
+        else:
+            runner = BatchedOdometryRunner(cfg, 1, extrinsic=ext,
+                                           device="cpu")
+            getattr(runner, "run" if path == "step" else path)(runs)
+    want = {"server": f"scan has {size} points > Config.max_points="
+                      f"{cfg.max_points}; {cut} dropped",
+            # ``step`` sees one frame of its one lane at a time
+            "step": f"pad_sequence dropped {cut} points from 1/1 scans"
+            }.get(path, f"pad_sequence dropped {cut} points from 1/"
+                        f"{RULE_FRAMES} scans")
+    messages = [str(w.message) for w in caught]
+    assert cut > 0 and sum(want in m for m in messages) == 1, messages
+
+
+def _ragged_batch():
+    """Three sequences of 3, 2 and 4 frames for a batch of four: scans of
+    one stamp a point or none, growing and shrinking, one past 16 points,
+    and a scan without stamps where the ring's slot last held one with
+    (frames f and f + 2 share a slot)."""
+    rng = np.random.default_rng(7)
+    #: (points, stamped) of each frame of each sequence
+    spec = (((5, True), (20, False), (3, False)),
+            ((9, False), (4, True)),
+            ((12, True), (2, False), (16, False), (7, True)))
+
+    def scan(k, stamped):
+        pts = rng.uniform(-30, 30, (k, 3)).astype(np.float32)
+        return pts, (rng.uniform(0, 1, k).astype(np.float32) if stamped
+                     else None)
+
+    return [{"frames": [scan(*fr) for fr in frames],
+             "rel_odometry": [np.eye(4) + rng.normal(0, 0.01, (4, 4))
+                              for _ in frames]}
+            for frames in spec]
+
+
+def _pack_every_way(seqs, cfg, batch):
+    """Frame f's (points, stamps, mask, has_ts) (B, N, ...) rows as
+    ``pad_batch``, ``run_device``'s ring and ``BatchedOdometryRunner.step``
+    write them, each a list over frames."""
+    import torch
+
+    from kinematic_icp_tpu_torch.offline import pad_batch
+    from kinematic_icp_tpu_torch.parallel import BatchedOdometryRunner
+    from kinematic_icp_tpu_torch.parallel.batched import _FrameRing
+
+    num = max(len(s["frames"]) for s in seqs)
+    padded = pad_batch(seqs, cfg, batch)
+    ring = _FrameRing(batch, cfg.max_points, torch.device("cpu"))
+    stepped = []
+    runner = BatchedOdometryRunner(cfg, batch, device="cpu")
+
+    def spy(state, *inputs, active):
+        stepped.append([x.numpy() for x in inputs[:4]])
+        return state, None
+
+    runner._frame = spy
+    runner.run(seqs)
+    return {"pad_batch": [[a[f] for a in padded[:4]] for f in range(num)],
+            "ring": [[x.numpy().copy() for x in twin]
+                     for twin in ring.frames(seqs, num)],
+            "step": stepped}
 
 
 def test_pad_sequence_differs_from_jax_on_extra_stamps():
     """The deliberate difference from JAX, pinned: JAX's ``pad_sequence``
     (and its batched ``step``) enables deskew for at least as many stamps
-    as points; the port only for exactly one stamp per point."""
+    as points; the port only for exactly one stamp per point.  With one
+    stamp a point or none, every writer of padded rows (``pad_sequence``,
+    ``pad_batch``, ``run_device``'s ring and ``BatchedOdometryRunner.
+    step``) writes JAX's ``pad_sequence`` rows bit for bit over a ragged
+    batch."""
     from kinematic_icp_tpu import Config as JConfig
     from kinematic_icp_tpu.offline import pad_sequence as jpad
     from kinematic_icp_tpu_torch import Config
@@ -216,3 +321,24 @@ def test_pad_sequence_differs_from_jax_on_extra_stamps():
     for i in (0, 2, 4):  # points, mask, odometry
         np.testing.assert_array_equal(j[i], t[i])
     np.testing.assert_array_equal(j[1][1], t[1][1])  # the per-point stamps
+
+    n, batch = 16, 4
+    seqs = _ragged_batch()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the scan past n
+        want = [jpad(s["frames"], s["rel_odometry"], JConfig(max_points=n))
+                for s in seqs]
+        for s, w in zip(seqs, want):
+            for a, b in zip(tpad(s["frames"], s["rel_odometry"],
+                                 Config(max_points=n)), w):
+                np.testing.assert_array_equal(a, b)
+        got = _pack_every_way(seqs, Config(max_points=n), batch)
+    for f in range(4):
+        rows = [np.zeros((batch, *a.shape[1:]), a.dtype) for a in want[0][:4]]
+        for i, w in enumerate(want):
+            if f < len(w[0]):
+                for r, a in zip(rows, w[:4]):
+                    r[i] = a[f]
+        for writer, frames in got.items():
+            for r, a in zip(rows, frames[f]):
+                np.testing.assert_array_equal(a, r, err_msg=writer)

@@ -290,12 +290,15 @@ def test_ret_row_and_stats_carry_the_trips(drives):
     trips."""
     from kinematic_icp_tpu_torch import server as tserver
 
-    assert tserver._TAIL == len(pipeline.COUNTS) + 3 == 8
+    assert len(pipeline.COUNTS) + len(pipeline.OVERFLOW) == 8
     cfg = CFG.replace(**EXACT)
     state = pipeline.init_state(cfg, device=CPU)
     counts = torch.arange(5, dtype=torch.int32)
     row = tserver._ret(state, counts, torch.zeros(3, dtype=torch.int32))
     assert row.shape == (16 + 8,) and torch.equal(row[16:21], counts)
+    words, got, overflow = pipeline.unpack_tallies(row)
+    assert torch.equal(words.view(torch.float32).reshape(4, 4), state.pose)
+    assert torch.equal(got, counts) and not overflow.any()
     s = LidarOdometryServer(cfg, extrinsic=drives[0]["extrinsic"], device=CPU)
     r = BatchedOdometryRunner(cfg, 2, device=CPU)
     for stats in (s.frame_stats, r.stats):

@@ -34,12 +34,13 @@ from kinematic_icp_tpu_torch import Config
 from kinematic_icp_tpu_torch import offline as toffline
 from kinematic_icp_tpu_torch.convert import (sharded_state_from_jax,
                                              sharded_state_to_jax)
+from kinematic_icp_tpu_torch.models import pipeline
 from kinematic_icp_tpu_torch.oracle.reference import se3_log
 from kinematic_icp_tpu_torch.ops import hashmap as thm
 from kinematic_icp_tpu_torch.ops import voxel as tvox
 from kinematic_icp_tpu_torch.parallel import (BatchedOdometryRunner,
                                               make_mesh, sharded)
-from kinematic_icp_tpu_torch.utils import synthetic
+from kinematic_icp_tpu_torch.utils import profiling, synthetic
 
 # pytest-xdist runs several workers on the same cores: one intra-op
 # thread each keeps these small tensors from oversubscribing them
@@ -182,12 +183,16 @@ def one_rank():
 
 @pytest.mark.parametrize("exact", [False, True], ids=["cached", "exact"])
 def test_one_rank_mesh_bit_equal_to_unsharded_loop(one_rank, small_sequences,
-                                                   exact):
+                                                   exact, monkeypatch):
     """A (1, 1) mesh runs the unsharded loop lowering's ops, so its
     poses are its bits, through ``run_device`` and ``run`` alike; the map
     ends bit-equal too.  The exact mode with ``neighbor_candidates=10``
     re-gathers all 27 voxels, as the unsharded full-27 loop does (the
-    second JAX fault not copied: JAX's sharded exact mode gathers 10)."""
+    second JAX fault not copied: JAX's sharded exact mode gathers 10).
+    The mesh's ``run_device`` streams its frames through the ring as the
+    unsharded one does (one ``kicp.pad_batch`` span a batched frame inside
+    ``kicp.frames``, and the ``stream`` count), and its sequence runner's
+    ``fallbacks`` are its counts' ``exact_fallback_frames`` column."""
     kw = dict(exact_gn_reassociation=True, neighbor_candidates=10) \
         if exact else {}
     cfg = _port_cfg(SMALL, gn_backend="torch", **kw)
@@ -197,8 +202,39 @@ def test_one_rank_mesh_bit_equal_to_unsharded_loop(one_rank, small_sequences,
             for r in _runs(small_sequences)]
     plain = BatchedOdometryRunner(cfg, 2, device=CPU)
     want = plain.run_device(runs)
+    returned = []
+    make = sharded.make_sharded_sequence_runner
+
+    def kept(*args, **kwargs):
+        run = make(*args, **kwargs)
+
+        def recorded(*inputs):
+            returned.append(run(*inputs))
+            return returned[-1]
+
+        return recorded
+
+    monkeypatch.setattr(sharded, "make_sharded_sequence_runner", kept)
     device = BatchedOdometryRunner(cfg, 2, mesh=one_rank)
-    got = device.run_device(runs)
+    profiling._buffer.clear()
+    with profiling.recording():
+        got = device.run_device(runs)
+    spans = {}
+    for name, start, v in profiling._buffer:
+        if "end_ns" in v:
+            spans.setdefault(name, []).append((start, v["end_ns"]))
+    (outer,) = spans["kicp.frames"]
+    inside = [s for s in spans["kicp.pad_batch"]
+              if outer[0] <= s[0] and s[1] <= outer[1]]
+    assert len(inside) == len(spans["kicp.pad_batch"]) == frames
+    assert [v for _, v in profiling.samples("stream")] == [
+        {"frames": frames, "waits": 0}]
+    profiling._buffer.clear()
+    (_, _, _, fallbacks, counts), = returned
+    column = pipeline.COUNTS.index("exact_fallback_frames")
+    assert torch.equal(fallbacks, counts[:, column])
+    np.testing.assert_array_equal(device.stats["exact_fallback_frames"],
+                                  fallbacks.numpy())
     stepped = BatchedOdometryRunner(cfg, 2, mesh=one_rank).run(runs)
     for i in range(2):
         np.testing.assert_array_equal(np.asarray(got[i]), np.asarray(want[i]))
