@@ -5,9 +5,12 @@ The reference OfflineNode equivalent
 more bags through the look-ahead buffered reader, replays /tf into the
 transform buffer, converts each scan (3D PointCloud2 or 2D LaserScan),
 queries the wheel-odometry delta between scan stamps, registers it through
-``server.LidarOdometryServer.register_message`` (one GN kernel launch a
+``server.LidarOdometryServer.register_scan`` (one GN kernel launch a
 registered frame on a CUDA card), and writes
-``<bag>_kinematic_icp_poses_tum.txt``.
+``<bag>_kinematic_icp_poses_tum.txt``.  The scans are streamed
+(``blocking=False``): the poses are read only for the TUM file, so the
+card replays one scan's frame while the host reads and decodes the next,
+and the poses come back in one read-back at ``write_tum``.
 
 Usage:
   python -m kinematic_icp_tpu_torch.run_odometry BAG [BAG...]
@@ -76,8 +79,9 @@ def run(args, timings: dict | None = None) -> str:
 
     ``timings``, when given, receives the wall seconds spent reading and
     decoding messages (``read_s``: bag read, tf replay, CDR decode, scan
-    conversion), registering them (``register_s``: tf lookups and
-    ``register_frame``) and writing the outputs (``write_s``), the scans
+    conversion), registering them (``register_s``: tf lookups and the
+    streamed ``register_frame``) and writing the outputs (``write_s``:
+    with the one read-back of the poses), the scans
     written to the TUM file (``frames``), those the server registered
     (``registered``: the others were stationary) and the server's
     capacity-overflow total (``overflow``, the sum of its
@@ -88,8 +92,10 @@ def run(args, timings: dict | None = None) -> str:
     decoded in a ``kicp.decode`` span (CDR, points, per-point times), its
     tf looked up in a ``kicp.tf_lookup`` span and registered in
     ``kicp.register_frame``; the TUM file is written in
-    ``kicp.write_tum``; and one ``io`` count gives the run's scan
-    messages, tf messages, chunks, bag bytes read and bytes written."""
+    ``kicp.write_tum``, around the server's ``drain()`` (its
+    ``kicp.readback`` and its ``serve`` count); and one ``io`` count gives
+    the run's scan messages, tf messages, chunks, bag bytes read and bytes
+    written."""
     from .server import LidarOdometryServer
     from .utils import profiling
     from .utils.io.bag import BagMultiplexer, BufferableBag, decode_message
@@ -133,7 +139,7 @@ def run(args, timings: dict | None = None) -> str:
         messages += 1
         t1 = time.perf_counter()
         read_s += t1 - t0
-        result = server.register_scan(scan, tf_buffer)
+        result = server.register_scan(scan, tf_buffer, blocking=False)
         t0 = time.perf_counter()
         register_s += t0 - t1
         if result is None:

@@ -27,7 +27,9 @@ on each row, so streaming and blocking trajectories are bitwise identical,
 or (``stream_mode="scan"``) runs every row of the chunk with the padding
 rows masked through their header's ``active`` flag.  Streamed results go
 into a device-side log that is read back only at the overflow check or at
-``drain()``.
+``drain()``; each ``drain()`` that finds frames in flight records one
+``serve`` count (``utils.profiling``) of the frames streamed since the last,
+the chunks uploaded and the host's waits on the device.
 """
 
 from __future__ import annotations
@@ -236,6 +238,11 @@ class LidarOdometryServer:
         #: grown by powers of two; drain() fetches it in ONE transfer
         self._ret_log = None
         self._ret_count = 0
+        #: the ``serve`` count of the frames streamed since the last
+        #: ``drain()``: ``frames``, ``flushes`` (chunks uploaded) and
+        #: ``waits`` (the host blocked on the device: a flush's pageable
+        #: upload, every read-back)
+        self._served = dict.fromkeys(("frames", "flushes", "waits"), 0)
         # message-interface state (lazy init like LidarOdometryServer.cpp:160)
         self._initialized = initial_pose is not None or extrinsic is not None
         self._stamps_handler = None
@@ -386,10 +393,10 @@ class LidarOdometryServer:
         """
         rel = (np.eye(4) if relative_odometry is None
                else np.asarray(relative_odometry, np.float64))
-        if not blocking:
-            return self._register_streaming(points, timestamps, rel, stamp,
-                                            self._moving(rel))
         with profiling.span("kicp.register_frame"):
+            if not blocking:
+                return self._register_streaming(points, timestamps, rel,
+                                                stamp, self._moving(rel))
             return self._register_blocking(points, timestamps, rel, stamp)
 
     def _moving(self, rel) -> bool:
@@ -481,16 +488,17 @@ class LidarOdometryServer:
         self._count_truncation(n, bucket)
         if self._staging is not None and bucket != self._staging_bucket:
             self._flush()  # bucket change: ship what we have
-        if self._staging is None:
-            # zeroed: the padding of every row, and the inactive all-zero
-            # rows of a partial chunk in scan mode
-            self._staging = np.zeros(
-                (self.stream_chunk, packing.packed_words(bucket, self.upload)),
-                np.uint16)
-            self._staging_bucket = bucket
-            self._staging_rows = 0
-        packing.pack_frame_into(self._staging[self._staging_rows], points,
-                                timestamps, rel, self.upload)
+        with profiling.span("kicp.pack"):
+            if self._staging is None:
+                # zeroed: the padding of every row, and the inactive
+                # all-zero rows of a partial chunk in scan mode
+                self._staging = np.zeros(
+                    (self.stream_chunk,
+                     packing.packed_words(bucket, self.upload)), np.uint16)
+                self._staging_bucket = bucket
+                self._staging_rows = 0
+            packing.pack_frame_into(self._staging[self._staging_rows],
+                                    points, timestamps, rel, self.upload)
         self._staging_rows += 1
         self._last_pose_np = None  # pose advances on device asynchronously
         self._stream_records.append(("frame", stamp))
@@ -531,8 +539,12 @@ class LidarOdometryServer:
         fallback_pose = None
         if (staged and scan_mode and cur < 0
                 and records and records[0][0] == "skip"):
-            fallback_pose = self.state.pose.cpu().numpy().astype(np.float64)
+            fallback_pose = self._read(self.state.pose).astype(np.float64)
         if staged:
+            # the upload from pageable memory waits for the device
+            self._served["frames"] += staged
+            self._served["flushes"] += 1
+            self._served["waits"] += 1
             if scan_mode:
                 # every row runs, all-zero padding rows inactive (masked
                 # state); all stream_chunk rows append to the log, a pad
@@ -570,7 +582,7 @@ class LidarOdometryServer:
                 else:
                     self.poses_with_stamps.append(
                         (stamp, fallback_pose if fallback_pose is not None
-                         else self.state.pose.cpu().numpy().astype(
+                         else self._read(self.state.pose).astype(
                              np.float64)))
         self._staging = None
         self._staging_rows = 0
@@ -578,8 +590,15 @@ class LidarOdometryServer:
                 and self._frames_since_ovf_check
                 >= self.overflow_check_interval):
             self._frames_since_ovf_check = 0
-            self._sync_overflow(
-                pipeline.unpack_tallies(self._last_ret)[2].cpu().numpy())
+            with profiling.span("kicp.readback"):
+                self._sync_overflow(
+                    self._read(pipeline.unpack_tallies(self._last_ret)[2]))
+
+    def _read(self, tensor) -> np.ndarray:
+        """``tensor`` read back to the host, a wait on the device that the
+        ``serve`` count keeps."""
+        self._served["waits"] += 1
+        return tensor.cpu().numpy()
 
     def drain(self):
         """Synchronize all in-flight streaming frames.
@@ -587,14 +606,17 @@ class LidarOdometryServer:
         Flushes any staged frames, fetches the device-side ret log in ONE
         transfer (which waits for the device), resolves every pending pose
         record from it, and folds the device-side overflow totals into
-        ``overflow_stats`` (warning if any capacity overflowed).
+        ``overflow_stats`` (warning if any capacity overflowed); records
+        the ``serve`` count and starts it anew.
         Idempotent; a no-op after blocking calls.
         """
         self._flush()
         if not self._ret_count:
             return  # nothing in flight
         with profiling.span("kicp.readback"):
-            log_np = self._ret_log[:self._ret_count].cpu().numpy()
+            log_np = self._read(self._ret_log[:self._ret_count])
+        profiling.count("serve", **self._served)
+        self._served = dict.fromkeys(self._served, 0)
         _, counts, overflow = pipeline.unpack_tallies(log_np)
         pipeline.add_counts(self.frame_stats, counts.sum(0, dtype=np.int64))
         for i, (s, p) in enumerate(self.poses_with_stamps):
@@ -637,13 +659,14 @@ class LidarOdometryServer:
             scan = decode_scan(msg)
         return self.register_scan(scan, tf_buffer)
 
-    def register_scan(self, scan, tf_buffer):
+    def register_scan(self, scan, tf_buffer, blocking: bool = True):
         """Process one decoded ``timestamps.Scan`` against a
         TransformBuffer: lazy init seeds the pose from wheel_odom->base
         and caches the base->lidar extrinsic; per frame, the
         wheel-odometry delta between scan stamps (the previous scan's end
-        to this one's) is looked up, and the scan is registered.  Returns
-        the register_frame result dict (or None while initialization is
+        to this one's) is looked up, and the scan is registered by
+        ``register_frame(..., blocking=blocking)``.  Returns the
+        register_frame result dict (or None while initialization is
         pending)."""
         from .utils.io.timestamps import TimeStampHandler
 
@@ -668,7 +691,7 @@ class LidarOdometryServer:
             delta = tf_buffer.lookup_delta_transform(
                 cfg.base_frame, begin, scan.end, cfg.wheel_odom_frame)
         return self.register_frame(scan.points, scan.timestamps, delta,
-                                   stamp=scan.end)
+                                   stamp=scan.end, blocking=blocking)
 
     def make_odometry_message(self, result, stamp: float):
         """nav_msgs/Odometry with the parameterized fixed covariance

@@ -4,12 +4,16 @@ driver) with zstd chunks, begin-stamped per-point times, 50 Hz wheel
 odometry on /tf and a mounted LiDAR on /tf_static, run through
 ``run_odometry.run`` on the CPU and held to the plain reference
 (``icp_bench/reference/kicp.py``) on the same arrays; the ingestion
-layer's spans and its ``io`` count; the CLI's defaults; the decode's
-field extraction against the numpy path."""
+layer's spans and its ``io`` count; the streamed registration bit-equal
+to a blocking one and its ``serve`` count; the CLI's defaults; the
+decode's field extraction against the numpy path."""
 
 from __future__ import annotations
 
+import inspect
+import itertools
 import json
+import math
 import time
 from pathlib import Path
 
@@ -20,12 +24,17 @@ import torch
 from icp_bench.drivers import bag as bag_driver
 from icp_bench.reference import kicp
 from kinematic_icp_tpu_torch import Config, run_odometry
+from kinematic_icp_tpu_torch import server as tserver
 from kinematic_icp_tpu_torch.server import LidarOdometryServer
 from kinematic_icp_tpu_torch.utils import profiling
 from kinematic_icp_tpu_torch.utils.io import mcap, native, timestamps
+from kinematic_icp_tpu_torch.utils.io.bag import (BagMultiplexer,
+                                                  BufferableBag,
+                                                  decode_message)
 from kinematic_icp_tpu_torch.utils.io.messages import (PointCloud2,
                                                        PointField,
                                                        PointFieldType)
+from kinematic_icp_tpu_torch.utils.io.tf import TransformBuffer
 
 torch.set_num_threads(1)
 
@@ -102,13 +111,16 @@ def drive(request, tmp_path_factory):
     return d, path, params
 
 
-def _run(d, path, params, out):
-    timings = {}
-    args = run_odometry.build_arg_parser().parse_args(
+def _args(path, params, out, device="cpu"):
+    return run_odometry.build_arg_parser().parse_args(
         [str(path), "--config", str(params), "--output-dir", str(out),
-         "--no-progress", "--device", "cpu",
+         "--no-progress", "--device", device,
          "--max-points", str(SMALL["max_points"])])
-    tum = run_odometry.run(args, timings)
+
+
+def _run(d, path, params, out, device="cpu"):
+    timings = {}
+    tum = run_odometry.run(_args(path, params, out, device), timings)
     return tum, timings
 
 
@@ -157,9 +169,6 @@ def test_bag_through_the_cli_matches_the_reference(drive, recorded):
 def test_the_odometry_between_end_stamps_is_the_drives(drive):
     """The /tf samples make ``lookup_delta_transform`` between two scans'
     end stamps return the drive's odometry (to rounding)."""
-    from kinematic_icp_tpu_torch.utils.io.bag import (BufferableBag,
-                                                      decode_message)
-    from kinematic_icp_tpu_torch.utils.io.tf import TransformBuffer
     d, path, _ = drive
     tf = TransformBuffer()
     bag = BufferableBag(str(path), tf, "/lidar_points")
@@ -208,6 +217,92 @@ def test_ingestion_spans_are_recorded_once_a_message(recorded):
     # the server's own spans nest inside its frames
     for s, e in _spans("kicp.pack", lo, hi):
         assert any(a <= s and e <= b for a, b in frame)
+    # a chunk's upload in the frame that fills it, or in the drain
+    upload = _spans("kicp.upload", lo, hi)
+    assert upload and all(any(a <= s and e <= b for a, b in frame + write)
+                          for s, e in upload)
+    # the streamed frames come back in one read-back, at the TUM file
+    back = _spans("kicp.readback", lo, hi)
+    assert back and all(write[0][0] <= s and e <= write[0][1]
+                        for s, e in back)
+
+
+def test_one_serve_count_a_run(drive, recorded):
+    """One ``serve`` count, at the drain inside ``write_tum``: every
+    registered frame streamed, a chunk an upload (one more at each change
+    of point bucket) and a wait a chunk's upload, an overflow read every 64
+    frames and the drain's read-back."""
+    d, _, _ = drive
+    tum, timings, (lo, hi) = recorded
+    (ws, we), = _spans("kicp.write_tum", lo, hi)
+    (t, serve), = profiling.samples("serve", lo, hi)
+    assert ws <= t <= we
+    frames = serve["frames"]
+    assert frames == timings["registered"] == FRAMES - 1
+    chunk = inspect.signature(LidarOdometryServer).parameters[
+        "stream_chunk"].default
+    # the first scan is at rest; a run of one bucket ships in full chunks
+    buckets = [tserver.next_bucket(len(p), SMALL["max_points"])
+               for p, _ in d.drive["frames"][1:]]
+    runs = [sum(1 for _ in g) for _, g in itertools.groupby(buckets)]
+    assert serve["flushes"] == sum(math.ceil(n / chunk) for n in runs)
+    assert serve["flushes"] + 1 <= serve["waits"] <= (
+        serve["flushes"] + frames // 64 + 1)
+
+
+def _blocking_run(path, params, out, device):
+    """The bag read as ``run_odometry.run`` reads it, each scan through
+    ``register_scan(..., blocking=True)``: (server, TUM path)."""
+    config, server_cfg = run_odometry.configs(_args(path, params, out,
+                                                    device))
+    server = LidarOdometryServer(config, server_cfg, device=device)
+    tf = TransformBuffer()
+    mux = BagMultiplexer()
+    mux.add_bag(BufferableBag(str(path), tf, "/lidar_points"))
+    for raw in mux:
+        msg = decode_message(raw)
+        if isinstance(msg, PointCloud2):
+            assert server.register_scan(timestamps.decode_scan(msg), tf,
+                                        blocking=True) is not None
+    tum = out / "blocking_poses_tum.txt"
+    server.write_tum(tum)
+    return server, tum
+
+
+@pytest.mark.parametrize("device", ["cpu",
+                                    pytest.param("cuda",
+                                                 marks=pytest.mark.cuda)])
+def test_streamed_run_is_bit_equal_to_blocking_frames(drive, device,
+                                                      tmp_path, monkeypatch):
+    """``run_odometry.run`` streams its scans; a hand loop of the same bag
+    through blocking frames gives the same poses bit for bit, the same TUM
+    file, ``frame_stats`` and ``overflow_stats`` (on a card, graph
+    replays on both sides)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph replays run only there")
+    d, path, params = drive
+    made = []
+
+    class Recorded(LidarOdometryServer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(tserver, "LidarOdometryServer", Recorded)
+    tum, timings = _run(d, path, params, tmp_path, device)
+    monkeypatch.undo()
+    streamed, = made
+    blocking, tum_b = _blocking_run(path, params, tmp_path, device)
+    assert len(streamed.poses_with_stamps) == FRAMES
+    for (s0, p0), (s1, p1) in zip(streamed.poses_with_stamps,
+                                  blocking.poses_with_stamps, strict=True):
+        assert s0 == s1 and p0.dtype == p1.dtype == np.float64
+        np.testing.assert_array_equal(p0, p1)
+    assert Path(tum).read_bytes() == tum_b.read_bytes()
+    assert streamed.frame_stats == blocking.frame_stats
+    assert streamed.frame_stats["frames"] == timings["registered"]
+    assert streamed.overflow_stats == blocking.overflow_stats
+    assert streamed.frames_skipped == blocking.frames_skipped == 1
 
 
 def test_one_io_count_a_run(drive, recorded):
@@ -228,9 +323,10 @@ def test_one_io_count_a_run(drive, recorded):
 
 def test_nothing_is_recorded_outside_recording(drive, tmp_path):
     d, path, params = drive
-    before = len(profiling.samples("kicp.bag_read"))
+    before = [len(profiling.samples(n)) for n in ("kicp.bag_read", "serve")]
     _run(d, path, params, tmp_path)
-    assert len(profiling.samples("kicp.bag_read")) == before
+    assert [len(profiling.samples(n))
+            for n in ("kicp.bag_read", "serve")] == before
 
 
 def test_overflow_total_reaches_the_timings(tmp_path):

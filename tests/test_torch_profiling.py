@@ -334,6 +334,29 @@ def test_streaming_keeps_its_poses_and_counts_with_the_wider_row(
     assert servers[False].overflow_stats == servers[True].overflow_stats
 
 
+@pytest.mark.parametrize("stream_mode", ["steps", "scan"])
+def test_serve_count_a_drain(drives, stream_mode, empty_buffer):
+    """Streamed frames in chunks of 3, the overflow read every 3: one
+    ``serve`` count at the drain that finds frames in flight, none at one
+    that finds none nor for blocking frames.  Its waits: an upload a
+    chunk, the overflow reads after the first two chunks, the pose of the
+    stationary first frame (read before any frame is logged) and the
+    drain's read-back."""
+    seq = drives[1]
+    with profiling.recording():
+        s = LidarOdometryServer(CFG, extrinsic=seq["extrinsic"], device=CPU,
+                                stream_chunk=3, stream_mode=stream_mode,
+                                overflow_check_interval=3)
+        _feed(s, seq, blocking=False)
+        s.drain()
+        s.drain()
+        _feed(LidarOdometryServer(CFG, extrinsic=seq["extrinsic"],
+                                  device=CPU), seq)
+    assert [v for _, v in profiling.samples("serve")] == [
+        {"frames": NUM_FRAMES - 1, "flushes": 3, "waits": 3 + 2 + 1 + 1}]
+    assert s.frame_stats["frames"] == NUM_FRAMES - 1
+
+
 def test_run_device_keeps_the_counts_it_read_back(drives, empty_buffer):
     """``BatchedOdometryRunner.run_device`` (certified, B = 4, three
     drives: a padding row) in two chunks: each row's ``stats`` equal its
