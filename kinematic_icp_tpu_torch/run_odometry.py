@@ -89,13 +89,15 @@ def run(args, timings: dict | None = None) -> str:
 
     While recording (``utils.profiling``) each scan's message is read in
     a ``kicp.bag_read`` span (records, chunk decompression, tf replay),
-    decoded in a ``kicp.decode`` span (CDR, points, per-point times), its
+    decoded in a ``kicp.decode`` span (CDR, points, per-point times; the
+    per-point times' extraction, digit rule and normalization in a
+    ``kicp.stamps`` span inside it), its
     tf looked up in a ``kicp.tf_lookup`` span and registered in
     ``kicp.register_frame``; the TUM file is written in
     ``kicp.write_tum``, around the server's ``drain()`` (its
     ``kicp.readback`` and its ``serve`` count); and one ``io`` count gives
-    the run's scan messages, tf messages, chunks, bag bytes read and bytes
-    written."""
+    the run's scan messages, points decoded from them, tf messages, chunks,
+    bag bytes read and bytes written."""
     from .server import LidarOdometryServer
     from .utils import profiling
     from .utils.io.bag import BagMultiplexer, BufferableBag, decode_message
@@ -120,7 +122,7 @@ def run(args, timings: dict | None = None) -> str:
     progress = (None if args.no_progress
                 else ProgressBar(total, desc="kinematic-icp"))
     read_s = register_s = 0.0
-    processed = messages = 0
+    processed = messages = points = 0
     stream = iter(mux)
     t0 = time.perf_counter()
     while not (args.max_frames and processed >= args.max_frames):
@@ -137,6 +139,7 @@ def run(args, timings: dict | None = None) -> str:
         if scan is None:
             continue
         messages += 1
+        points += len(scan.points)
         t1 = time.perf_counter()
         read_s += t1 - t0
         result = server.register_scan(scan, tf_buffer, blocking=False)
@@ -162,7 +165,7 @@ def run(args, timings: dict | None = None) -> str:
         server.write_tum(out_path)
     print(f"wrote {processed} poses to {out_path}")
     readers = [b.reader for b in mux.bags]
-    profiling.count("io", messages=messages,
+    profiling.count("io", messages=messages, points=points,
                     tf_messages=sum(b.tf_messages for b in mux.bags),
                     chunks=sum(r.chunks for r in readers),
                     bytes_in=sum(r.bytes_read for r in readers),

@@ -15,7 +15,9 @@ Reimplements the reference ``TimeStampHandler``
   * a missing field yields empty timestamps => deskew disabled (cpp:51-54).
 
 ``decode_scan`` gives a cloud's points, stamps and normalized per-point
-times in one ``Scan``.
+times in one ``Scan``; while recording (``utils.profiling``) its time
+field's extraction, digit rule and normalization run in a
+``kicp.stamps`` span.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from .. import profiling
 from .messages import PointCloud2, PointFieldType
 
 _CANDIDATE_FIELDS = ("t", "timestamp", "time", "stamps")
@@ -62,20 +65,21 @@ class Scan(NamedTuple):
 def decode_scan(msg: PointCloud2) -> Scan:
     """The points, stamps and normalized per-point times of a cloud
     (cpp:115-135)."""
-    stamps = extract_timestamps(msg)
     stamp = msg.header.stamp.to_sec()
     end = stamp
     normalized = None
-    if stamps is not None and len(stamps):
-        mx = float(np.max(stamps))
-        mn = float(np.min(stamps))
-        if abs(stamp - mx) > 1e-8:
-            # begin-stamped scan: extend by the scan duration
-            end = stamp + (mx - mn)
-        if mx > mn:
-            normalized = ((stamps - mn) / (mx - mn)).astype(np.float32)
-        # mx == mn: degenerate stamps; deskew would be a no-op — treat
-        # as missing (the C++ would divide by zero here)
+    with profiling.span("kicp.stamps"):
+        stamps = extract_timestamps(msg)
+        if stamps is not None and len(stamps):
+            mx = float(np.max(stamps))
+            mn = float(np.min(stamps))
+            if abs(stamp - mx) > 1e-8:
+                # begin-stamped scan: extend by the scan duration
+                end = stamp + (mx - mn)
+            if mx > mn:
+                normalized = ((stamps - mn) / (mx - mn)).astype(np.float32)
+            # mx == mn: degenerate stamps; deskew would be a no-op — treat
+            # as missing (the C++ would divide by zero here)
     return Scan(msg.xyz(), stamp, end, normalized, msg.header.frame_id)
 
 
