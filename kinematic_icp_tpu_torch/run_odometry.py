@@ -97,7 +97,9 @@ def run(args, timings: dict | None = None) -> str:
     ``kicp.write_tum``, around the server's ``drain()`` (its
     ``kicp.readback`` and its ``serve`` count); and one ``io`` count gives
     the run's scan messages, points decoded from them, tf messages, chunks,
-    bag bytes read and bytes written."""
+    bag bytes read, the payload bytes the readers copied after reading
+    them (``bytes_copied``: 0 where every message is a view of what was
+    read) and bytes written."""
     from .server import LidarOdometryServer
     from .utils import profiling
     from .utils.io.bag import BagMultiplexer, BufferableBag, decode_message
@@ -169,6 +171,7 @@ def run(args, timings: dict | None = None) -> str:
                     tf_messages=sum(b.tf_messages for b in mux.bags),
                     chunks=sum(r.chunks for r in readers),
                     bytes_in=sum(r.bytes_read for r in readers),
+                    bytes_copied=sum(r.bytes_copied for r in readers),
                     bytes_out=os.path.getsize(out_path))
 
     if args.visualize and server.poses_with_stamps:

@@ -7,6 +7,10 @@ little-endian subset ROS 2 uses: a 4-byte encapsulation header followed by
 primitives aligned to their size (relative to the post-header origin),
 ``string`` as uint32 length + bytes + NUL, sequences as uint32 count +
 elements.
+
+``CdrReader`` reads any bytes-like payload (``bytes``, or a ``memoryview``
+of the bag's chunk) without copying it: byte and float sequences come back
+as views of the payload, and only strings are copied out.
 """
 
 from __future__ import annotations
@@ -15,12 +19,12 @@ import struct
 
 
 class CdrReader:
-    def __init__(self, data: bytes):
-        self.data = data
+    def __init__(self, data: bytes | memoryview):
+        self.data = memoryview(data)
         if len(data) < 4:
             raise ValueError("CDR payload too short")
         # encapsulation: {representation_id (2B), options (2B)}
-        rep = data[:2]
+        rep = bytes(self.data[:2])
         if rep not in (b"\x00\x01", b"\x00\x00"):
             raise ValueError(f"unsupported CDR encapsulation {rep!r}")
         self.little = rep[1] == 1
@@ -71,11 +75,12 @@ class CdrReader:
 
     def string(self) -> str:
         n = self.uint32()
-        s = self.data[self.pos:self.pos + n]
+        s = bytes(self.data[self.pos:self.pos + n])
         self.pos += n
         return s.rstrip(b"\x00").decode("utf-8", errors="replace")
 
-    def bytes_seq(self) -> bytes:
+    def bytes_seq(self) -> memoryview:
+        """A view of the payload's bytes: no copy."""
         n = self.uint32()
         b = self.data[self.pos:self.pos + n]
         self.pos += n

@@ -6,6 +6,16 @@ that rosbag2 writes — Header/Schema/Channel/Message records, optionally
 wrapped in zstd-, lz4- or uncompressed Chunks — and writes valid minimal
 files for round-trip tests and dataset conversion.  lz4 uses the bundled
 pure-Python codec (utils/io/lz4f.py) when no lz4 module is available.
+
+One copy of a message: the reader's file read of a record, or the
+decompressed output of a chunk, is the only copy of a message's bytes
+before its decode.  Chunks, records and message bodies are cut from it as
+``memoryview`` slices, so ``Message.data`` is a view into the chunk it came
+in (``bytes_copied`` counts what was copied instead: 0 on this path), and
+the CDR decode slices it further by view.  A view keeps its whole chunk
+alive for as long as the message, or a cloud decoded from it, is held;
+the buffer is never reused, so a message held across later chunks stays
+intact.  Schema data and strings are small, and are copied out.
 """
 
 from __future__ import annotations
@@ -57,7 +67,9 @@ class Message:
     log_time: int       # nanoseconds
     publish_time: int
     sequence: int
-    data: bytes
+    #: the CDR payload, bytes-like: a view into the record or chunk it
+    #: was read in
+    data: bytes | memoryview
 
     @property
     def log_time_sec(self) -> float:
@@ -66,7 +78,7 @@ class Message:
 
 def _read_prefixed_string(buf, pos):
     n = struct.unpack_from("<I", buf, pos)[0]
-    return buf[pos + 4:pos + 4 + n].decode("utf-8"), pos + 4 + n
+    return str(buf[pos + 4:pos + 4 + n], "utf-8"), pos + 4 + n
 
 
 class McapReader:
@@ -88,6 +100,9 @@ class McapReader:
         #: chunks it decompressed
         self.bytes_read = len(MAGIC)
         self.chunks = 0
+        #: payload bytes copied after the file read or the decompression
+        #: on the way to a message (``_cut``): 0 while every cut is a view
+        self.bytes_copied = 0
 
     def close(self):
         if self._owns:
@@ -100,35 +115,45 @@ class McapReader:
         self.close()
 
     # ------------------------------------------------------------------
-    def _parse_schema(self, rec: bytes):
+    def _cut(self, buf, start: int, stop: int | None = None):
+        """``buf[start:stop]``: a view of a ``memoryview``, else a copy,
+        which ``bytes_copied`` counts."""
+        part = buf[start:stop]
+        if not isinstance(part, memoryview):
+            self.bytes_copied += len(part)
+        return part
+
+    def _parse_schema(self, rec):
         sid, = struct.unpack_from("<H", rec, 0)
         name, pos = _read_prefixed_string(rec, 2)
         enc, pos = _read_prefixed_string(rec, pos)
         dlen, = struct.unpack_from("<I", rec, pos)
-        data = rec[pos + 4:pos + 4 + dlen]
+        # a copy: the reader keeps its schemas, which must not hold a chunk
+        data = bytes(rec[pos + 4:pos + 4 + dlen])
         self.schemas[sid] = Schema(sid, name, enc, data)
 
-    def _parse_channel(self, rec: bytes):
+    def _parse_channel(self, rec):
         cid, sid = struct.unpack_from("<HH", rec, 0)
         topic, pos = _read_prefixed_string(rec, 4)
         enc, pos = _read_prefixed_string(rec, pos)
         self.channels[cid] = Channel(cid, sid, topic, enc)
 
-    def _parse_message(self, rec: bytes) -> Message:
+    def _parse_message(self, rec: memoryview) -> Message:
         cid, seq, log_t, pub_t = struct.unpack_from("<HIQQ", rec, 0)
         ch = self.channels.get(cid)
         if ch is None:
             raise ValueError(f"message on unknown channel {cid}")
         schema = self.schemas.get(ch.schema_id)
-        return Message(ch, schema, log_t, pub_t, seq, rec[22:])
+        return Message(ch, schema, log_t, pub_t, seq, self._cut(rec, 22))
 
-    def _iter_records(self, buf: bytes) -> Iterator[tuple[int, bytes]]:
+    def _iter_records(self, buf: memoryview
+                      ) -> Iterator[tuple[int, memoryview]]:
         pos = 0
         while pos + 9 <= len(buf):
             op = buf[pos]
             length, = struct.unpack_from("<Q", buf, pos + 1)
             pos += 9
-            yield op, buf[pos:pos + length]
+            yield op, self._cut(buf, pos, pos + length)
             pos += length
 
     def messages(self, topics=None) -> Iterator[Message]:
@@ -157,21 +182,21 @@ class McapReader:
             elif op == OP_CHANNEL:
                 self._parse_channel(rec)
             elif op == OP_MESSAGE:
-                msg = self._parse_message(rec)
+                msg = self._parse_message(memoryview(rec))
                 if topics is None or msg.channel.topic in topics:
                     yield msg
             elif op == OP_CHUNK:
-                yield from self._iter_chunk(rec, topics)
+                yield from self._iter_chunk(memoryview(rec), topics)
             # other records (indexes, stats, attachments) are skipped
 
-    def _iter_chunk(self, rec: bytes, topics) -> Iterator[Message]:
+    def _iter_chunk(self, rec: memoryview, topics) -> Iterator[Message]:
         # Chunk: start_time(8) end_time(8) uncompressed_size(8)
         #        uncompressed_crc(4) compression(string) records_len(8) records
         pos = 28
         compression, pos = _read_prefixed_string(rec, pos)
         rlen, = struct.unpack_from("<Q", rec, pos)
         pos += 8
-        payload = rec[pos:pos + rlen]
+        payload = self._cut(rec, pos, pos + rlen)
         self.chunks += 1
         if compression in ("", "none"):
             records = payload
@@ -188,7 +213,7 @@ class McapReader:
                 records = decompress_frame(payload)
         else:
             raise ValueError(f"unknown chunk compression {compression!r}")
-        for op, body in self._iter_records(records):
+        for op, body in self._iter_records(memoryview(records)):
             if op == OP_SCHEMA:
                 self._parse_schema(body)
             elif op == OP_CHANNEL:

@@ -96,11 +96,13 @@ class PointCloud2:
     is_bigendian: bool = False
     point_step: int = 0
     row_step: int = 0
-    data: bytes = b""
+    #: the points' bytes, bytes-like: from ``decode``, a view of the
+    #: payload (read from a bag: of its chunk), which nothing writes into
+    data: bytes | memoryview = b""
     is_dense: bool = True
 
     @staticmethod
-    def decode(payload: bytes) -> "PointCloud2":
+    def decode(payload: bytes | memoryview) -> "PointCloud2":
         r = CdrReader(payload)
         msg = PointCloud2()
         msg.header = Header.read(r)
@@ -217,7 +219,7 @@ class LaserScan:
         default_factory=lambda: np.zeros(0))
 
     @staticmethod
-    def decode(payload: bytes) -> "LaserScan":
+    def decode(payload: bytes | memoryview) -> "LaserScan":
         r = CdrReader(payload)
         msg = LaserScan()
         msg.header = Header.read(r)

@@ -133,10 +133,14 @@ def _ptr(arr, typ):
     return arr.ctypes.data_as(typ)
 
 
-def extract_pointcloud(data: bytes, n_points: int, point_step: int,
-                       x_offset: int, y_offset: int, z_offset: int,
-                       xyz_dtype: int, t_offset: int = -1, t_dtype: int = 0):
+def extract_pointcloud(data: bytes | memoryview, n_points: int,
+                       point_step: int, x_offset: int, y_offset: int,
+                       z_offset: int, xyz_dtype: int, t_offset: int = -1,
+                       t_dtype: int = 0):
     """Native field extraction; returns (xyz (N,3) f32, t (N,) f64 or None).
+
+    ``data`` is bytes-like (bytes or a ``memoryview``, read in place, never
+    written).
 
     Returns None if the native library is unavailable (caller falls back).
     """

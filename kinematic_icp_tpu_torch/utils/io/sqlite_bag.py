@@ -35,9 +35,11 @@ class SqliteBagReader:
             self.schemas[tid] = Schema(tid, typ, "ros2msg", b"")
             self.channels[tid] = Channel(tid, tid, name, fmt or "cdr")
         #: what ``messages()`` has read so far: the messages' bytes (a
-        #: database has no chunks)
+        #: database has no chunks, and hands over each message's bytes as
+        #: it read them)
         self.bytes_read = 0
         self.chunks = 0
+        self.bytes_copied = 0
 
     def close(self):
         self._conn.close()
